@@ -11,6 +11,10 @@ def pytest_configure(config):
         "run with -m hyp, excluded from tier-1 via -m 'not hyp')")
     config.addinivalue_line(
         "markers", "slow: long-running tests, excluded from quick loops")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA card (the port's CUDA kernels); skips "
+        "without one")
 
 
 @pytest.fixture
