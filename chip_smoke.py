@@ -5,14 +5,19 @@
 
 Phases, each fatal on failure:
 
-1. build  — compile both CUDA kernels from ``src/repro_torch/kernels/csrc``
-   with nvcc for sm_90a (into the git-ignored ``build/``) and print the
-   card's name and power limit.
+1. build  — compile the three CUDA sources from
+   ``src/repro_torch/kernels/csrc`` (one nvcc each, started together) for
+   sm_90a into the git-ignored ``build/``, and print the card's name and
+   power limit.
 2. kernels — each kernel against its plain PyTorch version on the card:
-   small fp32 shapes over every flag (tolerance 1e-4), then the serving
+   small fp32 shapes over every flag (tolerance 1e-4), then the main
    path's real shapes in bf16 against the plain version in fp32 on the
-   same bf16 inputs (a per-row tolerance, stated below).
-3. prefill — the main path begins: dti-llama ``FULL`` (32 layers,
+   same bf16 inputs (a per-row tolerance, stated below). 2a/2c: the
+   windowed-attention forward (kernel 1); 2b/2c: decode attention
+   (kernel 4); 2d: the backward kernels (dq, dk/dv) through the autograd
+   Function, then at the training shape, then cross-segment gradients,
+   which must be exactly 0.
+3. prefill — the serving path begins: dti-llama ``FULL`` (32 layers,
    Llama-3.1-8B widths, random seeded weights, bf16) scores 8
    sliding-window prompts of ~1,570 tokens through ``CTRServer.score``;
    the windowed kernel must run once per layer.
@@ -20,14 +25,26 @@ Phases, each fatal on failure:
    valid-padded chunks, then a 6-candidate ``commit=False`` burst with
    segment ids whose scores must match per-candidate prefill; then ring
    steps whose final [SUM] score must match phase 3. The decode kernel
-   must run once per layer per step. The launch counts are read here,
-   and cover phases 3 and 4 only.
+   must run once per layer per step. The serving path's launch counts
+   are read here, and cover phases 3 and 4 only.
 5. full-width checks — the same weights in fp32 through the kernel path
    and the dense path, prefill and every decode step of phase 4; and the
    bf16 kernel path's drift from fp32 against the bf16 dense path's.
-6. times — prefill call, decode step, and each kernel beside its plain
-   version and ``scaled_dot_product_attention`` (the library yardstick,
-   never used by the port), with CUDA events.
+7. training — the training path, with the counts reset before it and
+   read after it: the same bf16 weights train LoRA (rank 8,
+   ``trainable="lora"``, remat, reset and ALiBi on, window 1024) for 4
+   steps of 8 DTI streaming rows of 2048 tokens through
+   ``make_train_step`` and ``Trainer``. Per step kernel 1 runs 64 times
+   (forward and remat recompute), kernels 2 and 3 32 times each, no plain
+   version at all; losses finite; frozen leaves bit for bit unchanged,
+   every LoRA leaf (``lora_scale`` too) moved; then ``evaluate_lm`` on 16
+   test prompts.
+8. fp32 training check — 2 layers at FULL widths in fp32: loss and every
+   LoRA gradient, kernel path against dense path.
+6. times — prefill call, decode step and train step, peak memory, the
+   frozen weight-gradient pass's cost, and each kernel beside its plain
+   version and ``scaled_dot_product_attention`` (forward or backward: the
+   library yardstick, never used by the port), with CUDA events.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. With no card, or run
@@ -71,6 +88,16 @@ LSE_TOL = 1e-3
 # prefill) agree within P_TOL, a check of the serving logic (cache
 # commits, segments, ring slots), not of the kernels' arithmetic.
 P32_TOL = 1e-3
+# The backward kernels at the training shape are held as the forward is,
+# against the plain version given the kernels' own delta = <do, o> (o is
+# kernel 1's bf16 output, as in the reference; the plain version takes the
+# difference as an lse cotangent, see ``windowed_attention_bwd_plain``),
+# plus a floor: where a row's gradient cancels (a query with one
+# attendable key has p = 1 and ds = dp - delta = 0), the plain version's
+# softmax backward gives exactly 0 while the kernel's dp and the wrapper's
+# delta, summed in different orders, leave ~1e-7 of the gradient's scale.
+# GRAD_FLOOR is 1e-5 of the largest |gradient| of the batch row.
+GRAD_FLOOR = 1e-5
 DRIFT_SLACK = 5e-3
 P_TOL = 5e-2
 
@@ -91,18 +118,20 @@ def check_close(name, got, want, tol):
     return err
 
 
-def check_rows(name, got, want):
+def check_rows(name, got, want, quiet=False, floor=0.0):
     """Hold a bf16 kernel output against the fp32 plain one, element by
-    element, at ROUND_TOL * |want| + ROW_TOL * max|want| over its row."""
+    element, at ROUND_TOL * |want| + ROW_TOL * max|want| over its row
+    (+ ``floor``)."""
     want = want.float()
     err = (got.float() - want).abs()
     tol = (ROUND_TOL * want.abs()
-           + ROW_TOL * want.abs().amax(dim=-1, keepdim=True))
+           + ROW_TOL * want.abs().amax(dim=-1, keepdim=True) + floor)
     bad = int((err > tol).sum())
     worst = (err / tol.clamp_min(1e-30)).max().item()
     max_err = err.max().item()
-    log(f"  {name}: max|err| {max_err:.3e}, worst err/tol {worst:.3f} "
-        f"(tol {ROUND_TOL:g}|o| + {ROW_TOL:g} max|o_row|)")
+    if not quiet or bad:
+        log(f"  {name}: max|err| {max_err:.3e}, worst err/tol {worst:.3f} "
+            f"(tol {ROUND_TOL:g}|o| + {ROW_TOL:g} max|o_row|)")
     if bad:
         fail(f"{name}: {bad} elements beyond tolerance (worst err/tol "
              f"{worst})")
@@ -327,6 +356,165 @@ def check_kernels_real():
                      want)
     res["decode_attn"] = dict(err=err, ops=(o, kw))
     return res
+
+
+# ---------------------------------------------------------------------------
+# phase 2d: the backward kernels against their plain version
+# ---------------------------------------------------------------------------
+
+GRADS = ("dq", "dk", "dv", "dq_nope", "dk_nope", "dv0")
+PASS_GRADS = {"windowed_attn_dq": ("dq", "dq_nope"),
+              "windowed_attn_dkv": ("dk", "dv", "dk_nope", "dv0")}
+
+
+def kernel_grads(q, k, v, do, **kw):
+    """Kernels 2 and 3 through the autograd Function around kernel 1:
+    ``(dq, dk, dv, dq_nope, dk_nope, dv0)``, None for streams not live."""
+    from repro_torch.kernels.windowed_attn import windowed_attention
+    names = [n for n in ("q_nope", "k_nope", "v0") if kw.get(n) is not None]
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    extra = {n: kw[n].detach().requires_grad_(True) for n in names}
+    windowed_attention(*leaves, **dict(kw, **extra)).backward(do)
+    got = {n: extra[n].grad for n in names}
+    return tuple(t.grad for t in leaves) + tuple(
+        got.get(n) for n in ("q_nope", "k_nope", "v0"))
+
+
+def train_windowed(gen):
+    """Kernels 2 and 3 at the training shape of phase 7: B=8, S=2048,
+    H=32, Hk=8, D=128, window 1024, NoPE + reset + [SUM] isolation, 20
+    [SUM] rows in each row's tail as streaming prompts place them, and
+    padded tails of 8-60 slots."""
+    o = windowed_operands(gen, B=8, S=2048, H=32, Hk=8, D=128, Dv=128,
+                          dtype=torch.bfloat16)
+    B, S = o["valid"].shape
+    o["is_sum"] = torch.zeros(B, S, dtype=torch.bool, device="cuda")
+    o["valid"] = torch.ones(B, S, dtype=torch.bool, device="cuda")
+    for b in range(B):
+        n = S - 8 - 7 * b
+        o["valid"][b, n:] = False
+        o["is_sum"][b, n - 1 - 7 * torch.arange(20, device="cuda")] = True
+    o["do"] = (torch.randn(B, S, 32, 128, generator=gen, device="cuda")
+               .to(torch.bfloat16))
+    kw = windowed_kwargs(o, window=1024, nope=True, reset=True,
+                         packed=False, sum_iso=True)
+    return o, kw
+
+
+def card_leakage(lens, *, window, seed, with_sum, target_seg):
+    """Largest |gradient| through kernels 2 and 3 of segment
+    ``target_seg``'s summed output with respect to q, k and v at every
+    other segment's positions (the layouts of the reference's
+    ``tests/test_kernel_grads.py::_leakage_case``)."""
+    from repro_torch.core.windowed import ResetConfig
+    H, D, S = 2, 8, ((sum(lens) + 7) // 8) * 8
+    n_pad = S - sum(lens)
+    seg = np.concatenate([np.repeat(np.arange(len(lens)), lens),
+                          np.full(n_pad, -1)]).astype(np.int32)
+    pos = np.concatenate([np.concatenate([np.arange(n) for n in lens]),
+                          np.zeros(n_pad)]).astype(np.int32)
+    valid = seg >= 0
+    r = np.random.default_rng(seed)
+    is_sum = (r.random(S) < 0.25) & valid if with_sum else np.zeros(S, bool)
+    x = _cuda(*[r.normal(size=(1, S, H, D)).astype(np.float32)
+                for _ in range(6)])
+    seg_t, pos_t, valid_t, sum_t = _cuda(seg[None], pos[None], valid[None],
+                                         is_sum[None])
+    kw = dict(pos_q=pos_t, pos_k=pos_t, window=window, seg_q=seg_t,
+              seg_k=seg_t, valid_k=valid_t)
+    if with_sum:
+        kw.update(is_sum_q=sum_t, is_sum_k=sum_t, q_nope=x[3], k_nope=x[4],
+                  alibi=torch.tensor([0.3, 0.1], device="cuda"), v0=x[5],
+                  reset=ResetConfig(0.05, 0.3, window / 2))
+    sel = torch.from_numpy(seg == target_seg).cuda()[None, :, None, None]
+    do = sel.float().expand(1, S, H, D).contiguous()
+    g = kernel_grads(x[0], x[1], x[2], do, **kw)[:3]
+    torch.cuda.synchronize()
+    others = torch.from_numpy((seg != target_seg) & valid).cuda()
+    return max(float(t[0, others].abs().max()) for t in g)
+
+
+def check_kernels_bwd():
+    """Phase 2d. Off the main path: the launches here are reset before
+    phase 3."""
+    from repro_torch.kernels.windowed_attn import windowed_attention_bwd_plain
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    log("phase 2d: windowed_attn_dq / windowed_attn_dkv vs plain, fp32, "
+        "small shapes")
+    cases = [  # window, nope, reset, packed, sum_iso, Hk, Dv, S, empty_row
+        (48, False, False, False, False, 8, 64, 256, False),
+        (48, True, False, False, True, 4, 64, 200, True),
+        (48, True, True, False, True, 2, 48, 200, False),
+        (100, False, True, True, True, 2, 48, 256, False),
+        (300, True, True, True, False, 1, 64, 200, True),   # window off
+        (64, True, False, True, True, 2, 64, 190, False),
+    ]
+    for window, nope, reset, packed, sum_iso, hk, dv, S, empty in cases:
+        o = windowed_operands(gen, B=2, S=S, H=8, Hk=hk, D=64, Dv=dv,
+                              dtype=torch.float32, packed=packed,
+                              empty_row=empty)
+        kw = windowed_kwargs(o, window=window, nope=nope, reset=reset,
+                             packed=packed, sum_iso=sum_iso)
+        do = torch.randn(2, S, 8, dv, generator=gen, device="cuda")
+        got = kernel_grads(o["q"], o["k"], o["v"], do, **kw)
+        torch.cuda.synchronize()
+        want = windowed_attention_bwd_plain(o["q"], o["k"], o["v"], do, **kw)
+        tag = (f"w={window} nope={nope} reset={reset} seg={packed} "
+               f"iso={sum_iso} n_rep={8 // hk} Dv={dv} S={S} empty={empty}")
+        for name, g, w in zip(GRADS, got, want):
+            if (g is None) != (w is None):
+                fail(f"{name} [{tag}]: stream live on one side only")
+            if g is not None:
+                check_close(f"{name:7s} [{tag}]", g, w, SMALL_TOL)
+
+    log("phase 2d: training shape, bf16 kernels vs the fp32 plain version")
+    from repro_torch.kernels.windowed_attn import (windowed_attention,
+                                                   windowed_attention_plain)
+    o, kw = train_windowed(gen)
+    got = kernel_grads(o["q"], o["k"], o["v"], o["do"], **kw)
+    with torch.no_grad():
+        o_k = windowed_attention(o["q"], o["k"], o["v"], **kw)
+    torch.cuda.synchronize()
+    delta = lambda out, do: (out.float() * do.float()).sum(-1).transpose(1, 2)
+    errs = {}
+    for b in range(o["q"].shape[0]):       # the plain version row by row
+        row = lambda t: (t[b:b + 1].float() if t.is_floating_point()
+                         else t[b:b + 1])
+        kwb = {n: (row(t) if torch.is_tensor(t) and t.dim() >= 2 else t)
+               for n, t in kw.items()}
+        args = (row(o["q"]), row(o["k"]), row(o["v"]))
+        with torch.no_grad():
+            o_p, _ = windowed_attention_plain(*args, **kwb)
+        dlse = delta(o_p, row(o["do"])) - delta(o_k[b:b + 1], o["do"][b:b + 1])
+        want = windowed_attention_bwd_plain(*args, row(o["do"]), dlse=dlse,
+                                            **kwb)
+        for name, g, w in zip(GRADS, got, want):
+            if g is None:
+                continue
+            errs[name] = max(errs.get(name, 0.0), check_rows(
+                f"{name:7s} row {b}", g[b:b + 1], w, quiet=True,
+                floor=GRAD_FLOOR * float(w.abs().max())))
+    for name in GRADS:
+        log(f"  {name}: max|err| over 8 rows {errs[name]:.3e}")
+    t0 = time.perf_counter()
+    plain_ms = cuda_ms(lambda: windowed_attention_bwd_plain(
+        o["q"], o["k"], o["v"], o["do"], **kw), iters=1, warmup=1)
+    log(f"  plain backward at B=8 (bf16 inputs, fp32 scores): "
+        f"{plain_ms:.2f} ms ({time.perf_counter() - t0:.1f}s)")
+
+    log("phase 2d: cross-segment gradients through the kernels")
+    for lens, window, seed, with_sum, target in (([12, 9, 7], 8, 0, True, 1),
+                                                 ([5, 17], 4, 1, False, 0)):
+        leak = card_leakage(lens, window=window, seed=seed,
+                            with_sum=with_sum, target_seg=target)
+        log(f"  segments {lens} window {window} [SUM] {with_sum}: largest "
+            f"cross-segment |grad| {leak}")
+        if leak != 0.0:
+            fail(f"gradient leaks across segments: {leak}")
+    return {name: dict(err=max(errs[g] for g in grads), ops=(o, kw),
+                       plain_ms=plain_ms)
+            for name, grads in PASS_GRADS.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -604,6 +792,230 @@ def phase_full_width_checks(cfg, params, prompts, users, p_bf16, kernels):
 
 
 # ---------------------------------------------------------------------------
+# phases 7 and 8: training at full width
+# ---------------------------------------------------------------------------
+
+TRAIN_K, TRAIN_ROWS, TRAIN_STEPS, TRAIN_LEN = 20, 8, 4, 2048
+# phase 8, fp32 at 2 layers: the kernel path and the dense path differ in
+# summation order only. The loss within LOSS32_TOL; each LoRA leaf's
+# gradient within GRAD32_TOL of that leaf's largest |gradient|.
+LOSS32_TOL = 1e-5
+GRAD32_TOL = 1e-4
+
+
+def training_material(cfg):
+    """DTI streaming prompts at the full vocabulary: one prompt per user
+    with TRAIN_K targets and as many context items as make
+    ``train_max_len`` 2048; TRAIN_STEPS batches of TRAIN_ROWS rows. And 16
+    sliding-window test prompts of other users for ``evaluate_lm``."""
+    from repro_torch.core.dti import (batch_prompts, build_sliding_prompts,
+                                      build_streaming_prompts, train_max_len,
+                                      window_tokens)
+    from repro_torch.data.synthetic import make_ctr_dataset
+    n_users = TRAIN_ROWS * TRAIN_STEPS + 16
+    probe = make_ctr_dataset(n_users=1, n_items=400, seq_len=2,
+                             vocab_size=cfg.vocab_size, seed=5)
+    avg = probe.avg_item_tokens    # items come first from the seed
+    n_ctx = 400
+    while train_max_len(n_ctx, TRAIN_K, avg) > TRAIN_LEN:
+        n_ctx -= 1
+    max_len = train_max_len(n_ctx, TRAIN_K, avg)
+    if max_len != TRAIN_LEN:
+        fail(f"no n_ctx gives train_max_len {TRAIN_LEN} (avg {avg})")
+    ds = make_ctr_dataset(n_users=n_users, n_items=400,
+                          seq_len=n_ctx + TRAIN_K, vocab_size=cfg.vocab_size,
+                          seed=5)
+    prompts, test, labels = [], [], []
+    for u in range(n_users):
+        toks, lab = ds.user_prompt_material(u)
+        if u < TRAIN_ROWS * TRAIN_STEPS:
+            prompts += build_streaming_prompts(toks, lab, n_ctx=n_ctx,
+                                               k=TRAIN_K, max_len=max_len)
+        else:
+            test += build_sliding_prompts(toks[-n_ctx - 1:], lab[-n_ctx - 1:],
+                                          n_ctx=n_ctx, max_len=max_len)
+            labels.append(int(lab[-1]))
+    batches = list(batch_prompts(prompts, TRAIN_ROWS))
+    window = window_tokens(n_ctx, avg)
+    return dict(batches=batches, window=window, n_ctx=n_ctx, avg=avg,
+                test=test, test_labels=np.asarray(labels))
+
+
+def _bits(t):
+    """A fingerprint of a tensor's raw bits (sum and sum of squares of its
+    16- or 32-bit words)."""
+    w = t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+    w = w.to(torch.int64)
+    return int(w.sum()), int((w * w).sum())
+
+
+class _PlainCalls:
+    """Counts calls of the attention's plain versions while installed."""
+
+    def __init__(self):
+        import repro_torch.core.windowed as cw
+        import repro_torch.kernels.windowed_attn as wa
+        self.n = 0
+        self._orig = [(wa, "windowed_attention_plain"),
+                      (wa, "attention_dense"), (cw, "attention_dense")]
+        self._saved = [getattr(m, a) for m, a in self._orig]
+        for (m, a), fn in zip(self._orig, self._saved):
+            setattr(m, a, self._wrap(fn))
+
+    def _wrap(self, fn):
+        def counted(*args, **kw):
+            self.n += 1
+            return fn(*args, **kw)
+        return counted
+
+    def close(self):
+        for (m, a), fn in zip(self._orig, self._saved):
+            setattr(m, a, fn)
+
+
+def phase_train(cfg, params, mat, kernels):
+    """The training path: ``make_train_step`` + ``Trainer`` with LoRA rank
+    8, ``trainable="lora"``, remat, reset and ALiBi, on the serving
+    phases' bf16 weights. Per step: kernel 1 once per layer in the forward
+    and once in the remat recompute, kernels 2 and 3 once per layer."""
+    from repro_torch.launch.train import evaluate_lm, make_lm_loss_fn
+    from repro_torch.models.transformer import named_leaves
+    from repro_torch.train.optimizer import OptimizerConfig, is_trainable
+    from repro_torch.train.trainer import (Trainer, init_train_state,
+                                           make_train_step)
+    b0 = mat["batches"][0]
+    log(f"phase 7: training, {TRAIN_STEPS} steps of {TRAIN_ROWS} DTI "
+        f"streaming rows (n_ctx {mat['n_ctx']}, k {TRAIN_K}, max_len "
+        f"{b0['tokens'].shape[1]}, window {mat['window']}, "
+        f"{int(b0['valid'].sum())} tokens and {int(b0['is_sum'].sum())} "
+        f"targets in batch 1), LoRA rank {cfg.lora_rank}, remat {cfg.remat}")
+    ocfg = OptimizerConfig(lr=1e-3, warmup_steps=1, total_steps=TRAIN_STEPS,
+                           trainable="lora")
+    named = list(named_leaves(params))
+    frozen = {p: (t, _bits(t)) for p, t in named
+              if not is_trainable(ocfg, p)}
+    lora = {p: t.clone() for p, t in named if is_trainable(ocfg, p)}
+    step = make_train_step(make_lm_loss_fn(cfg, mat["window"]), ocfg)
+    per_step = []
+
+    def counted(state, batch, gen):
+        before = dict(kernels.LAUNCHES)
+        out = step(state, batch, gen)
+        per_step.append({k: kernels.LAUNCHES[k] - before[k]
+                         for k in kernels.LAUNCHES})
+        return out
+
+    trainer = Trainer(counted, init_train_state(params, ocfg), log_every=1,
+                      log_fn=lambda m: log(f"  {m}"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    plain = _PlainCalls()
+    kernels.reset_launches()
+    try:
+        trainer.run(iter(mat["batches"]), n_steps=TRAIN_STEPS)
+    finally:
+        plain.close()
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  launches per step {per_step}; plain attention calls {plain.n}; "
+        f"peak memory {peak / 2**30:.2f} GiB")
+    want = {"windowed_attn": 2 * cfg.n_layers,
+            "windowed_attn_dq": cfg.n_layers,
+            "windowed_attn_dkv": cfg.n_layers, "decode_attn": 0}
+    if any(d != want for d in per_step) or len(per_step) != TRAIN_STEPS:
+        fail(f"launches per step {per_step}, want {want} x {TRAIN_STEPS}")
+    if plain.n:
+        fail(f"the plain attention ran {plain.n} times on the card")
+    losses = [h["loss"] for h in trainer.history]
+    log(f"  losses {losses}; grad norms "
+        f"{[h['grad_norm'] for h in trainer.history]}")
+    if not all(np.isfinite(losses)):
+        fail(f"non-finite loss: {losses}")
+    new = dict(named_leaves(trainer.state.params))
+    changed = [p for p, (t, bits) in frozen.items()
+               if new[p] is not t or _bits(new[p]) != bits]
+    if changed:
+        fail(f"{len(changed)} frozen leaves changed, e.g. {changed[:3]}")
+    # Training state lives in the fp32 masters: every LoRA leaf's must
+    # move. A bf16 lora_scale of 2.0 has steps of 2^-7, more than a few
+    # steps of lr 1e-3 move it, so its bf16 copy is counted, not required.
+    master = dict(named_leaves(trainer.state.opt.master))
+    still = [p for p, t in lora.items() if torch.equal(master[p], t.float())]
+    still += [p for p, t in lora.items()
+              if p[-1] != "lora_scale" and torch.equal(new[p], t)]
+    if still:
+        fail(f"{len(still)} LoRA leaves did not move, e.g. {still[:3]}")
+    scales = [p for p in lora if p[-1] == "lora_scale"]
+    moved = sum(1 for p in scales if not torch.equal(new[p], lora[p]))
+    log(f"  {len(frozen)} frozen leaves bit for bit unchanged; the fp32 "
+        f"masters of all {len(lora)} LoRA leaves moved, and the bf16 "
+        f"lora_a/lora_b; {moved} of {len(scales)} bf16 lora_scale moved")
+    m = evaluate_lm(trainer.state.params, cfg, mat["window"], mat["test"],
+                    mat["test_labels"], batch_size=8)
+    log(f"  evaluate_lm on {len(mat['test'])} sliding-window prompts: {m}")
+    if not all(np.isfinite(list(m.values()))):
+        fail(f"evaluate_lm gave {m}")
+    return dict(trainer=trainer, launches=launches, peak=peak,
+                step_fn=step, state=trainer.state)
+
+
+def _lora_grads(cfg, params, batch, window):
+    """Loss and the gradient of every LoRA leaf (autograd on those leaves
+    only)."""
+    from repro_torch.launch.train import make_lm_loss_fn
+    from repro_torch.models.transformer import named_leaves
+    leaves = [(p, t) for p, t in named_leaves(params) if "lora" in str(p)]
+    for _, t in leaves:
+        t.requires_grad_(True)
+    try:
+        loss, _ = make_lm_loss_fn(cfg, window)(params, batch)
+        grads = torch.autograd.grad(loss, [t for _, t in leaves])
+    finally:
+        for _, t in leaves:
+            t.requires_grad_(False)
+    return float(loss.detach()), {p: g for (p, _), g in zip(leaves, grads)}
+
+
+def phase_fp32_train_check(cfg, params, mat):
+    """Off the main path. Two layers at FULL widths in fp32 (so the dense
+    path's score tensors fit), on half of batch 1: the kernel path and the
+    dense path must give the same loss and LoRA gradients."""
+    log("phase 8: fp32 at 2 layers, kernel path vs dense path: loss and "
+        "every LoRA gradient")
+    cfg2 = dataclasses.replace(cfg, n_layers=2, param_dtype="float32",
+                               compute_dtype="float32")
+    p32 = {k: _map_tensors(v, lambda t: t.float()) for k, v in params.items()
+           if k != "layers"}
+    p32["layers"] = [_map_tensors(lp, lambda t: t.float())
+                     for lp in params["layers"][:2]]
+    dev = params["embed"].device
+    batch = {k: torch.from_numpy(v[:TRAIN_ROWS // 2]).to(dev)
+             for k, v in mat["batches"][0].items()}
+    got = {impl: _lora_grads(dataclasses.replace(cfg2, attn_impl=impl), p32,
+                             batch, mat["window"])
+           for impl in ("cuda", "dense")}
+    (lc, gc), (ld, gd) = got["cuda"], got["dense"]
+    worst, worst_rel = 0.0, 0.0
+    for p in gd:
+        err = float((gc[p] - gd[p]).abs().max())
+        scale = float(gd[p].abs().max())
+        worst = max(worst, err)
+        worst_rel = max(worst_rel, err / max(scale, 1e-30))
+        if not err <= GRAD32_TOL * scale:
+            fail(f"LoRA gradient {p}: kernel vs dense {err}, largest "
+                 f"|grad| {scale}")
+    log(f"  loss cuda {lc:.8f} dense {ld:.8f} (|diff| {abs(lc - ld):.3e}, "
+        f"tol {LOSS32_TOL}); {len(gd)} LoRA gradients: max|diff| "
+        f"{worst:.3e}, max|diff|/max|grad| per leaf {worst_rel:.3e} (tol "
+        f"{GRAD32_TOL})")
+    if not abs(lc - ld) <= LOSS32_TOL:
+        fail(f"fp32 loss: kernel path {lc} vs dense {ld}")
+    del p32, got
+    torch.cuda.empty_cache()
+    return dict(loss_diff=abs(lc - ld), grad_rel=worst_rel)
+
+
+# ---------------------------------------------------------------------------
 # phase 6: times
 # ---------------------------------------------------------------------------
 
@@ -688,6 +1100,90 @@ def time_kernels(real):
     return out
 
 
+def time_train(cfg, params, mat, run):
+    """Phase 6 for the training path: the steady step (median of the
+    Trainer's steps after the first), targets and non-pad tokens per
+    second, peak memory, and what the frozen leaves' weight-gradient pass
+    costs: the step against one forward+backward that differentiates the
+    LoRA leaves only (the step's optimizer update is a few hundred small
+    tensors)."""
+    hist = run["trainer"].history
+    step_s = float(np.median([h["sec"] for h in hist[1:]]))
+    b = mat["batches"][0]
+    targets, tokens = int(b["is_sum"].sum()), int(b["valid"].sum())
+    batch = {k: torch.from_numpy(v).to(params["embed"].device)
+             for k, v in b.items()}
+    t_lora = cuda_ms(lambda: _lora_grads(cfg, params, batch, mat["window"]),
+                     iters=1, warmup=0)
+    out = dict(step_ms=step_s * 1e3, first_s=hist[0]["sec"],
+               targets_per_s=targets / step_s, tokens_per_s=tokens / step_s,
+               peak_gib=run["peak"] / 2**30, fwd_bwd_lora_ms=t_lora)
+    frozen_ms = out["step_ms"] - t_lora
+    log(f"  train step B={TRAIN_ROWS} S={TRAIN_LEN} 32 layers: median "
+        f"{out['step_ms']:.2f} ms over {len(hist) - 1} steady steps (first "
+        f"step {out['first_s']:.2f} s); {out['targets_per_s']:.2f} targets/s, "
+        f"{out['tokens_per_s']:.1f} non-pad tokens/s; peak memory "
+        f"{out['peak_gib']:.2f} GiB")
+    log(f"  forward+backward with the LoRA leaves only differentiated: "
+        f"{t_lora:.2f} ms; the step's frozen weight-gradient pass (and its "
+        f"norms) costs {frozen_ms:.2f} ms ({frozen_ms / out['step_ms']:.1%} "
+        f"of the step)")
+    return out
+
+
+def time_bwd_kernels(bwd):
+    """Kernels 2 and 3 at the training shape, each on its own, beside the
+    backward of ``scaled_dot_product_attention`` (the library yardstick:
+    the same boolean mask, repeated kv heads, no NoPE or reset stream).
+    The bound counts the attended pairs of these inputs: 2 (2D + Dv) FLOPs
+    per pair and head for dq, 2 (2D + 2Dv) for dk/dv; bytes: q, k, v,
+    q_nope, k_nope, v0, o, do, lse and the pass's gradients, once each."""
+    import torch.nn.functional as F
+    from repro_torch.core.windowed import dti_mask
+    from repro_torch.kernels import windowed_attn as wa
+    o, kw = bwd["windowed_attn_dq"]["ops"]
+    q, k, v, do = o["q"], o["k"], o["v"], o["do"]
+    B, S, H, D = q.shape
+    Hk, Dv = k.shape[2], v.shape[3]
+    fwd_kw = dict(is_sum_q=None, is_sum_k=None, valid_k=None, seg_q=None,
+                  seg_k=None, q_nope=None, k_nope=None, alibi=None, v0=None,
+                  reset=None, sum_isolated=True, scale=None)
+    fwd_kw.update(kw)
+    st, live, alibi_f, ints = wa._prepare(q, k, v, **fwd_kw)
+    out, lse = wa._fwd(st, q, k, v, live, alibi_f, ints)
+    delta = wa._delta(out, do)
+    args = (st, q, k, v, live, alibi_f, ints, lse, delta, do)
+    bufs = {"windowed_attn_dq": (torch.empty_like(q), torch.empty_like(q)),
+            "windowed_attn_dkv": (torch.empty_like(k), torch.empty_like(v),
+                                  torch.empty_like(k), torch.empty_like(v))}
+    mask = dti_mask(o["pos"], o["pos"], window=1024, is_sum_k=o["is_sum"],
+                    valid_k=o["valid"])
+    pairs = int(mask.sum())
+    ins = _bytes(q, k, v, kw["q_nope"], kw["k_nope"], kw["v0"], out, do,
+                 lse)
+    flops = {"windowed_attn_dq": pairs * H * 2 * (2 * D + Dv),
+             "windowed_attn_dkv": pairs * H * 2 * (2 * D + 2 * Dv)}
+    res = {}
+    for name, outs in bufs.items():
+        ms = cuda_ms(lambda: wa._bwd_pass(name, *args, outs), iters=5,
+                     warmup=1)
+        res[name] = dict(ms=ms, bytes=ins + _bytes(*outs), flops=flops[name],
+                         plain_ms=bwd[name]["plain_ms"])
+    rep = H // Hk
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in
+                  (q, k.repeat_interleave(rep, 2), v.repeat_interleave(rep, 2)))
+    y = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask[:, None])
+    dot = do.transpose(1, 2)
+    lib = cuda_ms(lambda: torch.autograd.grad(y, (qt, kt, vt), dot,
+                                              retain_graph=True), iters=5,
+                  warmup=1)
+    for r in res.values():
+        r["library_ms"] = lib
+    log(f"  attended pairs at the training shape {pairs} (of {B * S * S}); "
+        f"SDPA backward {lib:.4f} ms")
+    return res
+
+
 def card_line() -> str:
     r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"], capture_output=True,
@@ -727,6 +1223,7 @@ def main() -> int:
 
     check_kernels_small()
     real = check_kernels_real()
+    bwd = check_kernels_bwd()
 
     cfg, params = build_model()
     users, prompts = serving_material(cfg)
@@ -735,14 +1232,22 @@ def main() -> int:
     run = phase_decode(cfg, params, users, server, p_prefill, kernels)
     launches = dict(kernels.LAUNCHES)
     want = {"windowed_attn": cfg.n_layers * (1 + run["n_prefill_calls"]),
+            "windowed_attn_dq": 0, "windowed_attn_dkv": 0,
             "decode_attn": cfg.n_layers * run["n_steps"]}
-    log(f"  main path launches {launches}: kernel 1 in "
+    log(f"  serving path launches {launches}: kernel 1 in "
         f"{1 + run['n_prefill_calls']} prefill calls, kernel 4 in "
         f"{run['n_steps']} decode steps")
     if launches != want:
-        fail(f"main path launches {launches}, want {want}")
+        fail(f"serving path launches {launches}, want {want}")
 
     phase_full_width_checks(cfg, params, prompts, users, p_prefill, kernels)
+
+    mat = training_material(cfg)
+    train = phase_train(cfg, params, mat, kernels)
+    log(f"  training path launches {train['launches']}")
+    for name, n in train["launches"].items():
+        launches[name] += n
+    check32 = phase_fp32_train_check(cfg, params, mat)
 
     log("phase 6: times (CUDA events after warm-up)")
     t_prefill = cuda_ms(lambda: server.score(prompts), iters=3, warmup=1)
@@ -751,9 +1256,19 @@ def main() -> int:
                        iters=5, warmup=1)
     log(f"  prefill call B=8 S=2048 32 layers: {t_prefill:.2f} ms; decode "
         f"burst step B=8 s=64 cap=2048: {t_decode:.2f} ms ({card})")
+    del run, server
+    t_train = time_train(cfg, params, mat, train)
+    del train
     times = time_kernels(real)
+    times.update(time_bwd_kernels(bwd))
+    errs = {name: r["err"] for name, r in {**real, **bwd}.items()}
+    bwd_src = "src/repro/kernels/windowed_attn/windowed_attn_bwd.py"
     src = {"windowed_attn": ("src/repro_torch/kernels/csrc/windowed_attn.cu",
                              "src/repro/kernels/windowed_attn/windowed_attn.py:79"),
+           "windowed_attn_dq": ("src/repro_torch/kernels/csrc/windowed_attn_bwd.cu",
+                                f"{bwd_src}:112"),
+           "windowed_attn_dkv": ("src/repro_torch/kernels/csrc/windowed_attn_bwd.cu",
+                                 f"{bwd_src}:145"),
            "decode_attn": ("src/repro_torch/kernels/csrc/decode_attn.cu",
                            "src/repro/kernels/decode_attn/decode_attn.py:116")}
     rows = []
@@ -763,16 +1278,21 @@ def main() -> int:
         t_ops = t["flops"] / BF16_FLOPS * 1e3
         row = dict(name=name, route="cuda", source=src[name][0],
                    replaces=src[name][1], launches=launches[name],
-                   max_abs_err=real[name]["err"], ms=t["ms"],
+                   max_abs_err=errs[name], ms=t["ms"],
                    plain_ms=t["plain_ms"], bound_ms=max(t_bytes, t_ops),
                    bound_by="bytes" if t_bytes >= t_ops else "operations",
                    library_ms=t["library_ms"])
         log(f"  {name}: {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, sdpa "
             f"{t['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
             f"({row['bound_by']}: {t['bytes'] / 1e6:.1f} MB, "
-            f"{t['flops'] / 1e12:.4f} TFLOP; keys read per (row, kv head), "
-            f"summed over rows, for K/K_nope/V: {t['keys']})")
+            f"{t['flops'] / 1e12:.4f} TFLOP), launches {launches[name]}"
+            + (f"; keys read per (row, kv head), summed over rows, for "
+               f"K/K_nope/V: {t['keys']}" if "keys" in t else ""))
         rows.append(row)
+    log(f"  summary: train step {t_train['step_ms']:.2f} ms, peak "
+        f"{t_train['peak_gib']:.2f} GiB, fp32 train check loss diff "
+        f"{check32['loss_diff']:.3e} grad rel {check32['grad_rel']:.3e} "
+        f"({card})")
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

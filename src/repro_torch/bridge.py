@@ -11,16 +11,22 @@ dense layers); the port keeps a list ``params["layers"]`` in layer order.
 Every leaf keeps its shape otherwise: a linear ``w`` is ``(d_in, d_out)``,
 LoRA ``lora_a``/``lora_b``/``lora_scale`` and rmsnorm ``scale`` as they
 are, ``embed (V, d)`` and ``lm_head.w (d, V)``.
+
+Optimizer state (``step``, ``mu``, ``nu``, ``master``) converts the same
+way, with one difference: the reference keeps a single fp32 zero scalar
+for each frozen stacked leaf, the port one per layer.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Mapping
+from typing import Any, Dict, List, Mapping, Optional
 
 import numpy as np
 import torch
 
-from repro_torch.models.transformer import ModelConfig
+from repro_torch.models.transformer import ModelConfig, map_leaves
+from repro_torch.train.optimizer import (OptimizerConfig, OptState,
+                                         is_trainable)
 
 Tree = Dict[str, Any]
 
@@ -30,9 +36,10 @@ ATTN_IMPL = {"pallas": "cuda", "dense": "dense", "blocked": "blocked"}
 
 def config_from_jax(fields: Mapping[str, Any], **overrides) -> ModelConfig:
     """Port config from a reference ``ModelConfig``'s fields
-    (``dataclasses.asdict(cfg)``). Fields the port has no use for (remat,
-    kernel tile sizes, chunked LM loss) are dropped; ``"pallas"`` maps to
-    ``"cuda"``."""
+    (``dataclasses.asdict(cfg)``). ``remat`` and ``remat_policy`` carry
+    over; fields the port has no use for (kernel tile sizes, the blocked
+    path's q chunk, chunked LM loss, MLA and MoE widths) are dropped;
+    ``"pallas"`` maps to ``"cuda"``."""
     names = {f.name for f in dataclasses.fields(ModelConfig)}
     kw = {k: v for k, v in fields.items() if k in names}
     kw["attn_impl"] = ATTN_IMPL[kw.get("attn_impl", "dense")]
@@ -107,4 +114,58 @@ def _stack(layers: List[Tree]) -> Tree:
     return np.stack(layers)
 
 
-__all__ = ["ATTN_IMPL", "config_from_jax", "from_jax_params", "to_numpy_tree"]
+def _reference_leaf(tree: Tree, path):
+    """The reference tree's leaf for a port path, and the layer index to
+    take from it (None outside the layers)."""
+    node, layer = tree, None
+    if path[0] == "layers":
+        node, layer, path = tree["stack"], path[1], path[2:]
+    for k in path:
+        node = node[k]
+    return np.asarray(node), layer
+
+
+def opt_state_from_jax(state: Mapping[str, Any], params: Tree,
+                       opt_cfg: OptimizerConfig, device) -> OptState:
+    """Reference ``OptState`` (as a mapping of numpy leaves:
+    ``state._asdict()`` after ``tree_map(np.asarray, ...)``) -> the port's,
+    laid out like the port ``params``."""
+    def conv(sub):
+        def leaf(path, _):
+            a, layer = _reference_leaf(sub, path)
+            if layer is not None and is_trainable(opt_cfg, path):
+                a = a[layer]
+            return _to_tensor(a, device)
+        return map_leaves(leaf, params)
+    master: Optional[Tree] = state.get("master")
+    return OptState(torch.tensor(int(np.asarray(state["step"])),
+                                 dtype=torch.int32),
+                    conv(state["mu"]), conv(state["nu"]),
+                    None if master is None else conv(master))
+
+
+def opt_state_to_numpy(state: OptState,
+                       opt_cfg: OptimizerConfig) -> Dict[str, Any]:
+    """Port ``OptState`` -> the reference's layout (a dict of ``step``,
+    ``mu``, ``nu``, ``master``), numpy leaves."""
+    def conv(sub):
+        out = {k: _map(v, _to_numpy) for k, v in sub.items()
+               if k != "layers"}
+        layers = sub["layers"]
+
+        def stacked(path, first):
+            if not is_trainable(opt_cfg, ("layers", 0) + path):
+                return _to_numpy(first)
+            node = list(layers)
+            for k in path:
+                node = [n[k] for n in node]
+            return np.stack([_to_numpy(t) for t in node])
+        out["stack"] = map_leaves(stacked, layers[0])
+        return out
+    return {"step": np.asarray(int(state.step), np.int32),
+            "mu": conv(state.mu), "nu": conv(state.nu),
+            "master": None if state.master is None else conv(state.master)}
+
+
+__all__ = ["ATTN_IMPL", "config_from_jax", "from_jax_params", "to_numpy_tree",
+           "opt_state_from_jax", "opt_state_to_numpy"]

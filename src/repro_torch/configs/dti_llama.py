@@ -3,7 +3,8 @@
 Counterpart of ``repro.configs.dti_llama``. ``FULL`` serves on the port's
 hand-written CUDA kernels (``attn_impl="cuda"``, the port's name for the
 reference's ``"pallas"``); ``REPRO`` is the width-reduced variant on the
-dense path.
+dense path. ``FULL`` trains with remat (each layer recomputed in the
+backward), ``REPRO`` without, as the reference sets them.
 """
 from repro_torch.models.transformer import ModelConfig
 
@@ -12,14 +13,14 @@ FULL = ModelConfig(
     d_ff=14336, vocab_size=128256, head_dim=128, attn_type="gqa",
     rope_theta=500000.0, window=1024, attn_impl="cuda",
     dti_sum_token=True, param_dtype="bfloat16", compute_dtype="bfloat16",
-    lora_rank=8,
+    remat=True, lora_rank=8,
 )
 
 REPRO = ModelConfig(
     name="dti-llama-repro", n_layers=4, d_model=128, n_heads=4, n_kv_heads=2,
     d_ff=344, vocab_size=2048, head_dim=32, attn_type="gqa",
     rope_theta=10000.0, window=0, attn_impl="dense",
-    dti_sum_token=True,
+    dti_sum_token=True, remat=False,
 )
 
 __all__ = ["FULL", "REPRO"]

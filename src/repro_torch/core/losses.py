@@ -1,7 +1,9 @@
-"""The DTI CTR readout (counterpart of ``repro.core.losses.ctr_logits``)."""
+"""The DTI CTR readout and objective (counterpart of
+``repro.core.losses``; the chunked ``lm_loss`` is not on the DTI path and
+waits)."""
 from __future__ import annotations
 
-from typing import TYPE_CHECKING, Any, Dict
+from typing import TYPE_CHECKING, Any, Dict, Tuple
 
 import torch
 
@@ -20,4 +22,23 @@ def ctr_logits(params: Dict[str, Any], cfg: "ModelConfig",
     return torch.einsum("bsd,vd->bsv", hidden, rows)
 
 
-__all__ = ["ctr_logits"]
+def ctr_loss(params: Dict[str, Any], cfg: "ModelConfig",
+             hidden: torch.Tensor, sum_mask: torch.Tensor,
+             labels: torch.Tensor, *, yes_id: int,
+             no_id: int) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """DTI objective: cross-entropy of yes/no at each [SUM] position.
+
+    sum_mask (B, S) bool marks the [SUM] positions carrying a label; labels
+    (B, S) are 1 = 'yes' (click). Returns (mean loss, {"p_click", "mask"}),
+    p_click being p(yes) at every position.
+    """
+    logits2 = ctr_logits(params, cfg, hidden, yes_id, no_id).float()
+    logp = torch.log_softmax(logits2, dim=-1)                 # (B,S,2)
+    nll = -torch.where(labels.to(torch.int32) == 1, logp[..., 0],
+                       logp[..., 1])
+    w = sum_mask.float()
+    loss = torch.sum(nll * w) / torch.clamp(torch.sum(w), min=1.0)
+    return loss, {"p_click": torch.exp(logp[..., 0]), "mask": sum_mask}
+
+
+__all__ = ["ctr_logits", "ctr_loss"]

@@ -115,8 +115,9 @@ def attention_dense(q, k, v, *, pos_q, pos_k, window: int = 0,
                           torch.full((), -NEG_INF, device=logits.device))
     probs = torch.softmax(logits, dim=-1)
     del logits
-    # rows with no attendable key (padding) -> zero output
-    probs.mul_(any_ok[..., None])
+    # rows with no attendable key (padding) -> zero output (out of place:
+    # softmax's backward needs its output)
+    probs = probs * any_ok[..., None]
 
     out = torch.einsum("bhqk,bkhd->bqhd", probs.to(v_r.dtype), v_r)
     if reset is not None and v0 is not None and is_sum_q is not None:
@@ -143,8 +144,8 @@ def attention(impl: str, *args, **kwargs):
         return windowed_attention(*args, **kwargs)
     if impl == "blocked":
         raise NotImplementedError(
-            "blocked attention comes with the training slice "
-            "(ROADMAP queue A); use 'dense' or 'cuda'")
+            "blocked attention is not ported (ROADMAP queue A); use "
+            "'dense' or 'cuda'")
     raise ValueError(f"unknown attention impl {impl!r}")
 
 

@@ -1,4 +1,5 @@
-"""Synthetic MovieLens-like CTR corpus (copy of ``repro.data.synthetic``).
+"""Synthetic MovieLens-like CTR corpus and its user split (copy of
+``repro.data.synthetic``).
 
 Items carry a latent factor that their words encode; users carry a latent
 preference; labels are Bernoulli(sigmoid(scale * p_u . z_i)). The same
@@ -80,4 +81,19 @@ def make_ctr_dataset(*, n_users: int = 64, n_items: int = 400,
     return CTRDataset(item_tokens, z, sequences, tok, avg)
 
 
-__all__ = ["CTRDataset", "make_ctr_dataset"]
+def split_users(ds: CTRDataset, ratios=(0.8, 0.1, 0.1), seed: int = 1):
+    """8:1:1 split along each user's timeline (paper's protocol):
+    train ``(toks, labels)``, val and test ``(toks, labels, start)`` whose
+    context may reach back before ``start``."""
+    train, val, test = [], [], []
+    for u in range(len(ds.sequences)):
+        toks, labels = ds.user_prompt_material(u)
+        m = len(toks)
+        a, b = int(m * ratios[0]), int(m * (ratios[0] + ratios[1]))
+        train.append((toks[:a], labels[:a]))
+        val.append((toks[:b], labels[:b], a))
+        test.append((toks, labels, b))
+    return train, val, test
+
+
+__all__ = ["CTRDataset", "make_ctr_dataset", "split_users"]

@@ -1,7 +1,7 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
-Each kernel is one CUDA C++ source under ``csrc/`` with a plain C entry
-point. At first use it is compiled with ``nvcc`` for ``sm_90a`` into a
+Each CUDA C++ source under ``csrc/`` has plain C entry points (one per
+kernel; ``windowed_attn_bwd.cu`` holds two). At first use it is compiled with ``nvcc`` for ``sm_90a`` into a
 shared library under the repository's ``build/kernels/`` (git-ignored),
 named by a hash of its source and flags, and loaded with ``ctypes``.
 Nothing is built at import time: the CPU tests import every module, and
@@ -10,7 +10,8 @@ the CPU has no ``nvcc``.
 Tile sizes are fixed in each source (the reference's autotune tables are
 TPU VMEM heuristics and are re-derived for sm_90 in a later PR).
 
-``LAUNCHES`` counts, per kernel, the launches its wrapper made; a run
+``LAUNCHES`` counts, per kernel (entry point), the launches its wrapper
+made; a run
 resets it with ``reset_launches`` to show which kernels a path went
 through. The plain-PyTorch versions never count.
 """
@@ -28,7 +29,9 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-KERNELS = ("windowed_attn", "decode_attn")
+SOURCES = ("windowed_attn", "windowed_attn_bwd", "decode_attn")
+KERNELS = ("windowed_attn", "windowed_attn_dq", "windowed_attn_dkv",
+           "decode_attn")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -58,8 +61,8 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{tag}.so"
 
 
-def build(names: Iterable[str] = KERNELS) -> Dict[str, str]:
-    """Compile the named kernels that are not built yet, one ``nvcc`` per
+def build(names: Iterable[str] = SOURCES) -> Dict[str, str]:
+    """Compile the named sources that are not built yet, one ``nvcc`` per
     source, all started together. Returns each new build's compiler output
     (the ``-Xptxas -v`` report of registers, shared memory and spills);
     raises if one fails."""
@@ -88,7 +91,7 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, str]:
 
 
 def load(name: str, argtypes: Dict[str, list]) -> ctypes.CDLL:
-    """Build (if needed) and load kernel ``name``, declaring each entry
+    """Build (if needed) and load source ``name``, declaring each entry
     point's argument types (``c_void_p`` for pointers and the stream) and
     its ``int`` return, the ``cudaError_t`` of the launch."""
     lib = _LIBS.get(name)
@@ -119,5 +122,6 @@ def check_launch(name: str, rc: int) -> None:
     LAUNCHES[name] += 1
 
 
-__all__ = ["CSRC", "BUILD_DIR", "KERNELS", "LAUNCHES", "reset_launches",
-           "library_path", "build", "load", "as_i32", "ptr", "check_launch"]
+__all__ = ["CSRC", "BUILD_DIR", "SOURCES", "KERNELS", "LAUNCHES",
+           "reset_launches", "library_path", "build", "load", "as_i32", "ptr",
+           "check_launch"]

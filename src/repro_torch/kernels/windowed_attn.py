@@ -17,11 +17,16 @@ distance on every attendable pair, which is why shared-prefix rows stay on
 the dense path (``repro_torch.core.windowed.attention``).
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
-raises. Forward only: the backward kernels come with the training slice.
+raises, for the forward and, when an operand asks for a gradient, for the
+backward: a ``torch.autograd.Function`` pairs kernel 1 with the dq and
+dk/dv kernels of ``csrc/windowed_attn_bwd.cu`` (the reference's
+``windowed_attn_bwd._dq_kernel`` and ``_dkv_kernel``), which recompute
+``p = exp(s - lse)`` from the saved row logsumexp.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from typing import Optional
 
 import torch
@@ -31,6 +36,8 @@ from repro_torch.core.windowed import ResetConfig, attention_dense
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {"windowed_attn_fwd": [_P] * 16 + [_I] * 12 + [_F] * 4 + [_P]}
+_BWD_ARGTYPES = {fn: [_P] * 21 + [_I] * 12 + [_F] * 4 + [_P]
+                 for fn in ("windowed_attn_dq", "windowed_attn_dkv")}
 MAX_HEAD_DIM = 128
 
 
@@ -79,15 +86,43 @@ def windowed_attention(q, k, v, *, pos_q, pos_k, window: int,
     return (o, lse) if return_lse else o
 
 
-def _launch(q, k, v, *, pos_q, pos_k, window, is_sum_q, is_sum_k, valid_k,
-            seg_q, seg_k, q_nope, k_nope, alibi, v0, reset, sum_isolated,
-            scale):
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad
-            for t in (q, k, v, q_nope, k_nope, v0)):
-        raise NotImplementedError(
-            "the windowed-attention kernel is forward only; its backward "
-            "kernels come with the training slice")
+@dataclasses.dataclass(frozen=True)
+class _Statics:
+    """Shapes and flags of one call, shared by the forward and both
+    backward launches."""
+    b: int
+    s: int
+    h: int
+    hk: int
+    d: int
+    dv: int
+    window: int
+    use_nope: bool
+    use_reset: bool
+    sum_isolated: bool
+    use_seg: bool
+    scale: float
+    y_min: float
+    y_max: float
+    midpoint: float
+
+    def ints(self, is_bf16: bool):
+        return (self.b, self.s, self.h, self.hk, self.d, self.dv,
+                self.window, int(self.use_nope), int(self.use_reset),
+                int(self.sum_isolated), int(self.use_seg), int(is_bf16))
+
+    def floats(self):
+        return (float(self.scale), float(self.y_min), float(self.y_max),
+                float(self.midpoint))
+
+
+def _prepare(q, k, v, *, pos_q, pos_k, window, is_sum_q, is_sum_k, valid_k,
+             seg_q, seg_k, q_nope, k_nope, alibi, v0, reset, sum_isolated,
+             scale):
+    """Check what the kernels take; return the statics, the live float
+    operands (q_nope, k_nope, v0 or None), the fp32 ALiBi slopes and the
+    int32 index operands (pos_q, pos_k, sum_q, sum_k, valid_k, seg_q,
+    seg_k; None where switched off)."""
     b, s, h, d = q.shape
     hk, dv = k.shape[2], v.shape[3]
     use_nope = q_nope is not None and is_sum_q is not None
@@ -102,43 +137,141 @@ def _launch(q, k, v, *, pos_q, pos_k, window, is_sum_q, is_sum_k, valid_k,
                          "H a multiple of Hk)")
     if d > MAX_HEAD_DIM or dv > MAX_HEAD_DIM:
         raise ValueError(f"head dims {d}/{dv} exceed {MAX_HEAD_DIM}")
-    ops = [q, k, v] + ([q_nope, k_nope] if use_nope else []) + (
-        [v0] if use_reset else [])
-    for t in ops:
-        if t.dtype != q.dtype or t.device != q.device or not t.is_contiguous():
+    live = (q_nope if use_nope else None, k_nope if use_nope else None,
+            v0 if use_reset else None)
+    for t in (q, k, v) + live:
+        if t is not None and (t.dtype != q.dtype or t.device != q.device
+                              or not t.is_contiguous()):
             raise ValueError("q/k/v/q_nope/k_nope/v0 must share q's dtype and "
                              "device and be contiguous")
     if use_nope and (q_nope.shape != q.shape or k_nope.shape != k.shape):
         raise ValueError("q_nope/k_nope must have the shapes of q/k")
     if use_reset and v0.shape != v.shape:
         raise ValueError("v0 must have the shape of v")
-    if scale is None:
-        scale = d ** -0.5
-    y_min, y_max, mid = ((reset.y_min, reset.y_max, reset.midpoint)
-                         if use_reset else (0.0, 0.0, 0.0))
-
-    o = torch.empty((b, s, h, dv), dtype=q.dtype, device=q.device)
-    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    # int32 copies of the index/flag operands, held until the launch is
-    # enqueued (a freed copy's memory could be handed to the next one)
+    st = _Statics(b, s, h, hk, d, dv, int(window), use_nope, use_reset,
+                  sum_isolated, use_seg, d ** -0.5 if scale is None else scale,
+                  *((reset.y_min, reset.y_max, reset.midpoint) if use_reset
+                    else (0.0, 0.0, 0.0)))
+    # int32 copies of the index/flag operands: the caller holds them until
+    # the launches are enqueued (a freed copy's memory could be handed to
+    # the next one), and the autograd Function saves them for the backward
     on = lambda t, use: as_i32(t) if use else None
-    ints = [as_i32(pos_q), as_i32(pos_k), on(is_sum_q, use_nope or use_reset),
+    ints = (as_i32(pos_q), as_i32(pos_k), on(is_sum_q, use_nope or use_reset),
             on(is_sum_k, sum_isolated), as_i32(valid_k), on(seg_q, use_seg),
-            on(seg_k, use_seg)]
+            on(seg_k, use_seg))
     alibi_f = (alibi.float().contiguous() if use_nope and alibi is not None
                else torch.zeros(h, dtype=torch.float32, device=q.device))
+    return st, live, alibi_f, ints
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _fwd(st, q, k, v, live, alibi_f, ints):
+    qn, kn, v0 = live
+    o = torch.empty((st.b, st.s, st.h, st.dv), dtype=q.dtype, device=q.device)
+    lse = torch.empty((st.b, st.h, st.s), dtype=torch.float32,
+                      device=q.device)
     lib = load("windowed_attn", _ARGTYPES)
     rc = lib.windowed_attn_fwd(
-        ptr(q), ptr(q_nope if use_nope else None), ptr(k),
-        ptr(k_nope if use_nope else None), ptr(v),
-        ptr(v0 if use_reset else None), ptr(alibi_f), *map(ptr, ints),
-        ptr(o), ptr(lse),
-        b, s, h, hk, d, dv, int(window), int(use_nope), int(use_reset),
-        int(sum_isolated), int(use_seg), int(q.dtype == torch.bfloat16),
-        float(scale), float(y_min), float(y_max), float(mid),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        ptr(q), ptr(qn), ptr(k), ptr(kn), ptr(v), ptr(v0), ptr(alibi_f),
+        *map(ptr, ints), ptr(o), ptr(lse), *st.ints(q.dtype == torch.bfloat16),
+        *st.floats(), _stream(q))
     check_launch("windowed_attn", rc)
     return o, lse
 
 
-__all__ = ["windowed_attention", "windowed_attention_plain"]
+def _bwd_pass(name, st, q, k, v, live, alibi_f, ints, lse, delta, do, outs):
+    """Launch ``windowed_attn_dq`` (outs: dq, dq_nope) or
+    ``windowed_attn_dkv`` (outs: dk, dv, dk_nope, dv0) into ``outs``."""
+    qn, kn, v0 = live
+    outs = (list(outs) + [None] * 4)[:4]
+    lib = load("windowed_attn_bwd", _BWD_ARGTYPES)
+    rc = getattr(lib, name)(
+        ptr(q), ptr(qn), ptr(k), ptr(kn), ptr(v), ptr(v0), ptr(do), ptr(lse),
+        ptr(delta), ptr(alibi_f), *map(ptr, ints), *map(ptr, outs),
+        *st.ints(q.dtype == torch.bfloat16), *st.floats(), _stream(q))
+    check_launch(name, rc)
+
+
+def _delta(o, do):
+    """Flash delta D_i = <do_i, o_i> in fp32, in the kernels' (B, H, S)
+    layout (it holds with the reset stream too: the reset changes each
+    pair's value, not the normalisation)."""
+    return (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+
+
+def _bwd(st, q, k, v, live, alibi_f, ints, o, lse, do):
+    """The dq and dk/dv kernels. Returns (dq, dk, dv, dq_nope, dk_nope,
+    dv0), None for streams that are not live."""
+    do = do.to(q.dtype).contiguous()
+    delta = _delta(o, do)
+    new = lambda t, use: torch.empty_like(t) if use else None
+    dq, dqn = torch.empty_like(q), new(q, st.use_nope)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    dkn, dv0 = new(k, st.use_nope), new(v, st.use_reset)
+    args = (st, q, k, v, live, alibi_f, ints, lse, delta, do)
+    _bwd_pass("windowed_attn_dq", *args, (dq, dqn))
+    _bwd_pass("windowed_attn_dkv", *args, (dk, dv, dkn, dv0))
+    return dq, dk, dv, dqn, dkn, dv0
+
+
+class _WindowedAttn(torch.autograd.Function):
+    """Kernel 1 forward, kernels 2 and 3 backward. Gradients flow to q, k,
+    v, q_nope, k_nope and v0; positions, flags, segments and the ALiBi
+    slopes (head constants, not parameters) get none, as in the
+    reference's ``ops._attn_bwd``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_nope, k_nope, v0, st, alibi_f, ints):
+        live = (q_nope, k_nope, v0)
+        o, lse = _fwd(st, q, k, v, live, alibi_f, ints)
+        ctx.st = st
+        ctx.save_for_backward(q, k, v, *live, alibi_f, o, lse, *ints)
+        ctx.mark_non_differentiable(lse)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        q, k, v, qn, kn, v0, alibi_f, o, lse, *ints = ctx.saved_tensors
+        grads = _bwd(ctx.st, q, k, v, (qn, kn, v0), alibi_f, ints, o, lse, do)
+        return (*grads, None, None, None)
+
+
+def _launch(q, k, v, **kw):
+    st, live, alibi_f, ints = _prepare(q, k, v, **kw)
+    return _WindowedAttn.apply(q, k, v, *live, st, alibi_f, ints)
+
+
+def windowed_attention_bwd_plain(q, k, v, do, dlse=None, **kw):
+    """Plain PyTorch version of kernels 2 and 3: ``torch.autograd.grad``
+    of ``windowed_attention_plain``'s o against the cotangent ``do``.
+    Takes the keyword arguments of ``windowed_attention_plain``; returns
+    ``(dq, dk, dv, dq_nope, dk_nope, dv0)``, None for streams that are not
+    live (no q_nope/k_nope without ``is_sum_q``, no v0 without ``reset``).
+
+    ``dlse`` (fp32, (B, H, S)), when given, is a cotangent of the row
+    logsumexp as well. The kernels take delta = <do, o> from kernel 1's
+    output o; where o was rounded (bf16), delta is off by some e, and
+    ``ds = p (dp - delta)`` moves exactly as an lse cotangent of -e moves
+    it, so ``dlse = -e`` gives the plain version the kernels' delta."""
+    use_nope = kw.get("q_nope") is not None and kw.get("is_sum_q") is not None
+    use_reset = kw.get("reset") is not None and kw.get("v0") is not None
+    leaf = lambda t: t.detach().requires_grad_(True)
+    q, k, v = leaf(q), leaf(k), leaf(v)
+    names = [n for n, use in (("q_nope", use_nope), ("k_nope", use_nope),
+                              ("v0", use_reset)) if use]
+    kw = dict(kw, **{n: leaf(kw[n]) for n in names})
+    with torch.enable_grad():
+        o, lse = windowed_attention_plain(q, k, v, **kw)
+        outs, cots = ([o], [do]) if dlse is None else ([o, lse], [do, dlse])
+        got = torch.autograd.grad(outs, [q, k, v] + [kw[n] for n in names],
+                                  cots)
+    extra = dict(zip(names, got[3:]))
+    return (*got[:3], extra.get("q_nope"), extra.get("k_nope"),
+            extra.get("v0"))
+
+
+__all__ = ["windowed_attention", "windowed_attention_plain",
+           "windowed_attention_bwd_plain"]

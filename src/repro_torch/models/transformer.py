@@ -3,15 +3,20 @@
 
 The reference's ``lax.scan`` over stacked layers is a Python loop over
 ``params["layers"]`` here: PyTorch runs eagerly, so there is no HLO size to
-keep O(1) in depth. This slice covers the dense GQA model the paper serves
+keep O(1) in depth. Remat wraps each layer in
+``torch.utils.checkpoint`` instead of ``jax.checkpoint`` around the scan
+body. This covers the dense GQA model the paper trains and serves
 (dti-llama); MoE and MLA raise and arrive with their own slices.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Iterator, List, Optional
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.windowed import ResetConfig
 from repro_torch.device import DeviceLike, resolve_device
@@ -51,6 +56,8 @@ class ModelConfig:
     tie_embeddings: bool = False
     norm_eps: float = 1e-6
     lora_rank: int = 0
+    remat: bool = True
+    remat_policy: str = "nothing"       # "nothing" | "none" ("dots": later)
     param_dtype: str = "float32"
     compute_dtype: str = "float32"
 
@@ -83,6 +90,13 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"attn_type={cfg.attn_type!r} is not ported yet (MLA comes with "
             "the other-architectures slice, ROADMAP queue A)")
+    if cfg.remat_policy == "dots":
+        raise NotImplementedError(
+            "remat_policy='dots' (save the weight matmuls, recompute only "
+            "attention) is not ported yet; it waits for the PR that tunes "
+            "the training step (ROADMAP queue A10)")
+    if cfg.remat_policy not in ("nothing", "none"):
+        raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}")
 
 
 def _init_layer(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
@@ -138,15 +152,23 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
             dti_enabled: bool = False,
             window: Optional[int] = None) -> Dict[str, Any]:
     """Run the decoder; returns ``{"hidden": (B, S, d)}`` after the final
-    norm. Logits are not materialised here (see ``lm_logits`` and
-    ``repro_torch.core.losses.ctr_logits``)."""
+    norm and ``"aux_loss"`` (a zero fp32 scalar: dense layers have no MoE
+    balance loss). Logits are not materialised here (see ``lm_logits`` and
+    ``repro_torch.core.losses.ctr_logits``).
+
+    With ``cfg.remat`` and policy ``"nothing"``, and while autograd
+    records, each layer runs under ``torch.utils.checkpoint``: only its
+    input is kept, and the backward recomputes the layer (so the attention
+    forward runs twice per layer and step)."""
     check_supported(cfg)
     b, s = tokens.shape
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32,
                                  device=tokens.device).expand(b, s)
     win = cfg.window if window is None else window
-    h = params["embed"][tokens].to(cfg.cdtype)
+    # F.embedding, not indexing: its backward sums repeated tokens in a
+    # fixed order (indexing's index_put is nondeterministic on the CPU)
+    h = F.embedding(tokens, params["embed"]).to(cfg.cdtype)
 
     dti: Optional[DTIAttnOpts] = None
     if (dti_enabled and is_sum is not None) or segment_ids is not None:
@@ -157,10 +179,60 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
                           sum_alibi=cfg.dti_sum_alibi,
                           sum_isolated=cfg.dti_sum_isolated,
                           segment_ids=segment_ids)
+    remat = (cfg.remat and cfg.remat_policy == "nothing"
+             and torch.is_grad_enabled())
     for lp in params["layers"]:
-        h = _layer_fwd(lp, h, cfg, positions=positions, window=win, dti=dti,
-                       valid=valid)
-    return {"hidden": rmsnorm(params["ln_f"], h, cfg.norm_eps)}
+        kw = dict(positions=positions, window=win, dti=dti, valid=valid)
+        if remat:
+            h = checkpoint(_layer_fwd, lp, h, cfg, use_reentrant=False,
+                           preserve_rng_state=False, **kw)
+        else:
+            h = _layer_fwd(lp, h, cfg, **kw)
+    return {"hidden": rmsnorm(params["ln_f"], h, cfg.norm_eps),
+            "aux_loss": torch.zeros((), dtype=torch.float32,
+                                    device=tokens.device)}
+
+
+def named_leaves(params: Params, prefix=()) -> Iterator:
+    """``(path, tensor)`` for every leaf, in a fixed order; a path is a
+    tuple of dict keys and layer indices, e.g. ``("layers", 0, "attn",
+    "q", "lora_a")``."""
+    items = (params.items() if isinstance(params, dict)
+             else enumerate(params))
+    for k, v in items:
+        if isinstance(v, (dict, list)):
+            yield from named_leaves(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def map_leaves(fn, tree, *rest, path=()):
+    """``fn(path, leaf, *rest_leaves)`` over a params-shaped tree of dicts
+    and lists (``rest`` are trees of the same structure); paths as in
+    ``named_leaves``."""
+    if isinstance(tree, dict):
+        return {k: map_leaves(fn, v, *(r[k] for r in rest), path=path + (k,))
+                for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [map_leaves(fn, v, *(r[i] for r in rest), path=path + (i,))
+                for i, v in enumerate(tree)]
+    return fn(path, tree, *rest)
+
+
+@contextlib.contextmanager
+def differentiable(params: Params) -> Iterator[List[torch.Tensor]]:
+    """Turn gradient tracking on for every floating leaf of ``params`` (the
+    leaves ``init_params`` made without it) for the body, and off again,
+    with their ``.grad`` cleared, on the way out. Yields the leaves."""
+    leaves = [t for _, t in named_leaves(params) if t.is_floating_point()]
+    for t in leaves:
+        t.requires_grad_(True)
+    try:
+        yield leaves
+    finally:
+        for t in leaves:
+            t.grad = None
+            t.requires_grad_(False)
 
 
 def lm_logits(params: Params, cfg: ModelConfig, hidden: torch.Tensor,
@@ -173,4 +245,4 @@ def lm_logits(params: Params, cfg: ModelConfig, hidden: torch.Tensor,
 
 
 __all__ = ["ModelConfig", "check_supported", "init_params", "forward",
-           "lm_logits"]
+           "named_leaves", "map_leaves", "differentiable", "lm_logits"]

@@ -56,7 +56,9 @@ def test_port_config_matches_reference_repro():
 def test_import_loads_neither_jax_nor_repro():
     code = ("import sys, repro_torch.serve.engine, repro_torch.bridge, "
             "repro_torch.configs.dti_llama, repro_torch.data.synthetic, "
-            "repro_torch.kernels.windowed_attn\n"
+            "repro_torch.kernels.windowed_attn, repro_torch.launch.train, "
+            "repro_torch.train.trainer, repro_torch.train.optimizer, "
+            "repro_torch.train.checkpoint\n"
             "bad = [m for m in sys.modules if m == 'jax' or m == 'repro' "
             "or m.startswith(('jax.', 'repro.'))]\n"
             "assert not bad, bad\n")

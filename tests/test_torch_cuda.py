@@ -12,6 +12,7 @@ from repro_torch.core.windowed import ResetConfig
 from repro_torch.kernels.decode_attn import (decode_attention,
                                              decode_attention_plain)
 from repro_torch.kernels.windowed_attn import (windowed_attention,
+                                               windowed_attention_bwd_plain,
                                                windowed_attention_plain)
 
 pytestmark = pytest.mark.cuda
@@ -82,3 +83,55 @@ def test_decode_kernel_matches_plain(gen, hk, window, seg):
         o, decode_attention_plain(q, k, v, pos_q, pos_k, **kw),
         atol=TOL, rtol=0)
     assert torch.all(o[2] == 0)
+
+
+@pytest.mark.parametrize("hk,dv,window,nope,reset,packed,sum_iso", [
+    (8, 64, 40, False, False, False, True),   # n_rep 1
+    (4, 64, 40, True, False, False, True),    # n_rep 2, NoPE+ALiBi
+    (2, 48, 70, True, True, False, True),     # n_rep 4, reset, Dv != Dqk
+    (2, 64, 40, False, True, True, False),    # packed, isolation off
+    (4, 48, 200, True, True, True, True),     # window past S
+])
+def test_windowed_backward_kernels_match_plain(gen, hk, dv, window, nope,
+                                               reset, packed, sum_iso):
+    """Kernels 2 (dq) and 3 (dk/dv), through the autograd Function, against
+    ``torch.autograd.grad`` of the plain version: padded tails, a row whose
+    keys are all padding, [SUM] rows, segments."""
+    B, S, H, D = 2, 150, 8, 64
+    r = lambda *s: torch.randn(s, generator=gen, device="cuda")
+    q, k, v, do = r(B, S, H, D), r(B, S, hk, D), r(B, S, hk, dv), r(B, S, H, dv)
+    pos = torch.arange(S, device="cuda", dtype=torch.int32).expand(B, S)
+    pos = pos.contiguous()
+    valid = torch.ones(B, S, dtype=torch.bool, device="cuda")
+    valid[0, 120:] = False
+    valid[1, 3:] = False
+    seg = torch.zeros(B, S, dtype=torch.int32, device="cuda")
+    if packed:
+        seg[:, 60:] = 1
+        pos[:, 60:] = torch.arange(S - 60, device="cuda", dtype=torch.int32)
+    is_sum = torch.rand(B, S, generator=gen, device="cuda") < 0.15
+    kw = dict(pos_q=pos, pos_k=pos, window=window, valid_k=valid,
+              sum_isolated=sum_iso, is_sum_q=is_sum, is_sum_k=is_sum)
+    if nope:
+        kw.update(q_nope=r(B, S, H, D), k_nope=r(B, S, hk, D),
+                  alibi=torch.rand(H, generator=gen, device="cuda"))
+    if reset:
+        kw.update(v0=r(B, S, hk, dv), reset=ResetConfig(0.05, 0.3,
+                                                         window / 2))
+    if packed:
+        kw.update(seg_q=seg, seg_k=seg)
+    names = [n for n, use in (("q_nope", nope), ("k_nope", nope),
+                              ("v0", reset)) if use]
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    extra = {n: kw[n].clone().requires_grad_(True) for n in names}
+    before = dict(kernels.LAUNCHES)
+    o = windowed_attention(*leaves, **dict(kw, **extra))
+    o.backward(do)
+    torch.cuda.synchronize()
+    for name in ("windowed_attn", "windowed_attn_dq", "windowed_attn_dkv"):
+        assert kernels.LAUNCHES[name] == before[name] + 1, name
+    got = [t.grad for t in leaves] + [extra[n].grad for n in names]
+    want = [g for g in windowed_attention_bwd_plain(q, k, v, do, **kw)
+            if g is not None]
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=TOL, rtol=0)
