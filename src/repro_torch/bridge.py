@@ -14,7 +14,8 @@ are, ``embed (V, d)`` and ``lm_head.w (d, V)``.
 
 Optimizer state (``step``, ``mu``, ``nu``, ``master``) converts the same
 way, with one difference: the reference keeps a single fp32 zero scalar
-for each frozen stacked leaf, the port one per layer.
+for each frozen stacked leaf, the port one per layer. Decode caches carry
+across key for key (``cache_from_jax``, ``cache_to_numpy``).
 """
 from __future__ import annotations
 
@@ -167,5 +168,21 @@ def opt_state_to_numpy(state: OptState,
             "master": None if state.master is None else conv(state.master)}
 
 
+def cache_from_jax(cache: Mapping[str, Any], device) -> Dict[str, Any]:
+    """Reference decode cache (``init_lm_cache``'s dict, numpy leaves) ->
+    the port's, key for key: KV codes or values, scale sidecars, ``pos``,
+    ``cursor``, ``ref`` and ``page_table`` keep their shapes and dtypes
+    (both packages lay the cache out the same way)."""
+    return {k: _to_tensor(v, device) for k, v in cache.items()}
+
+
+def cache_to_numpy(cache: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """Port decode cache -> numpy leaves, key for key (the inverse of
+    ``cache_from_jax``; also takes a reference cache, as numpy)."""
+    return {k: _to_numpy(v) if torch.is_tensor(v) else np.asarray(v)
+            for k, v in cache.items()}
+
+
 __all__ = ["ATTN_IMPL", "config_from_jax", "from_jax_params", "to_numpy_tree",
-           "opt_state_from_jax", "opt_state_to_numpy"]
+           "opt_state_from_jax", "opt_state_to_numpy", "cache_from_jax",
+           "cache_to_numpy"]

@@ -1,7 +1,8 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
 Each CUDA C++ source under ``csrc/`` has plain C entry points (one per
-kernel; ``windowed_attn_bwd.cu`` holds two). At first use it is compiled with ``nvcc`` for ``sm_90a`` into a
+kernel; ``windowed_attn_bwd.cu`` holds two, ``decode_attn.cu`` one per
+mode). At first use it is compiled with ``nvcc`` for ``sm_90a`` into a
 shared library under the repository's ``build/kernels/`` (git-ignored),
 named by a hash of its source and flags, and loaded with ``ctypes``.
 Nothing is built at import time: the CPU tests import every module, and
@@ -31,7 +32,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("windowed_attn", "windowed_attn_bwd", "decode_attn")
 KERNELS = ("windowed_attn", "windowed_attn_dq", "windowed_attn_dkv",
-           "decode_attn")
+           "decode_attn", "decode_attn_q8")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

@@ -1,8 +1,9 @@
 // Decode/burst attention into the KV cache for Hopper (sm_90a).
 //
 // Replaces: src/repro/kernels/decode_attn/decode_attn.py, `_kernel`
-// (launched by `decode_attention_bshd`), the Pallas TPU kernel, in its
-// bf16/fp32 mode (the int8 mode waits for the int8-cache slice).
+// (launched by `decode_attention_bshd`), the Pallas TPU kernel, in both
+// its modes: bf16/fp32 KV (entry point `decode_attn_fwd`) and int8 KV
+// (`decode_attn_q8_fwd`, the same kernel template with QUANT set).
 //
 // Computes, for s burst queries per batch row, an online-softmax pass over
 // the row's cache in its native (B, cap, Hk, D) layout: a slot is
@@ -11,13 +12,29 @@
 // query's). [SUM] rows score the NoPE stream minus ALiBi * distance. Rows
 // with no key give 0. Cache blocks whose slots are all empty are skipped.
 //
+// int8 mode: K and V arrive as raw int8 codes with fp32 scale sidecars,
+// k_scale (B, cap, Hk, G) and v_scale (B, cap, Hk); keys are unroped. Each
+// staged K tile is widened to fp32, every (x1, x2) half pair of the span
+// [rope_start, D) is rotated by float(max(pos_k, 0)) * rope_inv[j] (one
+// fp32 product, sincosf: the angle reaches thousands of radians, where
+// the fast intrinsics lose digits), and the per-dim scale is applied:
+// k_scale[..., 0] below rope_start, k_scale[..., G - 1] from it on. The
+// NoPE stream of [SUM] rows is the same codes times the scale, unrotated.
+// V is the codes times v_scale. The tile is rotated and dequantized once,
+// in shared memory, for all query heads that share it. Staged slots with
+// pos_k < 0 get V = 0, so whatever bytes an empty or unmapped slot holds
+// (a paged gather reads arbitrary pool slots there) give exactly no weight.
+//
 // What bounds it on this card: at the decode shape (B=8, cap=2048, s=64,
-// H=32, Hk=8, D=128) it reads ~100 MB of roped K, raw K and V for
-// ~4.3 GFLOP, ~43 FLOP/byte, under the ~295 FLOP/byte ridge: memory bound,
-// ~30 us at 3.35 TB/s. The design therefore reads each cache tile once for
+// H=32, Hk=8, D=128) the bf16 mode reads ~100 MB of roped K, raw K and V
+// for ~4.3 GFLOP, ~43 FLOP/byte, under the ~295 FLOP/byte ridge: memory
+// bound, ~30 us at 3.35 TB/s; the int8 mode reads a quarter of those bytes
+// (codes and scales of one K and one V stream). The design therefore reads
+// each cache tile once for
 // all query heads that share it (GQA): one CTA per (kv head, batch row)
-// stages a 32-slot K/V tile in shared memory and serves all n_rep query
-// heads x s queries of its group from it, holding m, l and the output
+// stages a 32-slot K/V tile in shared memory (as fp32, after widening in
+// the int8 mode) and serves all n_rep query heads x s queries of its group
+// from it, holding m, l and the output
 // accumulator for up to 256 such rows in registers (512 threads, 8 rows x
 // 8 value columns each). More rows are served in further passes. The
 // products are fp32 FMA (no tensor cores yet); with only B*Hk CTAs the
@@ -49,10 +66,12 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2
 template <typename T>
 struct Args {
   const T *q, *qn, *k, *kn, *v;
+  const signed char *kq, *vq;          // int8 mode: codes in place of k, v
+  const float *ks, *vs, *rinv;         // int8 mode: scales, RoPE inverse freqs
   const float* alibi;
   const int *pos_q, *pos_k, *sum_q, *seg_q, *seg_k;
   T* o;
-  int B, s, H, Hk, cap, D, Dv, window, use_seg;
+  int B, s, H, Hk, cap, D, Dv, window, use_seg, G, rope_start;
   float scale;
 };
 
@@ -65,7 +84,7 @@ __host__ __device__ constexpr size_t smem_bytes(bool nope) {
   return smem_floats(nope) * sizeof(float) + (3 * RMAX + 2 * BK) * sizeof(int);
 }
 
-template <typename T, bool NOPE>
+template <typename T, bool NOPE, bool QUANT>
 __global__ void __launch_bounds__(THREADS, 1)
 decode_attn_kernel(const Args<T> a) {
   extern __shared__ float smem[];
@@ -136,21 +155,64 @@ decode_attn_kernel(const Args<T> a) {
       }
       // occupancy skip: a block of empty slots contributes nothing
       if (!__syncthreads_or(tid < BK && pos_ks[tid] >= 0)) continue;
-      for (int idx = tid; idx < BK * D; idx += THREADS) {
-        const int c = idx / D, d = idx - c * D, slot = k0 + c;
-        float x = 0.f, xn = 0.f;
-        if (slot < cap) {
-          const size_t off = (((size_t)b * cap + slot) * a.Hk + hk) * D + d;
-          x = to_f(a.k[off]);
-          if (NOPE && any_sum) xn = to_f(a.kn[off]);
+      if (QUANT) {
+        // dims below rope_start: dequantized with scale group 0, unrotated
+        const int rs = a.rope_start, half = (D - rs) / 2;
+        for (int idx = tid; idx < BK * rs; idx += THREADS) {
+          const int c = idx / rs, d = idx - c * rs, slot = k0 + c;
+          float x = 0.f;
+          if (slot < cap) {
+            const size_t sh = ((size_t)b * cap + slot) * a.Hk + hk;
+            x = (float)a.kq[sh * D + d] * a.ks[sh * a.G];
+          }
+          k_s[c * LDK + d] = x;
+          if (NOPE) kn_s[c * LDK + d] = x;
         }
-        k_s[c * LDK + d] = x;
-        if (NOPE) kn_s[c * LDK + d] = xn;
+        // the span [rope_start, D): one rotation per (slot, half pair)
+        for (int idx = tid; idx < BK * half; idx += THREADS) {
+          const int c = idx / half, j = idx - c * half, slot = k0 + c;
+          float r1 = 0.f, r2 = 0.f, n1 = 0.f, n2 = 0.f;
+          if (slot < cap) {
+            const size_t sh = ((size_t)b * cap + slot) * a.Hk + hk;
+            const float sc = a.ks[sh * a.G + a.G - 1];
+            const float x1 = (float)a.kq[sh * D + rs + j];
+            const float x2 = (float)a.kq[sh * D + rs + half + j];
+            const float ang = (float)max(pos_ks[c], 0) * a.rinv[j];
+            float sn, cs;
+            sincosf(ang, &sn, &cs);
+            r1 = (x1 * cs - x2 * sn) * sc;
+            r2 = (x1 * sn + x2 * cs) * sc;
+            n1 = x1 * sc;
+            n2 = x2 * sc;
+          }
+          k_s[c * LDK + rs + j] = r1;
+          k_s[c * LDK + rs + half + j] = r2;
+          if (NOPE) {
+            kn_s[c * LDK + rs + j] = n1;
+            kn_s[c * LDK + rs + half + j] = n2;
+          }
+        }
+      } else {
+        for (int idx = tid; idx < BK * D; idx += THREADS) {
+          const int c = idx / D, d = idx - c * D, slot = k0 + c;
+          float x = 0.f, xn = 0.f;
+          if (slot < cap) {
+            const size_t off = (((size_t)b * cap + slot) * a.Hk + hk) * D + d;
+            x = to_f(a.k[off]);
+            if (NOPE && any_sum) xn = to_f(a.kn[off]);
+          }
+          k_s[c * LDK + d] = x;
+          if (NOPE) kn_s[c * LDK + d] = xn;
+        }
       }
       for (int idx = tid; idx < BK * Dv; idx += THREADS) {
         const int c = idx / Dv, d = idx - c * Dv, slot = k0 + c;
-        v_s[c * DMAX + d] =
-            slot < cap ? to_f(a.v[(((size_t)b * cap + slot) * a.Hk + hk) * Dv + d]) : 0.f;
+        float x = 0.f;
+        if (slot < cap && pos_ks[c] >= 0) {
+          const size_t sh = ((size_t)b * cap + slot) * a.Hk + hk;
+          x = QUANT ? (float)a.vq[sh * Dv + d] * a.vs[sh] : to_f(a.v[sh * Dv + d]);
+        }
+        v_s[c * DMAX + d] = x;
       }
       __syncthreads();
 
@@ -278,10 +340,10 @@ decode_attn_kernel(const Args<T> a) {
   }
 }
 
-template <typename T, bool NOPE>
+template <typename T, bool NOPE, bool QUANT>
 int launch(const Args<T>& a, cudaStream_t stream) {
   const size_t smem = smem_bytes(NOPE);
-  auto kern = decode_attn_kernel<T, NOPE>;
+  auto kern = decode_attn_kernel<T, NOPE, QUANT>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
@@ -290,52 +352,93 @@ int launch(const Args<T>& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// The operands both modes share; k/v are T in the bf16/fp32 mode and int8
+// codes (with ks/vs/rinv) in the int8 mode.
+struct Ptrs {
+  const void *q, *qn, *k, *kn, *v, *ks, *vs, *rinv, *alibi;
+  const void *pos_q, *pos_k, *sum_q, *seg_q, *seg_k;
+  void* o;
+};
+
 template <typename T>
-int run(const void* q, const void* qn, const void* k, const void* kn,
-        const void* v, const void* alibi, const void* pos_q,
-        const void* pos_k, const void* sum_q, const void* seg_q,
-        const void* seg_k, void* o, int B, int s, int H, int Hk, int cap,
-        int D, int Dv, int window, int use_nope, int use_seg, float scale,
-        cudaStream_t st) {
+int run(const Ptrs& p, int B, int s, int H, int Hk, int cap, int D, int Dv,
+        int G, int rope_start, int window, int use_nope, int use_seg,
+        int quant, float scale, cudaStream_t st) {
   Args<T> a;
-  a.q = static_cast<const T*>(q);
-  a.qn = static_cast<const T*>(qn);
-  a.k = static_cast<const T*>(k);
-  a.kn = static_cast<const T*>(kn);
-  a.v = static_cast<const T*>(v);
-  a.alibi = static_cast<const float*>(alibi);
-  a.pos_q = static_cast<const int*>(pos_q);
-  a.pos_k = static_cast<const int*>(pos_k);
-  a.sum_q = static_cast<const int*>(sum_q);
-  a.seg_q = static_cast<const int*>(seg_q);
-  a.seg_k = static_cast<const int*>(seg_k);
-  a.o = static_cast<T*>(o);
+  a.q = static_cast<const T*>(p.q);
+  a.qn = static_cast<const T*>(p.qn);
+  a.k = static_cast<const T*>(p.k);
+  a.kn = static_cast<const T*>(p.kn);
+  a.v = static_cast<const T*>(p.v);
+  a.kq = static_cast<const signed char*>(p.k);
+  a.vq = static_cast<const signed char*>(p.v);
+  a.ks = static_cast<const float*>(p.ks);
+  a.vs = static_cast<const float*>(p.vs);
+  a.rinv = static_cast<const float*>(p.rinv);
+  a.alibi = static_cast<const float*>(p.alibi);
+  a.pos_q = static_cast<const int*>(p.pos_q);
+  a.pos_k = static_cast<const int*>(p.pos_k);
+  a.sum_q = static_cast<const int*>(p.sum_q);
+  a.seg_q = static_cast<const int*>(p.seg_q);
+  a.seg_k = static_cast<const int*>(p.seg_k);
+  a.o = static_cast<T*>(p.o);
   a.B = B; a.s = s; a.H = H; a.Hk = Hk; a.cap = cap; a.D = D; a.Dv = Dv;
   a.window = window; a.use_seg = use_seg; a.scale = scale;
-  return use_nope ? launch<T, true>(a, st) : launch<T, false>(a, st);
+  a.G = G; a.rope_start = rope_start;
+  if (quant)
+    return use_nope ? launch<T, true, true>(a, st) : launch<T, false, true>(a, st);
+  return use_nope ? launch<T, true, false>(a, st) : launch<T, false, false>(a, st);
+}
+
+int dispatch(const Ptrs& p, int B, int s, int H, int Hk, int cap, int D,
+             int Dv, int G, int rope_start, int window, int use_nope,
+             int use_seg, int quant, int is_bf16, float scale, void* stream) {
+  if (D > DMAX || Dv > DMAX || D <= 0 || Dv <= 0 || Hk <= 0 || H % Hk != 0 ||
+      (use_nope && (p.qn == nullptr || p.sum_q == nullptr ||
+                    (!quant && p.kn == nullptr))) ||
+      (use_seg && (p.seg_q == nullptr || p.seg_k == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  if (quant && (p.ks == nullptr || p.vs == nullptr || p.rinv == nullptr ||
+                (G != 1 && G != 2) || rope_start < 0 || rope_start >= D ||
+                (D - rope_start) % 2 != 0))
+    return (int)cudaErrorInvalidValue;
+  if (B == 0 || s == 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return run<__nv_bfloat16>(p, B, s, H, Hk, cap, D, Dv, G, rope_start,
+                              window, use_nope, use_seg, quant, scale, st);
+  return run<float>(p, B, s, H, Hk, cap, D, Dv, G, rope_start, window,
+                    use_nope, use_seg, quant, scale, st);
 }
 
 }  // namespace
 
-// Returns the launch's cudaError_t (0 = launched). Pointers the flags
-// switch off may be null.
+// Both entry points return the launch's cudaError_t (0 = launched).
+// Pointers the flags switch off may be null. `is_bf16` is the type of q,
+// q_nope and o.
 extern "C" int decode_attn_fwd(
     const void* q, const void* qn, const void* k, const void* kn,
     const void* v, const void* alibi, const void* pos_q, const void* pos_k,
     const void* sum_q, const void* seg_q, const void* seg_k, void* o,
     int B, int s, int H, int Hk, int cap, int D, int Dv, int window,
     int use_nope, int use_seg, int is_bf16, float scale, void* stream) {
-  if (D > DMAX || Dv > DMAX || D <= 0 || Dv <= 0 || Hk <= 0 || H % Hk != 0 ||
-      (use_nope && (qn == nullptr || kn == nullptr || sum_q == nullptr)) ||
-      (use_seg && (seg_q == nullptr || seg_k == nullptr)))
-    return (int)cudaErrorInvalidValue;
-  if (B == 0 || s == 0) return 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return run<__nv_bfloat16>(q, qn, k, kn, v, alibi, pos_q, pos_k, sum_q,
-                              seg_q, seg_k, o, B, s, H, Hk, cap, D, Dv, window,
-                              use_nope, use_seg, scale, st);
-  return run<float>(q, qn, k, kn, v, alibi, pos_q, pos_k, sum_q, seg_q, seg_k,
-                    o, B, s, H, Hk, cap, D, Dv, window, use_nope, use_seg,
-                    scale, st);
+  const Ptrs p{q, qn, k, kn, v, nullptr, nullptr, nullptr, alibi,
+               pos_q, pos_k, sum_q, seg_q, seg_k, o};
+  return dispatch(p, B, s, H, Hk, cap, D, Dv, 1, 0, window, use_nope,
+                  use_seg, 0, is_bf16, scale, stream);
+}
+
+// The int8 mode: kq/vq int8 codes (B, cap, Hk, D|Dv), ks (B, cap, Hk, G)
+// and vs (B, cap, Hk) fp32 scales, rinv ((D - rope_start) / 2) fp32.
+extern "C" int decode_attn_q8_fwd(
+    const void* q, const void* qn, const void* kq, const void* vq,
+    const void* ks, const void* vs, const void* rinv, const void* alibi,
+    const void* pos_q, const void* pos_k, const void* sum_q,
+    const void* seg_q, const void* seg_k, void* o, int B, int s, int H,
+    int Hk, int cap, int D, int Dv, int G, int rope_start, int window,
+    int use_nope, int use_seg, int is_bf16, float scale, void* stream) {
+  const Ptrs p{q, qn, kq, nullptr, vq, ks, vs, rinv, alibi,
+               pos_q, pos_k, sum_q, seg_q, seg_k, o};
+  return dispatch(p, B, s, H, Hk, cap, D, Dv, G, rope_start, window,
+                  use_nope, use_seg, 1, is_bf16, scale, stream);
 }

@@ -76,13 +76,30 @@ def swiglu(p: Params, x: torch.Tensor) -> torch.Tensor:
     return dense(p["down"], F.silu(dense(p["gate"], x)) * dense(p["up"], x))
 
 
+_CONSTS: Dict[tuple, torch.Tensor] = {}
+
+
+def _const(key: tuple, device, make) -> torch.Tensor:
+    """A small constant tensor, made once per device and kept. Making it
+    anew on the card copies a host scalar or list per call, and each such
+    copy waits for the stream: a host sync in every layer of every step.
+    Callers must not modify the tensor."""
+    k = key + (str(torch.device(device)),)
+    t = _CONSTS.get(k)
+    if t is None:
+        t = _CONSTS[k] = make(device)
+    return t
+
+
 def rope_freqs(head_dim: int, theta: float = 10000.0,
                device="cpu") -> torch.Tensor:
     """Inverse frequencies for RoPE (arXiv:2104.09864), fp32."""
-    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
-                        device=device) / head_dim
-    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                        device=device), exps)
+    def make(dev):
+        exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                            device=dev) / head_dim
+        return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                            device=dev), exps)
+    return _const(("rope", head_dim, float(theta)), device, make)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
@@ -113,7 +130,8 @@ def alibi_slopes(n_heads: int, device="cpu") -> torch.Tensor:
         closest = 2 ** math.floor(math.log2(n_heads))
         s = pow2_slopes(closest)
         s = s + pow2_slopes(2 * closest)[0::2][: n_heads - closest]
-    return torch.tensor(s, dtype=torch.float32, device=device)
+    return _const(("alibi", n_heads), device,
+                  lambda dev: torch.tensor(s, dtype=torch.float32, device=dev))
 
 
 __all__ = ["Params", "normal_init", "init_linear", "dense", "init_rmsnorm",

@@ -1,2 +1,3 @@
-"""repro_torch.obs — the port's copy of the jax-free clock of ``repro.obs``
-(tracing and metrics registries come with the observability slice)."""
+"""repro_torch.obs — the port's observability layer: copies of the
+jax-free ``repro.obs`` modules (``clock``, ``metrics``, ``trace``) and
+``profile`` on ``torch.profiler``."""

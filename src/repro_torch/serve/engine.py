@@ -4,10 +4,11 @@
 * ``make_prefill_fn`` — full forward over sliding-window prompts (the
   paper's inference procedure). [SUM] rows keep NoPE+ALiBi and isolation,
   without the training-only hidden-state reset.
-* ``make_decode_fn`` — incremental steps against the KV cache, with the
-  scheduler's ``valid``/``commit``/``seg`` operands and ring caches. The
-  cache holds unroped keys and their positions; RoPE is applied at read
-  time, so a [SUM] query scores the same cache with NoPE+ALiBi.
+* ``make_decode_fn`` — incremental steps against the KV cache
+  (contiguous or paged, bf16/fp32 or int8), with the scheduler's
+  ``valid``/``commit``/``seg`` operands and ring caches. The cache holds
+  unroped keys and their positions; RoPE is applied at read time, so a
+  [SUM] query scores the same cache with NoPE+ALiBi.
 * ``CTRServer.score`` — batched scoring of sliding-window prompts.
 
 The cache is updated in place (see ``repro_torch.serve.cache``): the
@@ -22,6 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.losses import ctr_logits
+from repro_torch.core.quant import quantize_q8
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.decode_attn import (decode_attention,
                                              decode_attention_plain)
@@ -29,7 +31,8 @@ from repro_torch.models.layers import (alibi_slopes, apply_rope, dense,
                                        rmsnorm, swiglu)
 from repro_torch.models.transformer import (ModelConfig, check_supported,
                                             forward)
-from repro_torch.serve.cache import Cache, kv_keys, slot_indices
+from repro_torch.serve.cache import (Cache, is_paged, kv_keys,
+                                     physical_slots, slot_indices)
 
 Params = Dict[str, Any]
 
@@ -64,16 +67,51 @@ def _rope_read(k: torch.Tensor, pos: torch.Tensor, theta: float):
     return apply_rope(k, pos.clamp(min=0), theta)
 
 
-def _cache_write(buf: torch.Tensor, write, new: torch.Tensor) -> None:
-    """Scatter fresh KV into one layer's ``(B, cap, ...)`` cache in place.
+def _write_plan(dest: torch.Tensor, keep: torch.Tensor):
+    """Flat scatter indices for one step's KV writes, without a host sync.
 
-    ``write = (rows, slots, cols)`` lists only the tokens whose slot lies
-    inside capacity: a chunk right-padded to its bucket may point past the
-    end, and those writes must vanish (the reference's ``mode="drop"``),
-    not raise, clamp, or wrap onto another slot.
+    ``dest (B, s)`` is each token's flat slot (``row * cap + slot`` in a
+    contiguous cache, the physical pool slot in a paged one) and ``keep``
+    marks the tokens whose write lands: a chunk right-padded to its bucket
+    may point past capacity, or at a page that is not mapped, and those
+    writes must vanish (the reference's ``mode="drop"``). A dropped write
+    must never be clamped or wrapped onto another slot: a negative index
+    would wrap onto the pool's last slot, a live page under pool pressure.
+
+    So a dropped token is sent to the slot of the first kept token and
+    carries that token's value: duplicate indices then hold identical
+    values, whichever write lands last. If no token of the step is kept,
+    every write goes to flat slot 0 with the value slot 0 already holds.
+    Returns (indices (N,), source token of each value (N,), any kept).
     """
-    rows, slots, cols = write
-    buf[rows, slots] = new[rows, cols].to(buf.dtype)
+    dest, keep = dest.reshape(-1).long(), keep.reshape(-1)
+    first = torch.argmax(keep.to(torch.uint8)).reshape(1)
+    any_kept = keep.any()
+    src = torch.where(keep, torch.arange(dest.numel(), device=dest.device),
+                      first)
+    idx = torch.where(keep, dest,
+                      torch.where(any_kept, dest.index_select(0, first), 0))
+    return idx, src, any_kept
+
+
+def _cache_write(buf: torch.Tensor, plan, new: torch.Tensor) -> None:
+    """Scatter fresh KV (codes or scales) ``new (B, s, ...)`` into one
+    layer's cache tensor in place: ``buf (B, cap, ...)`` contiguous or
+    ``(n_slots, ...)`` paged, through ``_write_plan``'s indices."""
+    idx, src, any_kept = plan
+    flat = buf.flatten(0, 1) if buf.dim() == new.dim() else buf
+    vals = new.reshape((-1,) + new.shape[2:]).to(buf.dtype)
+    vals = vals.index_select(0, src)
+    vals = torch.where(any_kept, vals, flat[:1])
+    flat.index_put_((idx,), vals)
+
+
+def _cache_view(buf: torch.Tensor, read_idx):
+    """Row-major read view: the tensor itself for the contiguous layout,
+    the page gather ``buf[read_idx]`` (B, cap, ...) for the paged one
+    (``read_idx`` clamped: unmapped entries gather arbitrary pool slots,
+    which ``pos = -1`` keeps unattendable)."""
+    return buf if read_idx is None else buf[read_idx]
 
 
 def _ffn(lp: Params, h, cfg: ModelConfig):
@@ -81,40 +119,63 @@ def _ffn(lp: Params, h, cfg: ModelConfig):
 
 
 def _gqa_decode_layer(lp: Params, h, kv: Dict[str, torch.Tensor], *,
-                      cfg: ModelConfig, write, pos_buf, positions, is_sum,
-                      window: int, seg_q=None, seg_buf=None, impl="dense"):
+                      cfg: ModelConfig, plan, read_idx, pos_buf, positions,
+                      is_sum, window: int, seg_q=None, seg_buf=None,
+                      impl="dense"):
     b, s, _ = h.shape
     hq, hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    quant = "k_scale" in kv
     x = rmsnorm(lp["ln_attn"], h, cfg.norm_eps)
     q = dense(lp["attn"]["q"], x).reshape(b, s, hq, hd)
-    _cache_write(kv["k"], write, dense(lp["attn"]["k"], x).reshape(b, s, hk, hd))
-    _cache_write(kv["v"], write, dense(lp["attn"]["v"], x).reshape(b, s, hk, hd))
+    k_new = dense(lp["attn"]["k"], x).reshape(b, s, hk, hd)
+    v_new = dense(lp["attn"]["v"], x).reshape(b, s, hk, hd)
+    if quant:
+        # quantize on write: codes and their per-(slot, head) scales land
+        # on the same slots in the same step, so pages stay self-describing
+        k_new, k_sv = quantize_q8(k_new)
+        v_new, v_sv = quantize_q8(v_new)
+        _cache_write(kv["k_scale"], plan, k_sv)
+        _cache_write(kv["v_scale"], plan, v_sv)
+    _cache_write(kv["k"], plan, k_new)
+    _cache_write(kv["v"], plan, v_new)
+    k_raw = _cache_view(kv["k"], read_idx)
+    v_raw = _cache_view(kv["v"], read_idx)
 
-    # Two key views per layer, as in the reference: the roped copy for
-    # ordinary rows and the raw cache for the NoPE stream of [SUM] rows.
-    # The roped copy is a full-capacity pass per layer (a cost noted in
-    # PERF.md; RoPE at read time inside the kernel removes it later).
     q_rope = apply_rope(q, positions, cfg.rope_theta)
-    k_rope = _rope_read(kv["k"], pos_buf, cfg.rope_theta)
     nope = cfg.dti_sum_alibi
     attend = decode_attention if impl == "cuda" else decode_attention_plain
-    out = attend(q_rope, k_rope, kv["v"], positions, pos_buf, window=window,
-                 is_sum_q=is_sum if nope else None,
-                 q_nope=q if nope else None,
-                 k_nope=kv["k"] if nope else None,
-                 alibi=alibi_slopes(hq, h.device) if nope else None,
-                 seg_q=seg_q, seg_k=seg_buf, scale=hd ** -0.5).to(h.dtype)
-    h = h + dense(lp["attn"]["o"], out.reshape(b, s, hq * hd))
+    kw = dict(window=window, is_sum_q=is_sum if nope else None,
+              q_nope=q if nope else None,
+              alibi=alibi_slopes(hq, h.device) if nope else None,
+              seg_q=seg_q, seg_k=seg_buf, scale=hd ** -0.5)
+    if quant:
+        # the int8 contract: raw codes plus scale views go to the kernel,
+        # which dequantizes and ropes them itself (no roped copy of K; the
+        # NoPE stream is the same codes unrotated). The dense path's plain
+        # version dequantizes the views first, as the reference's does.
+        out = attend(q_rope, k_raw, v_raw, positions, pos_buf,
+                     k_scale=_cache_view(kv["k_scale"], read_idx)[..., None],
+                     v_scale=_cache_view(kv["v_scale"], read_idx),
+                     rope_start=0, rope_theta=cfg.rope_theta, **kw)
+    else:
+        # two key views per layer, as in the reference: the roped copy for
+        # ordinary rows and the raw cache for the NoPE stream of [SUM] rows
+        # (the roped copy is a full-capacity pass per layer; PERF.md)
+        out = attend(q_rope, _rope_read(k_raw, pos_buf, cfg.rope_theta),
+                     v_raw, positions, pos_buf,
+                     k_nope=k_raw if nope else None, **kw)
+    h = h + dense(lp["attn"]["o"], out.to(h.dtype).reshape(b, s, hq * hd))
     return _ffn(lp, h, cfg)
 
 
 def make_decode_fn(cfg: ModelConfig, *, window: int, ring: bool,
-                   yes_id: int = 3, no_id: int = 4) -> Callable:
+                   yes_id: int = 3, no_id: int = 4,
+                   attn_impl: Optional[str] = None) -> Callable:
     """(params, cache, tokens (B,s), positions (B,s), is_sum (B,s)[, valid
     (B,s), commit (B,), seg (B,s)]) -> (p_click (B, s), cache).
 
-    ``cfg.attn_impl`` picks the attention: ``"cuda"`` (the decode kernel)
-    or ``"dense"`` (the plain oracle).
+    ``attn_impl`` picks the attention: ``"cuda"`` (the decode kernel),
+    ``"dense"`` (the plain oracle), or None to follow ``cfg.attn_impl``.
 
     * ``valid``  — right-padded chunks: invalid tokens are written with
       position -1 (never attendable) and the cursor advances by the valid
@@ -128,9 +189,19 @@ def make_decode_fn(cfg: ModelConfig, *, window: int, ring: bool,
     * ``seg``    — per-token segment for multi-candidate bursts: -1 = shared
       context, 0..k-1 = candidate; a candidate attends the context and
       itself only.
+
+    The layout comes from the cache. Paged caches read and write through
+    ``physical_slots`` (``ring=False`` only); the kernel gets the gathered
+    per-row view, so a paged step computes exactly what a contiguous one
+    holding the same KV computes. int8 caches quantize on write and hand
+    the kernel raw codes and scales (``decode_attention``'s int8 mode).
+
+    Dispatching a step makes no host sync: dropped writes are resolved on
+    the device (``_write_plan``), so a caller can keep a step in flight.
     """
     check_supported(cfg)
-    attn_impl = cfg.attn_impl
+    if attn_impl is None:
+        attn_impl = cfg.attn_impl
     if attn_impl == "blocked":
         raise NotImplementedError(
             "blocked attention comes with the training slice "
@@ -144,26 +215,43 @@ def make_decode_fn(cfg: ModelConfig, *, window: int, ring: bool,
         b, s = tokens.shape
         cap = cache["pos"].shape[1]
         slots = slot_indices(cache, s, ring=ring)
-        # tokens whose slot lies inside capacity; the rest are dropped
-        rows, cols = (slots < cap).nonzero(as_tuple=True)
-        write = (rows, slots[rows, cols], cols)
+        inside = slots < cap
+        read_idx = None
+        if is_paged(cache):
+            if ring:
+                raise ValueError("paged caches are non-ring")
+            flat = physical_slots(cache)
+            dest = torch.gather(flat, 1, slots.clamp(max=cap - 1))
+            keep = inside & (dest >= 0)
+            read_idx = flat.clamp(min=0).long()
+        else:
+            dest = torch.arange(b, device=slots.device)[:, None] * cap + slots
+            keep = inside
+        plan = _write_plan(dest, keep)
+        # bookkeeping writes past capacity land in a spare column that is
+        # cut off again (no sync, nothing wraps)
+        col = slots.clamp(max=cap)
         pos_write = (positions if valid is None
                      else torch.where(valid, positions, -1))
-        pos_buf = cache["pos"].clone()
-        pos_buf[write[0], write[1]] = pos_write[rows, cols].to(torch.int32)
+        pos_buf = torch.cat([cache["pos"], cache["pos"].new_full((b, 1), -1)],
+                            dim=1)
+        pos_buf.scatter_(1, col, pos_write.to(torch.int32))
+        pos_buf = pos_buf[:, :cap].contiguous()
         seg_buf = None
         if seg is not None:
-            seg_buf = torch.full((b, cap), -1, dtype=torch.int32,
+            seg_buf = torch.full((b, cap + 1), -1, dtype=torch.int32,
                                  device=tokens.device)
-            seg_buf[write[0], write[1]] = seg[rows, cols].to(torch.int32)
+            seg_buf.scatter_(1, col, seg.to(torch.int32))
+            seg_buf = seg_buf[:, :cap].contiguous()
 
         h = params["embed"][tokens].to(cfg.cdtype)
         for li, lp in enumerate(params["layers"]):
             kv = {nm: cache[nm][li] for nm in kv_keys(cache)}
-            h = _gqa_decode_layer(lp, h, kv, cfg=cfg, write=write,
-                                  pos_buf=pos_buf, positions=positions,
-                                  is_sum=is_sum, window=window, seg_q=seg,
-                                  seg_buf=seg_buf, impl=attn_impl)
+            h = _gqa_decode_layer(lp, h, kv, cfg=cfg, plan=plan,
+                                  read_idx=read_idx, pos_buf=pos_buf,
+                                  positions=positions, is_sum=is_sum,
+                                  window=window, seg_q=seg, seg_buf=seg_buf,
+                                  impl=attn_impl)
 
         n_new = s if valid is None else valid.sum(dim=-1).to(torch.int32)
         if commit is None:

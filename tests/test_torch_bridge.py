@@ -58,7 +58,10 @@ def test_import_loads_neither_jax_nor_repro():
             "repro_torch.configs.dti_llama, repro_torch.data.synthetic, "
             "repro_torch.kernels.windowed_attn, repro_torch.launch.train, "
             "repro_torch.train.trainer, repro_torch.train.optimizer, "
-            "repro_torch.train.checkpoint\n"
+            "repro_torch.train.checkpoint, repro_torch.serve.scheduler, "
+            "repro_torch.serve.pages, repro_torch.data.requests, "
+            "repro_torch.obs.trace, repro_torch.obs.metrics, "
+            "repro_torch.obs.profile, repro_torch.core.quant\n"
             "bad = [m for m in sys.modules if m == 'jax' or m == 'repro' "
             "or m.startswith(('jax.', 'repro.'))]\n"
             "assert not bad, bad\n")

@@ -135,3 +135,73 @@ def test_windowed_backward_kernels_match_plain(gen, hk, dv, window, nope,
             if g is not None]
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, atol=TOL, rtol=0)
+
+
+def q8_operands(gen, *, B, s, H, hk, d, dv, cap, rope_start, g, base=0):
+    """The int8 mode's operands: fp32 truth quantized into codes and
+    scales (one group, or two split at ``rope_start``), each row filled
+    to its own length from position ``base`` on, with a hole, an empty
+    tail whose scales hold arbitrary values, and a burst of two segments
+    written after the context."""
+    from repro_torch.core.quant import quantize_q8
+    r = lambda *sh: torch.randn(sh, generator=gen, device="cuda")
+    kf, vf = 1.5 * r(B, cap, hk, d), 1.5 * r(B, cap, hk, dv)
+    if g == 2:
+        c_q, c_s = quantize_q8(kf[..., :rope_start])
+        p_q, p_s = quantize_q8(kf[..., rope_start:])
+        k, k_scale = torch.cat([c_q, p_q], -1), torch.stack([c_s, p_s], -1)
+    else:
+        k, k_s = quantize_q8(kf)
+        k_scale = k_s[..., None]
+    v, v_scale = quantize_q8(vf)
+    pos_k = torch.full((B, cap), -1, dtype=torch.int32, device="cuda")
+    seg_k = torch.full((B, cap), -1, dtype=torch.int32, device="cuda")
+    pos_q = torch.zeros(B, s, dtype=torch.int32, device="cuda")
+    seg_q = (torch.arange(s, device="cuda") * 2 // s).to(torch.int32)
+    for b in range(B - 1):                       # the last row stays empty
+        n = cap - s - 7 * b - 3
+        pos_k[b, :n] = base + torch.arange(n, device="cuda", dtype=torch.int32)
+        pos_k[b, n // 3] = -1                    # a hole
+        pos_q[b] = base + n + torch.arange(s, device="cuda",
+                                           dtype=torch.int32) % (s // 2)
+        pos_k[b, n:n + s] = pos_q[b]
+        seg_k[b, n:n + s] = seg_q
+    empty = pos_k < 0                            # arbitrary scales there
+    k_scale[empty] = 1e3 * torch.rand(k_scale[empty].shape, generator=gen,
+                                      device="cuda")
+    v_scale[empty] = 1e3 * torch.rand(v_scale[empty].shape, generator=gen,
+                                      device="cuda")
+    return dict(q=r(B, s, H, d), qn=r(B, s, H, d), k=k, v=v,
+                k_scale=k_scale, v_scale=v_scale, pos_q=pos_q, pos_k=pos_k,
+                seg_q=seg_q.expand(B, s).contiguous(), seg_k=seg_k,
+                is_sum=torch.rand(B, s, generator=gen, device="cuda") < 0.3,
+                alibi=torch.rand(H, generator=gen, device="cuda"))
+
+
+@pytest.mark.parametrize("hk,d,dv,rope_start,g,nope,seg,window", [
+    (2, 64, 64, 0, 1, True, True, 0),       # GQA geometry, every flag
+    (8, 64, 48, 0, 1, False, False, 40),    # n_rep 1, window, Dv != Dqk
+    (1, 12, 8, 8, 2, True, True, 0),        # two scale groups (MLA shape)
+    (1, 12, 8, 8, 2, True, False, 30),
+])
+def test_decode_kernel_int8_matches_plain(gen, hk, d, dv, rope_start, g,
+                                          nope, seg, window):
+    B, s, H, cap = 3, 10, 8, 130
+    o = q8_operands(gen, B=B, s=s, H=H, hk=hk, d=d, dv=dv, cap=cap,
+                    rope_start=rope_start, g=g, base=1900)
+    kw = dict(window=window, k_scale=o["k_scale"], v_scale=o["v_scale"],
+              rope_start=rope_start, rope_theta=10000.0)
+    if nope:
+        kw.update(is_sum_q=o["is_sum"], q_nope=o["qn"], alibi=o["alibi"])
+    if seg:
+        kw.update(seg_q=o["seg_q"], seg_k=o["seg_k"])
+    before = dict(kernels.LAUNCHES)
+    got = decode_attention(o["q"], o["k"], o["v"], o["pos_q"], o["pos_k"],
+                           **kw)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["decode_attn_q8"] == before["decode_attn_q8"] + 1
+    assert kernels.LAUNCHES["decode_attn"] == before["decode_attn"]
+    want = decode_attention_plain(o["q"], o["k"], o["v"], o["pos_q"],
+                                  o["pos_k"], **kw)
+    torch.testing.assert_close(got, want, atol=TOL, rtol=0)
+    assert torch.all(got[-1] == 0)
