@@ -5,7 +5,7 @@
 
 Phases, each fatal on failure:
 
-1. build  — compile the three CUDA sources from
+1. build  — compile the four CUDA sources from
    ``src/repro_torch/kernels/csrc`` (one nvcc each, started together) for
    sm_90a into the git-ignored ``build/``, and print the card's name and
    power limit.
@@ -19,7 +19,27 @@ Phases, each fatal on failure:
    which must be exactly 0. 2e: decode attention's int8 mode
    (``decode_attn_q8``: int8 K/V codes, fp32 scales in one or two groups,
    RoPE and dequantization inside the kernel) over every flag in fp32,
-   then at the decode shape with keys at positions up to 2047.
+   then at the decode shape with keys at positions up to 2047. 2f: the
+   embedding bag (kernel 5, ``embedding_bag`` on fp32/bf16 tables and
+   ``embedding_bag_q8`` on int8 codes with per-row scales) over
+   ``tests/test_kernels.py``'s grid and the recsys row widths (10, 18, 50,
+   64), sum, mean and weighted, with masked out-of-range ids and an
+   all-invalid bag (fp32 and int8 within 1e-5, bf16 within 2^-8 |x| +
+   1e-6); then its op path, with the counts reset before it and read
+   after it, at the real shapes: DIN's FULL item table (2^26 x 18, fp32
+   and its int8 codes) with 65,536 bags of 100 slots and MIND's (2^24 x
+   64) with 512, sum and mean, each held to the plain version within 1e-5.
+11. recsys — DIN, MIND, SASRec and xDeepFM in fp32 before the dti-llama
+   weights are loaded: (a) FULL widths with tables cut to 2^20 rows
+   (xDeepFM: each field to min(v, 2^16)), the card against the CPU on the
+   same params: ``recsys_serve_step`` at serve_p99 (512) within 1e-4
+   max|logit| + 1e-5, 3 AdamW steps' losses within 1e-4; (b) the FULL
+   configs with full tables: serve_p99, a train step at train_batch
+   (65,536; xDeepFM 16,384, whose CIN tensors would take ~20 GB a layer at
+   65,536), retrieval_cand (1 user x 1,000,000 candidates, chunks of
+   8,000); finite, probabilities in (0, 1), timed, peak memory printed.
+   serve_bulk (262,144) is not run. The models gather with plain lookups,
+   as the reference's do: no kernel launches on this path.
 3. prefill — the serving path begins: dti-llama ``FULL`` (32 layers,
    Llama-3.1-8B widths, random seeded weights, bf16) scores 8
    sliding-window prompts of ~1,570 tokens through ``CTRServer.score``;
@@ -68,8 +88,9 @@ Phases, each fatal on failure:
    frozen weight-gradient pass's cost, each scheduler run's ms per step,
    candidates/s, pages, KV bytes and host time per step, and each kernel
    beside its plain version and ``scaled_dot_product_attention`` (forward
-   or backward, after dequantization and RoPE for the int8 mode: the
-   library yardstick, never used by the port), with CUDA events.
+   or backward, after dequantization and RoPE for the int8 mode; for
+   kernel 5 ``F.embedding_bag``: the library yardstick, never used by the
+   port), with CUDA events.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. With no card, or run
@@ -950,7 +971,7 @@ def phase_train(cfg, params, mat, kernels):
     want = {"windowed_attn": 2 * cfg.n_layers,
             "windowed_attn_dq": cfg.n_layers,
             "windowed_attn_dkv": cfg.n_layers, "decode_attn": 0,
-            "decode_attn_q8": 0}
+            "decode_attn_q8": 0, "embedding_bag": 0, "embedding_bag_q8": 0}
     if any(d != want for d in per_step) or len(per_step) != TRAIN_STEPS:
         fail(f"launches per step {per_step}, want {want} x {TRAIN_STEPS}")
     if plain.n:
@@ -1475,6 +1496,342 @@ def phase_sched32(cfg, params, kernels):
 
 
 # ---------------------------------------------------------------------------
+# phase 2f: the embedding bag (kernel 5) against its plain version
+# ---------------------------------------------------------------------------
+
+# fp32 and int8: summation order only (the int8 scale folds exactly into
+# the slot weights). bf16 tables: the op rounds its fp32 sum to bf16, half
+# a step of the 8-bit significand, plus the fp32 sum's own order.
+BAG_TOL = 1e-5
+BAG_BF16_ROUND, BAG_BF16_FLOOR = 2.0 ** -8, 1e-6
+FP32_FLOPS = 67e12             # fp32 outside the tensor cores, same source
+DIN_BAGS, MIND_BAGS, BAG_SLOTS = 65_536, 512, 100
+
+
+def bag_operands(gen, table, B, H, *, lengths=False):
+    """ids (B, H) int32 with random valid slots (or, with ``lengths``, a
+    valid prefix of 1..H slots per bag, as a history is); masked slots
+    hold ids below 0 or past the table's end; bag 0 all invalid unless
+    ``lengths``."""
+    V = table.shape[0]
+    ids = torch.randint(0, V, (B, H), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    if lengths:
+        n = torch.randint(1, H + 1, (B, 1), generator=gen, device="cuda")
+        valid = torch.arange(H, device="cuda")[None] < n
+    else:
+        valid = torch.rand(B, H, generator=gen, device="cuda") < 0.8
+        valid[0] = False
+    junk = torch.randint(-2 * V, 3 * V, (B, H), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    return torch.where(valid, ids, junk), valid
+
+
+def check_bf16_bag(name, got, want):
+    err = (got.float() - want).abs()
+    tol = BAG_BF16_ROUND * want.abs() + BAG_BF16_FLOOR
+    worst = (err / tol).max().item()
+    log(f"  {name}: max|err| {err.max().item():.3e}, worst err/tol "
+        f"{worst:.3f} (tol {BAG_BF16_ROUND:g}|x| + {BAG_BF16_FLOOR:g})")
+    if not worst <= 1.0:
+        fail(f"{name}: worst err/tol {worst}")
+
+
+def check_kernels_bag(kernels):
+    """Kernel 5 in both modes: small shapes in fp32, bf16 and int8 over
+    ``tests/test_kernels.py``'s grid and the recsys row widths, then the op
+    path at the real shapes, with the counts reset before it and read
+    after it. Returns the op path's launches, the real shapes' errors and
+    phase 6's times."""
+    from repro_torch.core.quant import dequantize_q8, quantize_q8
+    from repro_torch.kernels.embedding_bag import (bag_weights, embedding_bag,
+                                                   embedding_bag_plain)
+    from repro_torch.sparse.embedding import init_table
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    log("phase 2f: embedding_bag vs plain, small shapes (fp32, bf16, int8)")
+    grid = [(64, 8, 4, 3), (512, 32, 16, 8), (1000, 128, 8, 20),
+            (37, 16, 5, 7), (300, 10, 9, 20), (300, 18, 9, 20),
+            (300, 50, 6, 12), (300, 64, 6, 12), (300, 200, 3, 33)]
+    for V, D, B, H in grid:
+        table = torch.randn(V, D, generator=gen, device="cuda")
+        ids, valid = bag_operands(gen, table, B, H)
+        weights = torch.randn(B, H, generator=gen, device="cuda")
+        codes, scale = quantize_q8(table)
+        deq = dequantize_q8(codes, scale)
+        for mode, wts in (("sum", None), ("mean", None), ("sum", weights)):
+            tag = (f"V{V} D{D} B{B} H{H} {mode}"
+                   + (" weighted" if wts is not None else ""))
+            w = bag_weights(ids, valid, mode=mode, weights=wts)
+            got = embedding_bag(table, ids, valid, mode=mode, weights=wts)
+            torch.cuda.synchronize()
+            check_close(f"fp32 [{tag}]", got,
+                        embedding_bag_plain(table, ids, w), BAG_TOL)
+            if not (got[0] == 0).all():
+                fail("an all-invalid bag did not give 0")
+            got = embedding_bag(table.bfloat16(), ids, valid, mode=mode,
+                                weights=wts)
+            check_bf16_bag(f"bf16 [{tag}]", got, embedding_bag_plain(
+                table.bfloat16(), ids, w))
+            got = embedding_bag(codes, ids, valid, mode=mode, weights=wts,
+                                table_scale=scale)
+            torch.cuda.synchronize()
+            check_close(f"int8 [{tag}]", got,
+                        embedding_bag_plain(deq, ids, w), BAG_TOL)
+
+    log(f"phase 2f: the op path at the real shapes: DIN's FULL item table "
+        f"(2^26 x 18, fp32 and int8 codes) with {DIN_BAGS} bags of "
+        f"{BAG_SLOTS} (valid lengths 1..{BAG_SLOTS}), MIND's (2^24 x 64) "
+        f"with {MIND_BAGS}")
+    din = init_table(gen, 1 << 26, 18, device="cuda")
+    codes, scale = quantize_q8(din)
+    din_ids, din_valid = bag_operands(gen, din, DIN_BAGS, BAG_SLOTS,
+                                      lengths=True)
+    mind = init_table(gen, 1 << 24, 64, device="cuda")
+    mind_ids, mind_valid = bag_operands(gen, mind, MIND_BAGS, BAG_SLOTS,
+                                        lengths=True)
+    runs = [("embedding_bag", "DIN fp32", din, None, din_ids, din_valid),
+            ("embedding_bag_q8", "DIN int8", codes, scale, din_ids,
+             din_valid),
+            ("embedding_bag", "MIND fp32", mind, None, mind_ids, mind_valid)]
+    kernels.reset_launches()
+    outs = [embedding_bag(t, i, v, mode=mode, table_scale=s)
+            for _, _, t, s, i, v in runs for mode in ("sum", "mean")]
+    torch.cuda.synchronize()
+    launches = {k: n for k, n in kernels.LAUNCHES.items() if n}
+    log(f"  op path launches {launches}")
+    if launches != {"embedding_bag": 4, "embedding_bag_q8": 2}:
+        fail(f"the bag op path launched {launches}")
+    errs = {"embedding_bag": 0.0, "embedding_bag_q8": 0.0}
+    for k, (name, tag, t, s, i, v) in enumerate(runs):
+        ref = t if s is None else dequantize_q8(t, s)
+        for j, mode in enumerate(("sum", "mean")):
+            want = embedding_bag_plain(ref, i, bag_weights(i, v, mode=mode))
+            errs[name] = max(errs[name], check_close(
+                f"{tag} {mode} B{i.shape[0]} H{i.shape[1]}",
+                outs[2 * k + j], want, BAG_TOL))
+        del ref
+    del outs, mind, mind_ids, mind_valid
+    times = time_bag(din, codes, scale, din_ids, din_valid)
+    return dict(launches=launches, errs=errs, times=times)
+
+
+def time_bag(table, codes, scale, ids, valid):
+    """Kernel 5 at DIN's real shape, both modes (sum, the valid mask as
+    weights), beside its plain version and ``F.embedding_bag(...,
+    mode="sum", per_sample_weights=w)`` (the library yardstick, never
+    called by the port; it asserts on the masked slots' out-of-range ids,
+    so it is handed them clamped, outside the timed call; for int8 codes
+    it is handed the codes widened to fp32 and the scales folded into the
+    weights, as a PyTorch user must).
+    The bound counts what these inputs need: each distinct row of a slot
+    with a nonzero weight once (the kernel skips the rest), its int8 scale,
+    the ids and weights, the fp32 output; 2 D fp32 operations per such
+    slot at 67 TFLOP/s."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import embedding_bag as eb
+    w = eb.bag_weights(ids, valid)
+    used = ids[w != 0]
+    rows, slots = int(torch.unique(used).numel()), int(used.numel())
+    B, H = ids.shape
+    D = table.shape[1]
+    side = ids.numel() * 4 + w.numel() * 4 + B * D * 4
+    ids_c = ids.clamp(0, table.shape[0] - 1)
+    res = {}
+    for name, t, s in (("embedding_bag", table, None),
+                       ("embedding_bag_q8", codes, scale)):
+        ms = cuda_ms(lambda: eb._launch(t, ids, w, s), iters=20)
+        plain = cuda_ms(lambda: eb.embedding_bag_plain(t, ids, w, s),
+                        iters=5, warmup=1)
+        if s is None:
+            lib = cuda_ms(lambda: F.embedding_bag(
+                ids_c, t, mode="sum", per_sample_weights=w), iters=20)
+        else:
+            lib = cuda_ms(lambda: F.embedding_bag(
+                ids_c, t.float(), mode="sum",
+                per_sample_weights=w * s[ids_c]), iters=5, warmup=1)
+        nbytes = rows * D * t.element_size() + (rows * 4 if s is not None
+                                                else 0) + side
+        res[name] = dict(ms=ms, plain_ms=plain, library_ms=lib, bytes=nbytes,
+                         flops=2 * D * slots, peak=FP32_FLOPS,
+                         keys=(rows, slots))
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the recsys family (DIN, MIND, SASRec, xDeepFM)
+# ---------------------------------------------------------------------------
+
+RECSYS_ARCHS = ("din", "mind", "sasrec", "xdeepfm")
+RECSYS_SERVE = 512             # serve_p99
+RECSYS_CHECK_STEPS = 3
+N_CANDIDATES = 1_000_000       # retrieval_cand: one user
+# (a): the card against the CPU in fp32 on the same params and batches:
+# summation order only. Logits and probabilities within
+# REC_TOL * max|logit| + REC_FLOOR; AdamW losses within REC_LOSS_TOL.
+REC_TOL, REC_FLOOR, REC_LOSS_TOL = 1e-4, 1e-5, 1e-4
+
+
+def _tree_to(tree, device):
+    return {k: _tree_to(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}
+
+
+def recsys_batch(cfg, b, seed, device):
+    """A batch of the repro's generator (labels included), on ``device``."""
+    from repro_torch.data.recsys_gen import RecsysGenerator
+    gen = RecsysGenerator(cfg.n_items, seed=seed)
+    rng = np.random.default_rng(seed)
+    out = (gen.field_batch(b, cfg.field_vocabs, rng=rng)
+           if cfg.kind == "xdeepfm" else gen.seq_batch(b, cfg.seq_len,
+                                                       rng=rng))
+    return {k: torch.from_numpy(v).to(device) for k, v in out.items()}
+
+
+def recsys_loss_fn(cfg):
+    from repro_torch.models.recsys import bce_loss, recsys_logits
+    return lambda p, b, _g: (bce_loss(recsys_logits(p, cfg, b),
+                                      b["labels"]), {})
+
+
+def phase_recsys_cut(arch):
+    """(a) FULL widths, tables cut (2^20 item rows; xDeepFM each field to
+    min(v, 2^16)): the card against the CPU on the same fp32 params."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.steps import recsys_serve_step
+    from repro_torch.models.recsys import init_recsys, recsys_logits
+    from repro_torch.train.optimizer import OptimizerConfig
+    from repro_torch.train.trainer import init_train_state, make_train_step
+    cfg = get_arch(arch).config
+    cfg = (dataclasses.replace(cfg, field_vocabs=tuple(
+        min(v, 1 << 16) for v in cfg.field_vocabs))
+           if cfg.kind == "xdeepfm" else dataclasses.replace(cfg,
+                                                             n_items=1 << 20))
+    cpu = init_recsys(cfg, seed=11, device="cpu")
+    card = _tree_to(cpu, "cuda")
+    b_cpu = recsys_batch(cfg, RECSYS_SERVE, 12, "cpu")
+    b_card = {k: v.cuda() for k, v in b_cpu.items()}
+    z_cpu = recsys_logits(cpu, cfg, b_cpu)
+    tol = REC_TOL * z_cpu.abs().max().item() + REC_FLOOR
+    check_close(f"{arch} logits B{RECSYS_SERVE}, card vs CPU",
+                recsys_logits(card, cfg, b_card).cpu(), z_cpu, tol)
+    check_close(f"{arch} recsys_serve_step B{RECSYS_SERVE}, card vs CPU",
+                recsys_serve_step(card, cfg, b_card).cpu(),
+                recsys_serve_step(cpu, cfg, b_cpu), tol)
+    ocfg = OptimizerConfig(lr=1e-2, schedule="const", warmup_steps=1,
+                           total_steps=RECSYS_CHECK_STEPS)
+    step = make_train_step(recsys_loss_fn(cfg), ocfg)
+    states = [init_train_state(cpu, ocfg), init_train_state(card, ocfg)]
+    losses = [[], []]
+    for i in range(RECSYS_CHECK_STEPS):
+        b = recsys_batch(cfg, RECSYS_SERVE, 20 + i, "cpu")
+        for k, dev in enumerate(("cpu", "cuda")):
+            states[k], m = step(states[k], {n: v.to(dev)
+                                            for n, v in b.items()})
+            losses[k].append(float(m["loss"]))
+    diff = max(abs(a - c) for a, c in zip(*losses))
+    log(f"  {arch} {RECSYS_CHECK_STEPS} AdamW steps B{RECSYS_SERVE}: losses "
+        f"card {[round(x, 6) for x in losses[1]]}, max |card - CPU| "
+        f"{diff:.3e} (tol {REC_LOSS_TOL:g})")
+    if not diff <= REC_LOSS_TOL:
+        fail(f"{arch}: AdamW losses differ by {diff}")
+    return diff
+
+
+def phase_recsys_full(arch):
+    """(b) the FULL config with its full tables on the card: serve_p99,
+    one train step at train_batch (xDeepFM 16,384), retrieval_cand with
+    1,000,000 candidates in chunks of 8,000; finite, probabilities in
+    (0, 1); times with CUDA events."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.steps import (recsys_retrieval_step,
+                                          recsys_serve_step)
+    from repro_torch.models.recsys import init_recsys
+    from repro_torch.train.optimizer import OptimizerConfig
+    from repro_torch.train.trainer import init_train_state, make_train_step
+    spec = get_arch(arch)
+    cfg = spec.config
+    torch.cuda.reset_peak_memory_stats()
+    params = init_recsys(cfg, seed=13, device="cuda")
+    n_params = sum(t.numel() for t in _leaves(params))
+    b = recsys_batch(cfg, RECSYS_SERVE, 14, "cuda")
+    p = recsys_serve_step(params, cfg, b)
+    if p.shape != (RECSYS_SERVE,) or not bool(((p > 0) & (p < 1)).all()):
+        fail(f"{arch} serve_p99: probabilities not all in (0, 1)")
+    serve_ms = cuda_ms(lambda: recsys_serve_step(params, cfg, b))
+
+    rng = np.random.default_rng(15)
+    cand = torch.from_numpy(rng.integers(
+        0, cfg.field_vocabs[0] if cfg.kind == "xdeepfm" else cfg.n_items,
+        N_CANDIDATES).astype(np.int32)).cuda()
+    extra = ({"base_ids": recsys_batch(cfg, 1, 16, "cuda")["ids"]}
+             if cfg.kind == "xdeepfm" else
+             {"hist": recsys_batch(cfg, 1, 16, "cuda")["hist"]})
+    rb = {"cand_ids": cand, **extra}
+    scores = recsys_retrieval_step(params, cfg, rb)
+    if scores.shape != (N_CANDIDATES,) or not bool(torch.isfinite(
+            scores).all()):
+        fail(f"{arch} retrieval_cand: scores not finite or of shape "
+             f"{tuple(scores.shape)}")
+    retr_ms = cuda_ms(lambda: recsys_retrieval_step(params, cfg, rb),
+                      iters=2, warmup=1)
+    del scores
+
+    tb = TRAIN_BATCH_RECSYS[arch]
+    ocfg = OptimizerConfig(lr=1e-3, schedule="cosine", total_steps=10_000)
+    step = make_train_step(recsys_loss_fn(cfg), ocfg)
+    state = init_train_state(params, ocfg)
+    del params
+    batches = [recsys_batch(cfg, tb, 17 + i, "cuda") for i in range(2)]
+    walls = []
+    for batch in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        if not np.isfinite(float(m["loss"])):
+            fail(f"{arch} train step: loss {float(m['loss'])}")
+    finite = all(bool(torch.isfinite(t).all()) for t in _leaves(state.params))
+    if not finite:
+        fail(f"{arch} train step: non-finite params")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    out = dict(params=n_params, serve_ms=serve_ms, retrieval_ms=retr_ms,
+               train_ms=walls[-1], train_first_ms=walls[0], train_batch=tb,
+               loss=float(m["loss"]), peak_gib=peak)
+    log(f"  {arch} FULL ({n_params / 1e6:.1f} M params): serve_p99 B"
+        f"{RECSYS_SERVE} {serve_ms:.3f} ms; train step B{tb} "
+        f"{walls[-1]:.2f} ms (first {walls[0]:.2f} ms), loss "
+        f"{out['loss']:.4f}; retrieval_cand {N_CANDIDATES} candidates "
+        f"{retr_ms:.2f} ms; peak memory {peak:.2f} GiB")
+    return out
+
+
+TRAIN_BATCH_RECSYS = {"din": 65_536, "mind": 65_536, "sasrec": 65_536,
+                      "xdeepfm": 16_384}
+
+
+def phase_recsys(kernels):
+    """Phase 11; the recsys models gather with plain row lookups, as the
+    reference's models do, so this path launches no kernel."""
+    log("phase 11: the recsys family, fp32 (TF32 off for matmul and cuDNN)")
+    log("phase 11a: FULL widths, tables cut to 2^20 rows (xDeepFM fields to "
+        "min(v, 2^16)): card vs CPU, serve_p99 and 3 AdamW steps")
+    kernels.reset_launches()
+    cut = {arch: phase_recsys_cut(arch) for arch in RECSYS_ARCHS}
+    log("phase 11b: FULL configs with full tables on one card")
+    full = {}
+    for arch in RECSYS_ARCHS:
+        full[arch] = phase_recsys_full(arch)
+        torch.cuda.empty_cache()
+    launched = {k: n for k, n in kernels.LAUNCHES.items() if n}
+    log(f"  recsys path launches {launched or 'none'}")
+    if launched:
+        fail(f"the recsys models launched {launched}")
+    return dict(cut=cut, full=full)
+
+
+# ---------------------------------------------------------------------------
 # phase 6: times
 # ---------------------------------------------------------------------------
 
@@ -1775,6 +2132,9 @@ def main() -> int:
     real = check_kernels_real()
     bwd = check_kernels_bwd()
     q8res = check_kernels_q8()
+    bag = check_kernels_bag(kernels)
+    recsys = phase_recsys(kernels)
+    torch.cuda.empty_cache()
 
     cfg, params = build_model()
     users, prompts = serving_material(cfg)
@@ -1784,7 +2144,8 @@ def main() -> int:
     launches = dict(kernels.LAUNCHES)
     want = {"windowed_attn": cfg.n_layers * (1 + run["n_prefill_calls"]),
             "windowed_attn_dq": 0, "windowed_attn_dkv": 0,
-            "decode_attn": cfg.n_layers * run["n_steps"], "decode_attn_q8": 0}
+            "decode_attn": cfg.n_layers * run["n_steps"], "decode_attn_q8": 0,
+            "embedding_bag": 0, "embedding_bag_q8": 0}
     log(f"  serving path launches {launches}: kernel 1 in "
         f"{1 + run['n_prefill_calls']} prefill calls, kernel 4 in "
         f"{run['n_steps']} decode steps")
@@ -1804,6 +2165,8 @@ def main() -> int:
     for res in sched_runs.values():
         for name, n in res["launches"].items():
             launches[name] += n
+    for name, n in bag["launches"].items():
+        launches[name] += n
     sched32 = phase_sched32(cfg, params, kernels)
 
     log("phase 6: times (CUDA events after warm-up)")
@@ -1819,9 +2182,11 @@ def main() -> int:
     times = time_kernels(real)
     times.update(time_bwd_kernels(bwd))
     times["decode_attn_q8"] = time_q8(q8res)
+    times.update(bag["times"])
     prof = {kv: profile_sched(cfg, params, kv) for kv in (None, "int8")}
     errs = {name: r["err"] for name, r in {**real, **bwd}.items()}
     errs["decode_attn_q8"] = q8res["err"]
+    errs.update(bag["errs"])
     for key, res in sched_runs.items():
         tel = res["tel"]
         log(f"  scheduler 9{key}: {res['wall'] * 1e3 / tel['steps']:.2f} ms "
@@ -1843,32 +2208,48 @@ def main() -> int:
            "decode_attn": ("src/repro_torch/kernels/csrc/decode_attn.cu",
                            "src/repro/kernels/decode_attn/decode_attn.py:116"),
            "decode_attn_q8": ("src/repro_torch/kernels/csrc/decode_attn.cu",
-                              "src/repro/kernels/decode_attn/decode_attn.py:139")}
+                              "src/repro/kernels/decode_attn/decode_attn.py:139"),
+           "embedding_bag": ("src/repro_torch/kernels/csrc/embedding_bag.cu",
+                             "src/repro/kernels/embedding_bag/embedding_bag.py:29"),
+           "embedding_bag_q8": ("src/repro_torch/kernels/csrc/embedding_bag.cu",
+                                "src/repro/kernels/embedding_bag/embedding_bag.py:29")}
     rows = []
     for name in kernels.KERNELS:
         t = times[name]
         t_bytes = t["bytes"] / HBM_BYTES_PER_S * 1e3
-        t_ops = t["flops"] / BF16_FLOPS * 1e3
+        t_ops = t["flops"] / t.get("peak", BF16_FLOPS) * 1e3
         row = dict(name=name, route="cuda", source=src[name][0],
                    replaces=src[name][1], launches=launches[name],
                    max_abs_err=errs[name], ms=t["ms"],
                    plain_ms=t["plain_ms"], bound_ms=max(t_bytes, t_ops),
                    bound_by="bytes" if t_bytes >= t_ops else "operations",
                    library_ms=t["library_ms"])
-        log(f"  {name}: {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, sdpa "
-            f"{t['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
-            f"({row['bound_by']}: {t['bytes'] / 1e6:.1f} MB, "
+        if name.startswith("embedding_bag"):
+            what = (f"; distinct rows read, slots summed: {t['keys']}")
+        elif isinstance(t.get("keys"), tuple):
+            what = (f"; keys read per (row, kv head), summed over rows, for "
+                    f"K/K_nope/V: {t['keys']}")
+        elif "keys" in t:
+            what = (f"; keys read per (row, kv head), summed over rows, as "
+                    f"K and V codes: {t['keys']}")
+        else:
+            what = ""
+        log(f"  {name}: {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+            f"library {t['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} "
+            f"ms ({row['bound_by']}: {t['bytes'] / 1e6:.1f} MB, "
             f"{t['flops'] / 1e12:.4f} TFLOP), launches {launches[name]}"
-            + (f"; keys read per (row, kv head), summed over rows, for "
-               f"K/K_nope/V: {t['keys']}" if isinstance(t.get("keys"), tuple)
-               else f"; keys read per (row, kv head), summed over rows, as "
-               f"K and V codes: {t['keys']}" if "keys" in t else ""))
+            + what)
         rows.append(row)
     log(f"  summary: train step {t_train['step_ms']:.2f} ms, peak "
         f"{t_train['peak_gib']:.2f} GiB, fp32 train check loss diff "
         f"{check32['loss_diff']:.3e} grad rel {check32['grad_rel']:.3e}; "
         f"scheduler score diffs {sched_errs}, fp32 checks {sched32}, "
         f"profiles {prof} ({card})")
+    log(f"  recsys: card vs CPU AdamW loss diffs {recsys['cut']}; FULL "
+        + "; ".join(f"{a} serve {r['serve_ms']:.3f} ms, train B"
+                    f"{r['train_batch']} {r['train_ms']:.2f} ms, retrieval "
+                    f"{r['retrieval_ms']:.2f} ms, peak {r['peak_gib']:.2f} GiB"
+                    for a, r in recsys["full"].items()) + f" ({card})")
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

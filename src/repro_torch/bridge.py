@@ -15,7 +15,9 @@ are, ``embed (V, d)`` and ``lm_head.w (d, V)``.
 Optimizer state (``step``, ``mu``, ``nu``, ``master``) converts the same
 way, with one difference: the reference keeps a single fp32 zero scalar
 for each frozen stacked leaf, the port one per layer. Decode caches carry
-across key for key (``cache_from_jax``, ``cache_to_numpy``).
+across key for key (``cache_from_jax``, ``cache_to_numpy``), and so do the
+recsys models' params (``recsys_from_jax``, ``recsys_to_numpy``), nested
+dicts with the same leaf shapes in both packages.
 """
 from __future__ import annotations
 
@@ -183,6 +185,19 @@ def cache_to_numpy(cache: Mapping[str, Any]) -> Dict[str, np.ndarray]:
             for k, v in cache.items()}
 
 
+def recsys_from_jax(tree: Tree, device) -> Tree:
+    """Reference ``init_recsys`` tree (numpy leaves) -> port params, leaf
+    for leaf (a linear ``w`` is ``(d_in, d_out)``, CIN ``w{i}`` is ``(h,
+    h_prev, m)``, the scalar ``bias`` is ``()`` in both)."""
+    return _map(tree, lambda x: _to_tensor(x, device))
+
+
+def recsys_to_numpy(tree: Tree) -> Tree:
+    """Port recsys params -> numpy leaves (the inverse of
+    ``recsys_from_jax``)."""
+    return _map(tree, _to_numpy)
+
+
 __all__ = ["ATTN_IMPL", "config_from_jax", "from_jax_params", "to_numpy_tree",
            "opt_state_from_jax", "opt_state_to_numpy", "cache_from_jax",
-           "cache_to_numpy"]
+           "cache_to_numpy", "recsys_from_jax", "recsys_to_numpy"]

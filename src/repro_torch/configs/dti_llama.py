@@ -6,6 +6,7 @@ reference's ``"pallas"``); ``REPRO`` is the width-reduced variant on the
 dense path. ``FULL`` trains with remat (each layer recomputed in the
 backward), ``REPRO`` without, as the reference sets them.
 """
+from repro_torch.configs.base import ArchSpec, lm_shapes
 from repro_torch.models.transformer import ModelConfig
 
 FULL = ModelConfig(
@@ -23,4 +24,16 @@ REPRO = ModelConfig(
     dti_sum_token=True, remat=False,
 )
 
-__all__ = ["FULL", "REPRO"]
+SMOKE = REPRO
+
+
+def spec() -> ArchSpec:
+    return ArchSpec(
+        name="dti-llama", family="lm", config=FULL, smoke=SMOKE,
+        shapes=lm_shapes(), profile="tp", trainable="lora",
+        source="arXiv:2407.21783 backbone; DTI paper appendix",
+        notes="The paper's own arch; repro experiments use REPRO.",
+    )
+
+
+__all__ = ["FULL", "REPRO", "SMOKE", "spec"]

@@ -1,9 +1,10 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
 Each CUDA C++ source under ``csrc/`` has plain C entry points (one per
-kernel; ``windowed_attn_bwd.cu`` holds two, ``decode_attn.cu`` one per
-mode). At first use it is compiled with ``nvcc`` for ``sm_90a`` into a
-shared library under the repository's ``build/kernels/`` (git-ignored),
+kernel; ``windowed_attn_bwd.cu`` holds two, ``decode_attn.cu`` and
+``embedding_bag.cu`` one per mode). At first use it is compiled with
+``nvcc`` for ``sm_90a`` into a shared library under the repository's
+``build/kernels/`` (git-ignored),
 named by a hash of its source and flags, and loaded with ``ctypes``.
 Nothing is built at import time: the CPU tests import every module, and
 the CPU has no ``nvcc``.
@@ -30,9 +31,11 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("windowed_attn", "windowed_attn_bwd", "decode_attn")
+SOURCES = ("windowed_attn", "windowed_attn_bwd", "decode_attn",
+           "embedding_bag")
 KERNELS = ("windowed_attn", "windowed_attn_dq", "windowed_attn_dkv",
-           "decode_attn", "decode_attn_q8")
+           "decode_attn", "decode_attn_q8", "embedding_bag",
+           "embedding_bag_q8")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

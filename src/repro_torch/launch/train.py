@@ -15,7 +15,10 @@ card unless ``--device cpu`` is given (the CPU takes the kernels' plain
 versions). ``--trainable lora`` trains only the LoRA leaves, as the paper
 does; the reference's CLI trains every leaf, which stays the default.
 
-Only dti-llama is ported; the other architectures raise (ROADMAP A9).
+``--arch din|mind|sasrec|xdeepfm`` trains that recsys model's SMOKE
+config on synthetic batches (``run_other``, through
+``repro_torch.launch.smoke.train_smoke``), as the reference's CLI does;
+the LM archs other than dti-llama and the GNN raise (ROADMAP A9).
 Checkpointing (atomic, keep-k, resumable), straggler monitoring and the
 evaluation (AUC / LogLoss / F1) are always on.
 """
@@ -28,7 +31,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from repro_torch.configs import dti_llama
+from repro_torch.configs import dti_llama, get_arch
 from repro_torch.core.dti import (PromptStats, SpecialTokens, batch_prompts,
                                   build_sliding_prompts,
                                   build_streaming_prompts, effective_window,
@@ -37,6 +40,7 @@ from repro_torch.core.losses import ctr_loss
 from repro_torch.core.metrics import ctr_metrics
 from repro_torch.data.synthetic import make_ctr_dataset, split_users
 from repro_torch.device import resolve_device
+from repro_torch.launch.smoke import train_smoke
 from repro_torch.models.transformer import ModelConfig, forward, init_params
 from repro_torch.obs.clock import monotonic
 from repro_torch.serve.engine import make_prefill_fn
@@ -112,8 +116,8 @@ def evaluate_lm(params, cfg: ModelConfig, window: int, test_prompts,
 def run_lm(args) -> Dict:
     if args.arch != "dti-llama":
         raise NotImplementedError(
-            f"--arch {args.arch}: only dti-llama is ported; the other "
-            "architectures wait for ROADMAP queue A9")
+            f"--arch {args.arch}: of the LM archs only dti-llama is ported; "
+            "the others wait for ROADMAP queue A9")
     cfg = dti_llama.REPRO if args.size == "smoke" else dti_llama.FULL
     if args.paradigm in ("sw", "dti-"):
         cfg = dataclasses.replace(cfg, dti_reset=False, dti_sum_alibi=False)
@@ -198,6 +202,18 @@ def run_lm(args) -> Dict:
     return result
 
 
+# ---------------------------------------------------------------------------
+# non-LM archs: train the smoke config on synthetic data
+# ---------------------------------------------------------------------------
+
+def run_other(args) -> Dict:
+    result = train_smoke(args.arch, steps=args.steps, batch=args.batch,
+                         seed=args.seed, lr=args.lr, device=args.device)
+    result.pop("state")
+    print(f"[result] {result}")
+    return result
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="dti-llama")
@@ -225,7 +241,10 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--log-every", type=int, default=20)
-    return run_lm(ap.parse_args(argv))
+    args = ap.parse_args(argv)
+    if get_arch(args.arch).family == "lm":
+        return run_lm(args)
+    return run_other(args)
 
 
 if __name__ == "__main__":

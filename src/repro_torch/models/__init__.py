@@ -1,1 +1,2 @@
-"""repro_torch.models — layers, GQA attention and the decoder."""
+"""repro_torch.models — layers, GQA attention, the decoder and the recsys
+models (DIN, MIND, SASRec, xDeepFM)."""

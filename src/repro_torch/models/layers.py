@@ -8,7 +8,7 @@ are: a linear layer's ``w`` is ``(d_in, d_out)`` and is applied as
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -64,6 +64,20 @@ def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     return (y * p["scale"].float()).to(x.dtype)
 
 
+def init_layernorm(d: int, dtype=torch.float32, device="cpu") -> Params:
+    return {"scale": torch.ones((d,), dtype=dtype, device=device),
+            "bias": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+def layernorm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm in fp32 inside (biased variance, as ``jnp.var``)."""
+    x32 = x.float()
+    mu = x32.mean(dim=-1, keepdim=True)
+    var = (x32 - mu).square().mean(dim=-1, keepdim=True)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return (y * p["scale"].float() + p["bias"].float()).to(x.dtype)
+
+
 def init_swiglu(gen: torch.Generator, d_model: int, d_ff: int, *,
                 dtype=torch.float32, device="cpu", lora_rank: int = 0) -> Params:
     kw = dict(dtype=dtype, device=device, lora_rank=lora_rank)
@@ -74,6 +88,25 @@ def init_swiglu(gen: torch.Generator, d_model: int, d_ff: int, *,
 
 def swiglu(p: Params, x: torch.Tensor) -> torch.Tensor:
     return dense(p["down"], F.silu(dense(p["gate"], x)) * dense(p["up"], x))
+
+
+def init_mlp(gen: torch.Generator, dims: Sequence[int], *,
+             dtype=torch.float32, device="cpu") -> Params:
+    """Plain MLP with biases, used by the recsys heads: dims = [in, h1,
+    ..., out]."""
+    return {f"fc{i}": init_linear(gen, dims[i], dims[i + 1], bias=True,
+                                  dtype=dtype, device=device)
+            for i in range(len(dims) - 1)}
+
+
+def mlp(p: Params, x: torch.Tensor, *, act: Callable = F.relu,
+        final_act: bool = False) -> torch.Tensor:
+    n = len(p)
+    for i in range(n):
+        x = dense(p[f"fc{i}"], x)
+        if i < n - 1 or final_act:
+            x = act(x)
+    return x
 
 
 _CONSTS: Dict[tuple, torch.Tensor] = {}
@@ -135,5 +168,6 @@ def alibi_slopes(n_heads: int, device="cpu") -> torch.Tensor:
 
 
 __all__ = ["Params", "normal_init", "init_linear", "dense", "init_rmsnorm",
-           "rmsnorm", "init_swiglu", "swiglu", "rope_freqs", "apply_rope",
+           "rmsnorm", "init_layernorm", "layernorm", "init_mlp", "mlp",
+           "init_swiglu", "swiglu", "rope_freqs", "apply_rope",
            "alibi_slopes"]

@@ -72,6 +72,15 @@ class _FrozenSquares:
             h.remove()
 
 
+def params_device(params) -> torch.device:
+    """The device of the first floating leaf: any param tree trains (an LM
+    has an ``embed`` leaf, a recsys model does not)."""
+    for _, t in named_leaves(params):
+        if t.is_floating_point():
+            return t.device
+    raise ValueError("the param tree has no floating leaf")
+
+
 def _to_device(batch, device) -> Dict[str, torch.Tensor]:
     return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
 
@@ -93,7 +102,8 @@ def make_train_step(loss_fn: Callable, opt_cfg: OptimizerConfig,
 
     def step(state: TrainState, batch, gen=None):
         params = state.params
-        batch = _to_device(batch, params["embed"].device)
+        device = params_device(params)
+        batch = _to_device(batch, device)
         named = [(p, t) for p, t in named_leaves(params)
                  if t.is_floating_point()]
         frozen = [t for p, t in named if not is_trainable(opt_cfg, p)]
@@ -117,8 +127,7 @@ def make_train_step(loss_fn: Callable, opt_cfg: OptimizerConfig,
                 m = rows // n_acc
                 acc = {id(t): torch.zeros(t.shape, dtype=torch.float32,
                                           device=t.device) for _, t in named}
-                loss = torch.zeros((), dtype=torch.float32,
-                                   device=params["embed"].device)
+                loss = torch.zeros((), dtype=torch.float32, device=device)
                 for i in range(n_acc):
                     mb = {k: v[i * m:(i + 1) * m] for k, v in batch.items()}
                     loss_i, _ = loss_fn(params, mb, gen)
@@ -142,7 +151,7 @@ def make_train_step(loss_fn: Callable, opt_cfg: OptimizerConfig,
 
 
 def _sync(state: TrainState) -> None:
-    dev = state.params["embed"].device
+    dev = params_device(state.params)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
 

@@ -61,7 +61,13 @@ def test_import_loads_neither_jax_nor_repro():
             "repro_torch.train.checkpoint, repro_torch.serve.scheduler, "
             "repro_torch.serve.pages, repro_torch.data.requests, "
             "repro_torch.obs.trace, repro_torch.obs.metrics, "
-            "repro_torch.obs.profile, repro_torch.core.quant\n"
+            "repro_torch.obs.profile, repro_torch.core.quant, "
+            "repro_torch.configs, repro_torch.configs.base, "
+            "repro_torch.configs.din, repro_torch.configs.mind, "
+            "repro_torch.configs.sasrec, repro_torch.configs.xdeepfm, "
+            "repro_torch.data.recsys_gen, repro_torch.sparse.embedding, "
+            "repro_torch.kernels.embedding_bag, repro_torch.models.recsys, "
+            "repro_torch.launch.steps, repro_torch.launch.smoke\n"
             "bad = [m for m in sys.modules if m == 'jax' or m == 'repro' "
             "or m.startswith(('jax.', 'repro.'))]\n"
             "assert not bad, bad\n")

@@ -205,3 +205,45 @@ def test_decode_kernel_int8_matches_plain(gen, hk, d, dv, rope_start, g,
                                   o["pos_k"], **kw)
     torch.testing.assert_close(got, want, atol=TOL, rtol=0)
     assert torch.all(got[-1] == 0)
+
+
+@pytest.mark.parametrize("V,D,B,H", [(64, 8, 4, 3), (1000, 128, 8, 20),
+                                     (37, 16, 5, 7), (300, 18, 9, 40),
+                                     (300, 10, 6, 12), (300, 200, 3, 33)])
+@pytest.mark.parametrize("mode", ["sum", "mean"])
+def test_embedding_bag_kernel_matches_plain(gen, V, D, B, H, mode):
+    """fp32, bf16 and int8 tables; masked slots hold out-of-range ids; bag
+    0 is all invalid. fp32 and int8 within 1e-5 (summation order), bf16
+    within 2^-8 |x| + 1e-6 of the plain version in fp32 (the output's
+    rounding to bf16)."""
+    from repro_torch.core.quant import dequantize_q8, quantize_q8
+    from repro_torch.kernels.embedding_bag import (bag_weights, embedding_bag,
+                                                   embedding_bag_plain)
+    table = torch.randn(V, D, generator=gen, device="cuda")
+    ids = torch.randint(0, V, (B, H), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    valid = torch.rand(B, H, generator=gen, device="cuda") < 0.8
+    valid[0] = False
+    junk = torch.randint(-2 * V, 3 * V, (B, H), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    ids = torch.where(valid, ids, junk)
+    w = bag_weights(ids, valid, mode=mode)
+    before = dict(kernels.LAUNCHES)
+    got = embedding_bag(table, ids, valid, mode=mode)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["embedding_bag"] == before["embedding_bag"] + 1
+    torch.testing.assert_close(got, embedding_bag_plain(table, ids, w),
+                               atol=1e-5, rtol=0)
+    assert torch.all(got[0] == 0)
+    tb = table.bfloat16()
+    got = embedding_bag(tb, ids, valid, mode=mode).float()
+    want = embedding_bag_plain(tb, ids, w)
+    assert torch.all((got - want).abs() <= 2.0 ** -8 * want.abs() + 1e-6)
+    codes, scale = quantize_q8(table)
+    got = embedding_bag(codes, ids, valid, mode=mode, table_scale=scale)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["embedding_bag_q8"] == \
+        before["embedding_bag_q8"] + 1
+    torch.testing.assert_close(
+        got, embedding_bag_plain(dequantize_q8(codes, scale), ids, w),
+        atol=1e-5, rtol=0)
