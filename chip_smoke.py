@@ -90,7 +90,10 @@ Phases, each fatal on failure:
    beside its plain version and ``scaled_dot_product_attention`` (forward
    or backward, after dequantization and RoPE for the int8 mode; for
    kernel 5 ``F.embedding_bag``: the library yardstick, never used by the
-   port), with CUDA events.
+   port), with CUDA events; kernel 4 in both modes also at the scheduler's
+   smallest bucket (s=16), where its split plan cuts the cache into
+   ranges; ``torch.profiler`` breakdowns of one decode burst step and of
+   the 9a and 9b scheduler runs.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. With no card, or run
@@ -113,10 +116,14 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12            # dense bf16 tensor-core peak, same source
 SMALL_TOL = 1e-4               # fp32: only summation order differs
 # bf16 at the real shapes, against the plain version in fp32 on the same
-# bf16 inputs: the kernel also scores and accumulates in fp32, so the two
-# differ by the kernel's final rounding of o to bf16 (half a step of its
-# 8-bit significand, at most 2^-8 of |o|) and by summation order (~1e-6 of
-# the row's scale). Each output element may differ by ROUND_TOL * |o| +
+# bf16 inputs. Kernel 1 scores and accumulates in fp32. Kernel 4 multiplies
+# on tensor cores into fp32: q.K^T of bf16 operands is exact; it rounds P
+# to a pair of bf16 terms (hi + lo, ~2^-17 of p) before P.V, and the int8
+# mode its roped, dequantized K likewise; its exponentials are ex2.approx
+# (~2 ulp). So the two differ by the kernel's final rounding of o to bf16
+# (half a step of its 8-bit significand, at most 2^-8 of |o|) and by
+# terms of ~1e-6 of the row's scale. Each output element may differ by
+# ROUND_TOL * |o| +
 # ROW_TOL * max|o| over its row of Dv values: a dropped mask term moves
 # ordinary rows, whose |o| is ~0.05-0.1, by a large share of the row's
 # scale, far above ROW_TOL.
@@ -1625,18 +1632,19 @@ def time_bag(table, codes, scale, ids, valid):
     it is handed the codes widened to fp32 and the scales folded into the
     weights, as a PyTorch user must).
     The bound counts what these inputs need: each distinct row of a slot
-    with a nonzero weight once (the kernel skips the rest), its int8 scale,
-    the ids and weights, the fp32 output; 2 D fp32 operations per such
-    slot at 67 TFLOP/s."""
+    once, masked and zero-weight slots too (the kernel adds row * w for
+    every slot, as the reference does; masked ids are clamped, so most of
+    them land on the table's first or last row), its int8 scale, the ids
+    and weights, the fp32 output; 2 D fp32 operations per slot at 67
+    TFLOP/s."""
     import torch.nn.functional as F
     from repro_torch.kernels import embedding_bag as eb
     w = eb.bag_weights(ids, valid)
-    used = ids[w != 0]
-    rows, slots = int(torch.unique(used).numel()), int(used.numel())
+    ids_c = ids.clamp(0, table.shape[0] - 1)
+    rows, slots = int(torch.unique(ids_c).numel()), int(ids_c.numel())
     B, H = ids.shape
     D = table.shape[1]
     side = ids.numel() * 4 + w.numel() * 4 + B * D * 4
-    ids_c = ids.clamp(0, table.shape[0] - 1)
     res = {}
     for name, t, s in (("embedding_bag", table, None),
                        ("embedding_bag_q8", codes, scale)):
@@ -1859,9 +1867,6 @@ def time_kernels(real):
     head."""
     import torch.nn.functional as F
     from repro_torch.core.windowed import dti_mask
-    from repro_torch.kernels.decode_attn import (_decode_mask,
-                                                 decode_attention,
-                                                 decode_attention_plain)
     from repro_torch.kernels.windowed_attn import (windowed_attention,
                                                    windowed_attention_plain)
     out = {}
@@ -1890,14 +1895,25 @@ def time_kernels(real):
                                 bytes=nbytes, flops=flops, keys=keys)
     del mask, qt, kt, vt
 
-    o, kw = real["decode_attn"]["ops"]
+    out["decode_attn"] = time_decode(*real["decode_attn"]["ops"])
+    return out
+
+
+def time_decode(o, kw):
+    """Kernel 4's bf16 mode on ``o``'s operands beside its plain version
+    and SDPA; the bound as ``time_kernels`` counts it."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attn import (_decode_mask,
+                                                 decode_attention,
+                                                 decode_attention_plain)
     B, s, H, D = o["q"].shape
     Hk, Dv, e = o["k"].shape[2], o["v"].shape[3], o["q"].element_size()
     ms = cuda_ms(lambda: decode_attention(o["q"], o["k"], o["v"], o["pos_q"],
                                           o["pos_k"], **kw))
     plain = cuda_ms(lambda: decode_attention_plain(
         o["q"], o["k"], o["v"], o["pos_q"], o["pos_k"], **kw))
-    mask = _decode_mask(o["pos_k"], o["pos_q"], 1024, o["seg_q"], o["seg_k"])
+    mask = _decode_mask(o["pos_k"], o["pos_q"], kw["window"], o["seg_q"],
+                        o["seg_k"])
     # K is the roped cache view, K_nope the raw cache the [SUM] rows read
     kv_bytes, keys = _attended_bytes(mask, o["is_sum"], hk=Hk, d=D, dv=Dv,
                                      esize=e)
@@ -1911,9 +1927,32 @@ def time_kernels(real):
     vt = o["v"].repeat_interleave(H // Hk, 2).transpose(1, 2)
     lib = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt,
                                                          attn_mask=mask))
-    out["decode_attn"] = dict(ms=ms, plain_ms=plain, library_ms=lib,
-                              bytes=nbytes, flops=flops, keys=keys)
-    return out
+    return dict(ms=ms, plain_ms=plain, library_ms=lib, bytes=nbytes,
+                flops=flops, keys=keys)
+
+
+def time_decode_s16():
+    """Kernel 4, both modes, at the scheduler's smallest bucket (s=16: four
+    4-token candidates over the decode shape's contexts), where the split
+    plan cuts the cache into ranges, beside the library yardsticks."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(6)
+    fills = [1400 + 70 * b for b in range(8)]
+    o = decode_operands(gen, B=8, s=16, H=32, Hk=8, D=128, Dv=128, cap=2048,
+                        dtype=torch.bfloat16, fills=fills, n_seg=4)
+    kw = decode_kwargs(o, window=1024, nope=True, seg=True)
+    res = {"decode_attn": time_decode(o, kw)}
+    q8 = quantize_kv(o, rope_start=0, G=1, gen=gen)
+    kw8 = q8_kwargs(o, q8, window=1024, nope=True, seg=True, rope_start=0,
+                    theta=500000.0)
+    res["decode_attn_q8"] = time_q8(dict(ops=(o, q8, kw8)))
+    for name, r in res.items():
+        log(f"  {name} at s=16 (B=8 cap=2048 H32 Hk8 D128 w1024): "
+            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+            f"{r['library_ms']:.4f} ms, bound "
+            f"{r['bytes'] / HBM_BYTES_PER_S * 1e3:.4f} ms (bytes: "
+            f"{r['bytes'] / 1e6:.1f} MB)")
+    return res
 
 
 def time_train(cfg, params, mat, run):
@@ -2091,6 +2130,30 @@ def profile_sched(cfg, params, kv_dtype, dev="cuda"):
                 idle_share=1 - busy_ms / (wall * 1e3))
 
 
+def profile_call(fn, label):
+    """``fn`` once more (after a warm-up call) under ``torch.profiler``: the
+    device's busy time (the sum of its kernels' device time) and the
+    kernels that take the most of it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev = lambda e: (getattr(e, "self_device_time_total", None)
+                     or getattr(e, "self_cuda_time_total", 0) or 0)
+    events = [e for e in prof.key_averages()
+              if e.device_type != DeviceType.CPU and dev(e) > 0]
+    busy = sum(dev(e) for e in events) / 1e3
+    top = sorted(events, key=dev, reverse=True)[:6]
+    log(f"  profile [{label}]: device busy {busy:.2f} ms; top device time: "
+        + "; ".join(f"{e.key[:60]} {dev(e) / 1e3:.2f} ms ({e.count} calls)"
+                    for e in top))
+    return busy
+
+
 def card_line() -> str:
     r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"], capture_output=True,
@@ -2176,12 +2239,15 @@ def main() -> int:
                        iters=5, warmup=1)
     log(f"  prefill call B=8 S=2048 32 layers: {t_prefill:.2f} ms; decode "
         f"burst step B=8 s=64 cap=2048: {t_decode:.2f} ms ({card})")
+    profile_call(lambda: run["decode"](params, run["cache"], *run["burst_args"]),
+                 "decode burst step B=8 s=64 cap=2048")
     del run, server
     t_train = time_train(cfg, params, mat, train)
     del train
     times = time_kernels(real)
     times.update(time_bwd_kernels(bwd))
     times["decode_attn_q8"] = time_q8(q8res)
+    time_decode_s16()
     times.update(bag["times"])
     prof = {kv: profile_sched(cfg, params, kv) for kv in (None, "int8")}
     errs = {name: r["err"] for name, r in {**real, **bwd}.items()}

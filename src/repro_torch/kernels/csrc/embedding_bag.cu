@@ -11,10 +11,10 @@
 // hold anything). In the int8 mode the row's scale folds into the weight,
 // w[b, j] * scale[id], and the codes are widened to fp32 here: no fp32 copy
 // of the table is ever made (the reference's op casts the whole table).
-// Slots whose (folded) weight is 0 are skipped: exact for a finite table
-// (a row holding inf or NaN would give NaN in the plain version there).
+// Every slot adds row * w, a masked or zero-weight one too, as the
+// reference's kernel does: an inf or NaN row gives NaN there as well.
 //
-// What bounds it on this card: bytes. Each used slot reads one row (D
+// What bounds it on this card: bytes. Each slot reads one row (D
 // values of 4, 2 or 1 bytes) and the kernel does 2 D operations per slot,
 // about 0.5 operation per byte, far under the ~20 FLOP/byte where 67 TFLOP/s
 // of fp32 would take over from 3.35 TB/s. At DIN's shape (65,536 bags of 100
@@ -68,22 +68,24 @@ bag_kernel(const T* __restrict__ table, const float* __restrict__ scale,
     if (lane < n) {
       id = min(max(bid[j0 + lane], 0), V - 1);
       wj = bw[j0 + lane];
-      if (QUANT && wj != 0.f) wj *= scale[id];
+      if (QUANT) wj *= scale[id];
     }
     for (int t = 0; t < n; t += UNROLL) {
       float v[UNROLL][CPL], wt[UNROLL];
 #pragma unroll
       for (int u = 0; u < UNROLL; ++u) {
         // every lane takes part in both shuffles; the slot's weight and id
-        // are then the same across the warp, so the branch is uniform
+        // are then the same across the warp, so the branch is uniform.
+        // Only the steps past the bag's last slot load nothing.
         wt[u] = __shfl_sync(FULL, wj, (t + u) & 31);
         const int it = __shfl_sync(FULL, id, (t + u) & 31);
-        if (t + u >= n) wt[u] = 0.f;
+        const bool slot = t + u < n;
+        if (!slot) wt[u] = 0.f;
         const T* row = table + (size_t)it * (size_t)D;
 #pragma unroll
         for (int c = 0; c < CPL; ++c) {
           const int d = d0 + 32 * c;
-          v[u][c] = (wt[u] != 0.f && d < D) ? to_f(row[d]) : 0.f;
+          v[u][c] = (slot && d < D) ? to_f(row[d]) : 0.f;
         }
       }
 #pragma unroll

@@ -4,9 +4,10 @@ plain version.
 Replaces the Pallas TPU kernel ``repro.kernels.decode_attn.decode_attn``
 (``_kernel``, launched by ``decode_attention_bshd``) in both its modes
 with ``csrc/decode_attn.cu``. Operands stay in the serving cache layout:
-queries ``(B, s, H, Dqk)``, cache-side tensors ``(B, cap, Hk, D)``; the
-kernel stages each K/V tile once for all ``n_rep`` query heads and all
-``s`` queries of its kv head, so GQA reads the cache once.
+queries ``(B, s, H, Dqk)``, cache-side tensors ``(B, cap, Hk, D)``; each
+K/V tile the kernel stages serves a block of ``ROW_BLOCK`` of the
+``n_rep`` heads x ``s`` queries of its kv head (GQA), and the other blocks
+of that kv head read it from L2.
 
 Attendable iff the slot is filled (``pos_k >= 0``), causal, within
 ``window`` when ``window > 0`` (0 = unlimited), and segment-compatible
@@ -22,13 +23,20 @@ are dequantized and their span ``[rope_start:]`` roped from
 NoPE stream is the same codes dequantized without rotation, so ``k_nope``
 must be None there.
 
+The kernel's work is split by ``decode_split_plan``: blocks of
+``ROW_BLOCK`` query rows, and, where those are too few to cover the card's
+SMs, ranges of the cache whose fp32 partials go to a workspace this
+wrapper allocates and the same C entry point combines in a fixed order
+(one launch count per call; equal inputs give equal bits).
+
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import math
+from typing import Dict, NamedTuple, Optional
 
 import torch
 
@@ -37,9 +45,64 @@ from repro_torch.core.windowed import NEG_INF, _repeat_kv
 from repro_torch.models.layers import apply_rope, rope_freqs
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = {"decode_attn_fwd": [_P] * 12 + [_I] * 11 + [_F, _P],
-             "decode_attn_q8_fwd": [_P] * 14 + [_I] * 13 + [_F, _P]}
+_ARGTYPES = {"decode_attn_fwd": [_P] * 13 + [_I] * 14 + [_F, _P],
+             "decode_attn_q8_fwd": [_P] * 15 + [_I] * 16 + [_F, _P]}
 MAX_HEAD_DIM = 128
+ROW_BLOCK = 64      # query rows per CTA (RB in csrc/decode_attn.cu)
+KV_TILE = 32        # cache slots per staged tile (BK there)
+MAX_TILES = 256     # tiles of one cache range (MAX_TILES there)
+
+
+class SplitPlan(NamedTuple):
+    """How one call's work is cut: ``n_rb`` blocks of ``ROW_BLOCK`` rows
+    (n_rep heads x s queries of a kv head) times ``n_split`` cache ranges
+    of ``span`` slots, for each (kv head, batch row): ``grid`` CTAs.
+    ``workspace`` fp32 values hold the ranges' partial rows (acc, then m,
+    then l) when ``n_split > 1``, else 0."""
+    n_rb: int
+    n_split: int
+    span: int
+    grid: int
+    workspace: int
+
+
+def decode_split_plan(b: int, s: int, h: int, hk: int, cap: int, n_sm: int,
+                      dv: int = MAX_HEAD_DIM) -> SplitPlan:
+    """Row blocks first: they re-read K/V tiles from L2 and need no
+    workspace. Only when ``b * hk * n_rb`` CTAs leave SMs idle (or a
+    range would exceed ``MAX_TILES`` tiles, the kernel's list of live
+    tiles) is the cache cut into the fewest equal ranges of whole tiles
+    that cover ``n_sm``: each range costs ``b * s * h * (dv + 2)`` fp32 of
+    partials, written once and read once."""
+    n_rb = -(-(h // hk) * s // ROW_BLOCK)
+    base = b * hk * n_rb
+    n_tiles = max(1, -(-cap // KV_TILE))
+    want = min(n_tiles, max(1, -(-n_sm // max(base, 1)),
+                            -(-n_tiles // MAX_TILES)))
+    per = -(-n_tiles // want)
+    n_split = -(-n_tiles // per)
+    ws = n_split * b * s * h * (dv + 2) if n_split > 1 else 0
+    return SplitPlan(n_rb, n_split, per * KV_TILE, base * n_split, ws)
+
+
+def split_workspace(plan: SplitPlan, device) -> Optional[torch.Tensor]:
+    """The fp32 workspace a call with ``plan`` hands the kernel, or None
+    when it has one cache range."""
+    if not plan.workspace:
+        return None
+    return torch.empty(plan.workspace, dtype=torch.float32, device=device)
+
+
+_SM_COUNT: Dict[int, int] = {}
+
+
+def _sm_count(device: torch.device) -> int:
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if idx not in _SM_COUNT:
+        _SM_COUNT[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return _SM_COUNT[idx]
 
 
 def _decode_mask(pos_k, pos_q, window: int, seg_q=None, seg_k=None):
@@ -173,21 +236,26 @@ def decode_attention(q, k, v, pos_q, pos_k, *, window: int, is_sum_q=None,
     o = torch.empty((b, s, h, dv), dtype=q.dtype, device=q.device)
     alibi_f = (alibi.float().contiguous() if use_nope
                else torch.zeros(h, dtype=torch.float32, device=q.device))
-    # int32 copies of the index/flag operands, held until the launch is
-    # enqueued (a freed copy's memory could be handed to the next one)
+    # int32 (the [SUM] flags: bool) copies of the index and flag operands,
+    # held until the launch is enqueued (a freed copy's memory could be
+    # handed to the next one); no copy where they already are
     on = lambda t, use: as_i32(t) if use else None
-    ints = [as_i32(pos_q), as_i32(pos_k), on(is_sum_q, use_nope),
+    ints = [as_i32(pos_q), as_i32(pos_k),
+            is_sum_q.to(torch.bool).contiguous() if use_nope else None,
             on(seg_q, use_seg), on(seg_k, use_seg)]
+    plan = decode_split_plan(b, s, h, hk, cap, _sm_count(q.device), dv)
+    ws = split_workspace(plan, q.device)
+    split = (plan.n_rb, plan.n_split, plan.span)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     lib = load("decode_attn", _ARGTYPES)
     if not quant:
         rc = lib.decode_attn_fwd(
             ptr(q), ptr(q_nope if use_nope else None), ptr(k),
             ptr(k_nope if use_nope else None), ptr(v), ptr(alibi_f),
-            *map(ptr, ints), ptr(o),
+            *map(ptr, ints), ptr(o), ptr(ws),
             b, s, h, hk, cap, d, dv, int(window), int(use_nope),
-            int(use_seg), int(q.dtype == torch.bfloat16), float(scale),
-            stream)
+            int(use_seg), int(q.dtype == torch.bfloat16), *split,
+            float(scale), stream)
         check_launch("decode_attn", rc)
         return o
 
@@ -205,12 +273,13 @@ def decode_attention(q, k, v, pos_q, pos_k, *, window: int, is_sum_q=None,
     rinv = rope_freqs(d - rope_start, rope_theta, q.device)
     rc = lib.decode_attn_q8_fwd(
         ptr(q), ptr(q_nope if use_nope else None), ptr(k), ptr(v), ptr(ks),
-        ptr(vs), ptr(rinv), ptr(alibi_f), *map(ptr, ints), ptr(o),
+        ptr(vs), ptr(rinv), ptr(alibi_f), *map(ptr, ints), ptr(o), ptr(ws),
         b, s, h, hk, cap, d, dv, g, int(rope_start), int(window),
-        int(use_nope), int(use_seg), int(q.dtype == torch.bfloat16),
+        int(use_nope), int(use_seg), int(q.dtype == torch.bfloat16), *split,
         float(scale), stream)
     check_launch("decode_attn_q8", rc)
     return o
 
 
-__all__ = ["decode_attention", "decode_attention_plain"]
+__all__ = ["SplitPlan", "decode_attention", "decode_attention_plain",
+           "decode_split_plan", "split_workspace"]

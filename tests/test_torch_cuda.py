@@ -247,3 +247,148 @@ def test_embedding_bag_kernel_matches_plain(gen, V, D, B, H, mode):
     torch.testing.assert_close(
         got, embedding_bag_plain(dequantize_q8(codes, scale), ids, w),
         atol=1e-5, rtol=0)
+
+
+ROUND_TOL, ROW_TOL = 2.0 ** -8, 1e-3   # chip_smoke.py's bf16 gate
+
+
+def _hold(got, want):
+    """fp32 within TOL; bf16 per element within ROUND_TOL |o| + ROW_TOL
+    max|o| over its row (the output's rounding, chip_smoke.py's gate)."""
+    if got.dtype == torch.float32:
+        torch.testing.assert_close(got, want.float(), atol=TOL, rtol=0)
+        return
+    want = want.float()
+    tol = ROUND_TOL * want.abs() + ROW_TOL * want.abs().amax(-1, keepdim=True)
+    assert bool(((got.float() - want).abs() <= tol).all())
+
+
+def split_operands(gen, *, B, s, H, hk, cap, fills, d=64, dv=64, n_seg=0,
+                   hole=None):
+    """Rows filled to ``fills`` from position 0 (0: an empty row), the
+    burst's queries after them; ``hole`` empties a range of slots in every
+    row; with ``n_seg`` the burst is written after the context as that
+    many segments. Row 0's first query sits before every key (causal: no
+    attendable key)."""
+    r = lambda *sh: torch.randn(sh, generator=gen, device="cuda")
+    pos_k = torch.full((B, cap), -1, dtype=torch.int32, device="cuda")
+    seg_k = torch.full((B, cap), -1, dtype=torch.int32, device="cuda")
+    pos_q = torch.zeros(B, s, dtype=torch.int32, device="cuda")
+    seg_q = torch.zeros(B, s, dtype=torch.int32, device="cuda")
+    ar = lambda n: torch.arange(n, device="cuda", dtype=torch.int32)
+    for b, n in enumerate(fills):
+        n = min(n, cap - (s if n_seg else 0))
+        if n <= 0:
+            continue
+        pos_k[b, :n] = ar(n) + 5
+        pos_q[b] = n + 5 + ar(s)
+        if n_seg:
+            seg_q[b] = (ar(s) * n_seg // s).to(torch.int32)
+            pos_k[b, n:n + s] = pos_q[b]
+            seg_k[b, n:n + s] = seg_q[b]
+    if hole is not None:
+        pos_k[:, hole[0]:hole[1]] = -1
+    pos_q[0, 0] = 0                       # before every key of row 0
+    return dict(q=r(B, s, H, d), qn=r(B, s, H, d), k=r(B, cap, hk, d),
+                kn=r(B, cap, hk, d), v=r(B, cap, hk, dv), pos_q=pos_q,
+                pos_k=pos_k, seg_q=seg_q, seg_k=seg_k,
+                is_sum=torch.rand(B, s, generator=gen, device="cuda") < 0.3,
+                alibi=torch.rand(H, generator=gen, device="cuda"))
+
+
+# B, s, H, Hk, cap, fills, hole, window: the splits of the redesigned kernel
+SPLIT_CASES = {
+    "cap_off_tile_and_split": (2, 16, 8, 2, 203, (150, 190), None, 0),
+    "cap_below_one_tile": (3, 5, 8, 2, 20, (12, 3, 0), None, 0),
+    "empty_split": (2, 16, 8, 2, 300, (280, 290), (40, 230), 0),
+    "rows_without_keys": (3, 16, 8, 8, 200, (0, 100, 0), None, 30),
+    "n_rep_s_over_256": (2, 64, 32, 4, 300, (200, 230), None, 100),
+    "s1": (8, 1, 32, 8, 600, tuple(300 + 30 * b for b in range(8)), None, 0),
+    "s16": (8, 16, 32, 8, 600, tuple(300 + 30 * b for b in range(8)), None, 256),
+    "s32": (8, 32, 32, 8, 600, tuple(300 + 30 * b for b in range(8)), None, 0),
+    "s64": (8, 64, 32, 8, 600, tuple(300 + 30 * b for b in range(8)), None, 256),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("nope,seg", [(False, False), (True, True)])
+@pytest.mark.parametrize("case", list(SPLIT_CASES))
+def test_decode_kernel_splits_match_plain(gen, case, nope, seg, quant,
+                                          dtype):
+    """Kernel 4 (both modes, fp32 and bf16 queries) against the plain
+    version in fp32 on the same inputs, over the cuts of its split plan;
+    rows with no attendable key give exactly 0, and a second call on the
+    same inputs gives the same bits."""
+    from repro_torch.core.quant import quantize_q8
+    B, s, H, hk, cap, fills, hole, window = SPLIT_CASES[case]
+    o = split_operands(gen, B=B, s=s, H=H, hk=hk, cap=cap, fills=fills,
+                       hole=hole, n_seg=3 if seg else 0)
+    q, qn = o["q"].to(dtype), o["qn"].to(dtype)
+    kw = dict(window=window)
+    if nope:
+        kw.update(is_sum_q=o["is_sum"], q_nope=qn, alibi=o["alibi"])
+    if seg:
+        kw.update(seg_q=o["seg_q"], seg_k=o["seg_k"])
+    if quant:
+        k, ks = quantize_q8(o["k"])
+        v, vs = quantize_q8(o["v"])
+        kw.update(k_scale=ks[..., None], v_scale=vs, rope_start=0,
+                  rope_theta=10000.0)
+        name = "decode_attn_q8"
+    else:
+        k, v = o["k"].to(dtype), o["v"].to(dtype)
+        if nope:
+            kw["k_nope"] = o["kn"].to(dtype)
+        name = "decode_attn"
+    before = kernels.LAUNCHES[name]
+    got = decode_attention(q, k, v, o["pos_q"], o["pos_k"], **kw)
+    again = decode_attention(q, k, v, o["pos_q"], o["pos_k"], **kw)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[name] == before + 2
+    assert torch.equal(got, again)
+    f32 = lambda x: x.float() if torch.is_tensor(x) and x.is_floating_point() \
+        and x.dtype != torch.float32 else x
+    want = decode_attention_plain(f32(q), k if quant else f32(k),
+                                  v if quant else f32(v), o["pos_q"],
+                                  o["pos_k"],
+                                  **{n: f32(x) for n, x in kw.items()})
+    _hold(got, want)
+    for b, n in enumerate(fills):
+        if n == 0:
+            assert torch.all(got[b] == 0)
+    assert torch.all(got[0, 0] == 0)        # its query precedes every key
+
+
+def test_embedding_bag_kernel_propagates_nonfinite_rows(gen):
+    """As the reference's kernel adds row * w for every slot, an inf row
+    under a masked slot (its id clamped onto it) or under a zero-weight
+    slot gives NaN, in both modes; other bags are unaffected."""
+    from repro_torch.core.quant import quantize_q8
+    from repro_torch.kernels.embedding_bag import (bag_weights, embedding_bag,
+                                                   embedding_bag_plain)
+    V, D, B, H = 50, 18, 4, 6
+    table = torch.randn(V, D, generator=gen, device="cuda")
+    ids = torch.randint(1, V - 1, (B, H), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    valid = torch.ones(B, H, dtype=torch.bool, device="cuda")
+    weights = torch.ones(B, H, device="cuda")
+    ids[0, 2], valid[0, 2] = -7, False      # masked: clamps onto row 0
+    ids[1, 4], weights[1, 4] = V - 1, 0.0   # zero weight on row V - 1
+    table[0, 3] = float("inf")
+    table[V - 1, 5] = float("-inf")
+    ids[2:] = ids[2:].clamp(1, V - 2)       # bags 2, 3 never touch them
+    w = bag_weights(ids, valid, weights=weights)
+    got = embedding_bag(table, ids, valid, weights=weights)
+    codes, scale = quantize_q8(table.nan_to_num(posinf=0.0, neginf=0.0))
+    scale[0], scale[V - 1] = float("inf"), float("nan")
+    got8 = embedding_bag(codes, ids, valid, weights=weights,
+                         table_scale=scale)
+    torch.cuda.synchronize()
+    for out, want in ((got, embedding_bag_plain(table, ids, w)),
+                      (got8, embedding_bag_plain(codes, ids, w, scale))):
+        assert torch.isnan(out[0, 3]) and torch.isnan(out[1, 5])
+        assert bool(torch.isnan(out[:2]).any(-1).all())
+        torch.testing.assert_close(out, want, atol=1e-5, rtol=0,
+                                   equal_nan=True)
+        assert bool(torch.isfinite(out[2:]).all())

@@ -1,5 +1,6 @@
 """Port decode attention (plain version on CPU) against the reference's
-Pallas decode kernel in interpret mode, fp32, atol 1e-4."""
+Pallas decode kernel in interpret mode, fp32, atol 1e-4; and the kernel's
+split plan (pure Python), which decides its grid and workspace."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -7,8 +8,11 @@ import torch
 
 from repro.kernels.decode_attn.ops import decode_attention as j_decode
 from repro_torch.kernels import LAUNCHES
-from repro_torch.kernels.decode_attn import (decode_attention,
-                                             decode_attention_plain)
+from repro_torch.kernels.decode_attn import (KV_TILE, MAX_TILES, ROW_BLOCK,
+                                             decode_attention,
+                                             decode_attention_plain,
+                                             decode_split_plan,
+                                             split_workspace)
 
 TOL = 1e-4
 
@@ -74,3 +78,58 @@ def test_cpu_wrapper_uses_plain_version_and_counts_nothing():
     want = decode_attention_plain(*args, window=6, seg_q=T(opt["seg_q"]),
                                   seg_k=T(opt["seg_k"]))
     assert torch.equal(got, want) and LAUNCHES == before
+
+
+# (B, s, H, Hk, cap, n_sm, Dv): the decode and scheduler shapes, MQA, a
+# cap below one tile, caps off the tile and off the split, an empty cache,
+# a cache longer than one range may hold
+PLAN_SHAPES = [(8, 64, 32, 8, 2048, 132, 128), (8, 32, 32, 8, 2048, 132, 128),
+               (8, 16, 32, 8, 2048, 132, 128), (8, 1, 32, 8, 2048, 132, 128),
+               (8, 64, 32, 4, 2048, 132, 128), (1, 16, 32, 1, 4000, 132, 128),
+               (2, 16, 8, 2, 203, 132, 64), (2, 16, 8, 2, 20, 132, 64),
+               (3, 9, 8, 1, 130, 132, 48), (1, 5, 4, 2, 0, 132, 8),
+               (3, 70, 8, 2, 300, 66, 64), (1, 64, 32, 8, 20000, 8, 128)]
+
+
+@pytest.mark.parametrize("B,s,H,Hk,cap,n_sm,Dv", PLAN_SHAPES)
+def test_split_plan_covers_every_row_and_slot_once(B, s, H, Hk, cap, n_sm,
+                                                   Dv):
+    plan = decode_split_plan(B, s, H, Hk, cap, n_sm, Dv)
+    rows = (H // Hk) * s
+    owner = np.zeros(rows, int)
+    for rb in range(plan.n_rb):
+        owner[rb * ROW_BLOCK:min(rows, (rb + 1) * ROW_BLOCK)] += 1
+    assert (owner == 1).all()
+    assert plan.span % KV_TILE == 0 and 0 < plan.span <= MAX_TILES * KV_TILE
+    slots = np.zeros(cap, int)
+    for sp in range(plan.n_split):
+        lo, hi = sp * plan.span, min(cap, (sp + 1) * plan.span)
+        assert hi > lo or cap == 0          # no split is left without slots
+        slots[lo:hi] += 1
+    assert (slots == 1).all()
+    assert plan.grid == B * Hk * plan.n_rb * plan.n_split
+
+
+@pytest.mark.parametrize("s", [1, 16, 32, 64])
+def test_split_plan_fills_the_card(s):
+    """B=8, H=32, Hk=8, cap=2048 on an H100's 132 SMs: every bucket of the
+    scheduler and the decode burst give a grid of at least 132 CTAs; row
+    blocks alone do at s=64, so no workspace is needed there."""
+    plan = decode_split_plan(8, s, 32, 8, 2048, 132, 128)
+    assert plan.grid >= 132
+    assert (plan.n_split == 1) == (s == 64)
+
+
+@pytest.mark.parametrize("B,s,H,Hk,cap,n_sm,Dv", PLAN_SHAPES)
+def test_split_workspace_matches_the_plan(B, s, H, Hk, cap, n_sm, Dv):
+    """What the wrapper allocates: the kernel's partial acc (n_split, B,
+    s, H, Dv), then m and l (n_split, B, s, H), in fp32; nothing with one
+    range."""
+    plan = decode_split_plan(B, s, H, Hk, cap, n_sm, Dv)
+    ws = split_workspace(plan, torch.device("cpu"))
+    if plan.n_split == 1:
+        assert ws is None and plan.workspace == 0
+    else:
+        assert ws.dtype == torch.float32
+        assert ws.numel() == plan.workspace == \
+            plan.n_split * B * s * H * (Dv + 2)

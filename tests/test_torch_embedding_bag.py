@@ -119,6 +119,39 @@ def test_bag_rejects_what_the_kernel_does_not_do():
                       table_scale=scale)
 
 
+@pytest.mark.parametrize("int8", [False, True])
+def test_nonfinite_row_under_masked_or_zero_weight_slot_gives_nan(int8):
+    """The reference's kernel adds row * w for every slot: an inf row under
+    a masked slot (its id clamped onto row 0) or a zero-weight slot gives
+    NaN in that bag, and the port's plain version (the kernel's contract)
+    gives the same; for int8 codes an inf or NaN row scale does so."""
+    V, D, B, H = 40, 18, 4, 6
+    table, ids, _ = _bag_operands(7, V, B, H, D)
+    ids = np.abs(ids) % (V - 2) + 1
+    valid = np.ones((B, H), bool)
+    w = np.ones((B, H), np.float32)
+    ids[0, 2], valid[0, 2] = -7, False      # masked: clamps onto row 0
+    ids[1, 4], w[1, 4] = V - 1, 0.0         # zero weight on row V - 1
+    if int8:
+        codes, scale = quantize_q8(torch.from_numpy(table))
+        scale[0], scale[V - 1] = float("inf"), float("nan")
+        got = embedding_bag(codes, torch.from_numpy(ids),
+                            torch.from_numpy(valid),
+                            weights=torch.from_numpy(w), table_scale=scale)
+        want = np.asarray(j_bag(jnp.asarray(codes.numpy()), jnp.asarray(ids),
+                                jnp.asarray(valid), weights=jnp.asarray(w),
+                                table_scale=jnp.asarray(scale.numpy()),
+                                interpret=True))
+    else:
+        table[0, 3], table[V - 1, 5] = np.inf, -np.inf
+        got = _port(table, ids, valid, weights=torch.from_numpy(w))
+        want = _ref(table, ids, valid, weights=jnp.asarray(w))
+    got = got.numpy()
+    assert np.isnan(want[:2]).any(-1).all() and np.isfinite(want[2:]).all()
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    np.testing.assert_allclose(got, want, atol=TOL, rtol=0)
+
+
 def test_plain_version_is_the_op_after_its_weights():
     table, ids, valid = _bag_operands(6, 50, 5, 7, 12)
     t, i, v = map(torch.from_numpy, (table, ids, valid))
