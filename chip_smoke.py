@@ -13,7 +13,8 @@ Phases, each fatal on failure:
    small fp32 shapes over every flag (tolerance 1e-4), then the main
    path's real shapes in bf16 against the plain version in fp32 on the
    same bf16 inputs (a per-row tolerance, stated below). 2a/2c: the
-   windowed-attention forward (kernel 1); 2b/2c: decode attention
+   windowed-attention forward (kernel 1; 2a runs its flag sweep on bf16
+   inputs too, held per row as 2c is); 2b/2c: decode attention
    (kernel 4); 2d: the backward kernels (dq, dk/dv) through the autograd
    Function, then at the training shape, then cross-segment gradients,
    which must be exactly 0. 2e: decode attention's int8 mode
@@ -90,10 +91,11 @@ Phases, each fatal on failure:
    beside its plain version and ``scaled_dot_product_attention`` (forward
    or backward, after dequantization and RoPE for the int8 mode; for
    kernel 5 ``F.embedding_bag``: the library yardstick, never used by the
-   port), with CUDA events; kernel 4 in both modes also at the scheduler's
-   smallest bucket (s=16), where its split plan cuts the cache into
-   ranges; ``torch.profiler`` breakdowns of one decode burst step and of
-   the 9a and 9b scheduler runs.
+   port), with CUDA events; kernel 1 also at the training shape, kernel 4
+   in both modes also at the scheduler's smallest bucket (s=16), where
+   its split plan cuts the cache into ranges; ``torch.profiler``
+   breakdowns of one decode burst step, one prefill call, one train step
+   and the 9a and 9b scheduler runs.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. With no card, or run
@@ -116,11 +118,11 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12            # dense bf16 tensor-core peak, same source
 SMALL_TOL = 1e-4               # fp32: only summation order differs
 # bf16 at the real shapes, against the plain version in fp32 on the same
-# bf16 inputs. Kernel 1 scores and accumulates in fp32. Kernel 4 multiplies
-# on tensor cores into fp32: q.K^T of bf16 operands is exact; it rounds P
-# to a pair of bf16 terms (hi + lo, ~2^-17 of p) before P.V, and the int8
-# mode its roped, dequantized K likewise; its exponentials are ex2.approx
-# (~2 ulp). So the two differ by the kernel's final rounding of o to bf16
+# bf16 inputs. Kernels 1 and 4 multiply on tensor cores into fp32: q.K^T of
+# bf16 operands is exact; they round P to a pair of bf16 terms (hi + lo,
+# ~2^-17 of p) before P.V, and kernel 4's int8 mode its roped, dequantized
+# K likewise; their exponentials are ex2.approx (~2 ulp). So the two differ
+# by the kernel's final rounding of o to bf16
 # (half a step of its 8-bit significand, at most 2^-8 of |o|) and by
 # terms of ~1e-6 of the row's scale. Each output element may differ by
 # ROUND_TOL * |o| +
@@ -330,6 +332,27 @@ def check_kernels_small():
                f"iso={sum_iso} n_rep={8 // hk} Dv={dv} S={S} empty={empty}")
         check_close(f"o   [{tag}]", got, want, SMALL_TOL)
         check_close(f"lse [{tag}]", lse, lse_w, SMALL_TOL)
+        if empty and not (got[-1] == 0).all():
+            fail("empty row did not give 0")
+    log("phase 2a: windowed_attn vs plain, bf16 inputs (the plain version "
+        "in fp32 on them), the same flags")
+    gen16 = torch.Generator(device="cuda")
+    gen16.manual_seed(7)
+    for window, nope, reset, packed, sum_iso, hk, dv, S, empty in cases:
+        o = windowed_operands(gen16, B=2, S=S, H=8, Hk=hk, D=64, Dv=dv,
+                              dtype=torch.bfloat16, packed=packed,
+                              empty_row=empty)
+        kw = windowed_kwargs(o, window=window, nope=nope, reset=reset,
+                             packed=packed, sum_iso=sum_iso)
+        got, lse = windowed_attention(o["q"], o["k"], o["v"],
+                                      return_lse=True, **kw)
+        torch.cuda.synchronize()
+        args, kw32 = _f32(o["q"], o["k"], o["v"], **kw)
+        want, lse_w = windowed_attention_plain(*args, **kw32)
+        tag = (f"w={window} nope={nope} reset={reset} seg={packed} "
+               f"iso={sum_iso} n_rep={8 // hk} Dv={dv} S={S} empty={empty}")
+        check_rows(f"o   [{tag}]", got, want)
+        check_close(f"lse [{tag}]", lse, lse_w, LSE_TOL)
         if empty and not (got[-1] == 0).all():
             fail("empty row did not give 0")
 
@@ -2006,6 +2029,10 @@ def time_bwd_kernels(bwd):
     fwd_kw.update(kw)
     st, live, alibi_f, ints = wa._prepare(q, k, v, **fwd_kw)
     out, lse = wa._fwd(st, q, k, v, live, alibi_f, ints)
+    fwd_ms = cuda_ms(lambda: wa._fwd(st, q, k, v, live, alibi_f, ints),
+                     iters=10, warmup=2)
+    log(f"  windowed_attn at the training shape (NoPE + reset, bf16, "
+        f"two launches per layer a step): {fwd_ms:.4f} ms")
     delta = wa._delta(out, do)
     args = (st, q, k, v, live, alibi_f, ints, lse, delta, do)
     bufs = {"windowed_attn_dq": (torch.empty_like(q), torch.empty_like(q)),
@@ -2132,23 +2159,28 @@ def profile_sched(cfg, params, kv_dtype, dev="cuda"):
 
 def profile_call(fn, label):
     """``fn`` once more (after a warm-up call) under ``torch.profiler``: the
-    device's busy time (the sum of its kernels' device time) and the
-    kernels that take the most of it."""
+    device's busy time (the sum of its kernels' device time), its idle
+    share of the call's wall time under the profiler (an upper bound: the
+    profiler adds host time) and the kernels that take the most of it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
     dev = lambda e: (getattr(e, "self_device_time_total", None)
                      or getattr(e, "self_cuda_time_total", 0) or 0)
     events = [e for e in prof.key_averages()
               if e.device_type != DeviceType.CPU and dev(e) > 0]
     busy = sum(dev(e) for e in events) / 1e3
-    top = sorted(events, key=dev, reverse=True)[:6]
-    log(f"  profile [{label}]: device busy {busy:.2f} ms; top device time: "
+    top = sorted(events, key=dev, reverse=True)[:8]
+    log(f"  profile [{label}]: wall {wall:.2f} ms under the profiler, "
+        f"device busy {busy:.2f} ms, idle share "
+        f"{1 - busy / wall if wall else float('nan'):.3f}; top device time: "
         + "; ".join(f"{e.key[:60]} {dev(e) / 1e3:.2f} ms ({e.count} calls)"
                     for e in top))
     return busy
@@ -2241,9 +2273,17 @@ def main() -> int:
         f"burst step B=8 s=64 cap=2048: {t_decode:.2f} ms ({card})")
     profile_call(lambda: run["decode"](params, run["cache"], *run["burst_args"]),
                  "decode burst step B=8 s=64 cap=2048")
+    profile_call(lambda: server.score(prompts), "prefill call B=8 S=2048 "
+                 "32 layers")
     del run, server
     t_train = time_train(cfg, params, mat, train)
-    del train
+    state = {"s": train["state"]}
+
+    def one_step():   # two more LoRA steps; every check ran before
+        state["s"] = train["step_fn"](state["s"], mat["batches"][0])[0]
+    profile_call(one_step, f"train step B={TRAIN_ROWS} S={TRAIN_LEN} 32 "
+                 "layers")
+    del train, state
     times = time_kernels(real)
     times.update(time_bwd_kernels(bwd))
     times["decode_attn_q8"] = time_q8(q8res)

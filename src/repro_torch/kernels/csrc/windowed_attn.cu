@@ -10,45 +10,180 @@
 // adds a(d) * (v0 - v) on [SUM] rows into the same accumulator. Writes o in
 // the input dtype and the fp32 row logsumexp, +1e30 on rows with no key.
 //
-// What bounds it on this card: at dti-llama prefill (B=8, S=2048, H=32,
-// D=128, window 1024) each query sees ~1k keys, ~0.27 TFLOP per call
-// against ~0.5 GB of operands, far above the ~295 FLOP/byte ridge, so the
-// bound is arithmetic. This first version does the products as fp32 FMA
-// from shared memory (no tensor cores), so it runs far from the bf16 peak;
-// mma/wgmma, TMA and warp specialisation are the work of later PRs.
+// What bounds it on this card: operations. At dti-llama prefill (B=8,
+// S=2048, H=32, Hk=8, D=128, window 1024, a [SUM] row every ~200 tokens)
+// the attended pairs need 2 (D + Dv) FLOPs each per head, 0.2054 TFLOP per
+// call (0.208 ms at 989 TFLOP/s), against ~0.3 GB of operands that must
+// move: far above the ~295 FLOP/byte ridge. So the products go to the
+// tensor cores. The design:
 //
-// Design: one CTA per (q block of 64 rows, head, batch row). The TPU grid
-// walked the kv band as a sequential grid axis carrying m/l/acc in VMEM;
-// Hopper has no sequential grid axis, so the CTA loops over its own band
-// of kv blocks. It stages its q tile once (fp32 in shared memory; [SUM]
-// rows stage q_nope instead, since their scores use the NoPE stream only),
-// then per kv block stages K, K_nope (only when the q tile holds a [SUM]
-// row), V (and V0 with reset), computes a 64x64 score tile as 4x4 micro
-// tiles per thread, and keeps m, l and the 64xDv accumulator in registers.
-// The band is physical (blocks within `window` rows of the q block), the
-// mask positional, as in the reference. The ragged last block is masked
-// here; no gcd-shrunk block sizes.
+// * Tiles. One CTA of 4 warps per (q tile, head, batch row). In bf16 each
+//   warp takes 32 query rows as two 16-row m-tiles that share every K and
+//   V fragment (q tile of 128 rows); with the reset stream, whose
+//   registers would spill at 32 rows, and in fp32, 16 rows (q tile of 64).
+//   The CTA walks the physical band of kv tiles of 32 keys that hold rows
+//   [q0 - window, q0 + BQ - 1] (the mask is positional: the two agree
+//   because physical distance equals positional distance on every
+//   attendable pair). blockIdx.x is the head, so the heads of one kv head
+//   read the same K/V tiles side by side, from L2; q tiles run last first,
+//   the longest bands before the short ones. `windowed_tile_plan` in
+//   `windowed_attn.py` computes the grid, the stages and the shared memory
+//   this source computes, and the entry point refuses a plan that differs.
+// * Tensor-core products. Q.K^T and P.V are mma.sync m16n8k16 (bf16 in,
+//   fp32 accumulate), fragments by ldmatrix from bf16 planes whose rows are
+//   padded to 136 values (conflict-free). An operand that is not exact in
+//   bf16 is split into a sum of bf16 terms (x = hi + lo [+ lo2], each term
+//   the bf16 rounding of what the previous ones left) and the products of
+//   the leading term pairs are accumulated: bf16 q and K are one term each
+//   (their products are exact in fp32); P is two terms (~2^-17 of p; one
+//   bf16 term, ~2^-9 of each product, breaks the bf16 gate of chip_smoke.py
+//   at the prefill shape); the fp32 instantiation splits q, K, P and V into
+//   three terms each and takes the six leading term pairs, an error ~2^-24
+//   of each product (no TF32). The softmax runs in base 2 (scores times
+//   log2 e, ex2.approx) with m, l and the accumulator in registers; lse =
+//   m ln 2 + log l, +1e30 (and o = 0) on rows with no key.
+// * [SUM] rows. Their q tile rows hold q_nope, so one Q plane serves both
+//   streams. An m-tile whose 16 rows hold a [SUM] row accumulates two
+//   products into one score tile: Q.K^T with its [SUM] rows' A fragments
+//   zeroed, and Q.Kn^T with its ordinary rows' zeroed; other m-tiles
+//   compute one product, and K_nope is copied only for q tiles that hold a
+//   [SUM] row.
+// * Reset. On [SUM] rows acc += (P - P a(d)) . V + (P a(d)) . V0, both
+//   operands exact bf16 (V0 - V rounded to bf16 would not be); a(d) and the
+//   second product only in m-tiles that hold a [SUM] row, V0 copied only
+//   for q tiles that hold one.
+// * Overlap and skipping. Each kv tile (K, V, and K_nope / V0 where live,
+//   with its slots' positions, flags and segments) is copied by 16-byte
+//   cp.async into one of 3 shared-memory stages (2 when K_nope or V0 is
+//   live), ST - 1 tiles ahead of the one being computed. Each slot's owner
+//   thread decides from its staged flags and position whether any row of
+//   the tile may attend it (valid, within [min pos_q - window, max pos_q],
+//   a [SUM] key only at a row's own position, a segment among the rows'),
+//   and the tile's one barrier (__syncthreads_or) skips the products of a
+//   tile the mask empties: padding, other packed segments.
+// * Occupancy. bf16: 71-90 KB of shared memory and 158-255 registers
+//   (nvcc -Xptxas -v, no spills), 2 CTAs (8 warps) per SM. The fp32
+//   instantiation (and bf16 rows that are not 16-byte aligned) converts
+//   each tile straight from memory into its term planes, one stage, 106-158
+//   KB, 1 CTA per SM.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stddef.h>
+#include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
-constexpr int BQ = 64;         // query rows per CTA
-constexpr int BK = 64;         // keys per kv block
-constexpr int DMAX = 128;      // largest head dim (qk and v)
-constexpr int THREADS = 256;   // 16 row groups x 16 column groups
-constexpr int LDQ = DMAX + 1;  // padded row stride: conflict-free column reads
-constexpr int LDP = BK + 1;
-constexpr int RI = BQ / 16;    // rows per thread
-constexpr int CJ = BK / 16;    // score columns per thread
-constexpr int VJ = DMAX / 16;  // value columns per thread
+constexpr int WARPS = 4;            // 16 rows each
+constexpr int THREADS = 32 * WARPS;
+constexpr int BK = 32;              // keys per kv tile
+constexpr int DMAX = 128;           // largest head dim (qk and v)
+constexpr int LD = DMAX + 8;        // plane row stride: conflict-free fragments
+constexpr int NT_S = BK / 8;        // score n-tiles per warp and tile
+constexpr int KK = BK / 16;         // P.V k-steps per tile
+constexpr int NT_V = DMAX / 8;      // value n-tiles
+constexpr int META = 4;             // per staged slot: position, valid, [SUM], segment
+constexpr unsigned FULL = 0xffffffffu;
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+typedef __nv_bfloat16 bf16;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
+__device__ __forceinline__ void store(bf16* p, float x) { *p = __float2bfloat16(x); }
+
+// Rows, terms of each operand, stages and shared memory per instantiation
+// (see the header); `windowed_tile_plan` in windowed_attn.py mirrors this.
+template <typename T, bool NOPE, bool RESET>
+struct Cfg {
+  static constexpr bool F32 = sizeof(T) == 4;
+  // 16-row m-tiles per warp: two share each K/V fragment where the
+  // registers allow it (bf16 without the reset stream)
+  static constexpr int MT = (F32 || RESET) ? 1 : 2;
+  static constexpr int BQ = WARPS * 16 * MT;        // query rows per CTA
+  static constexpr int NQ = F32 ? 3 : 1;
+  static constexpr int NK = F32 ? 3 : 1;
+  static constexpr int NP = F32 ? 3 : 2;
+  static constexpr int NV = F32 ? 3 : 1;
+  static constexpr int PLANES = NK + (NOPE ? NK : 0) + NV + (RESET ? NV : 0);
+  static constexpr int STAGES = F32 ? 1 : (PLANES <= 2 ? 3 : 2);
+  static constexpr int MS = STAGES > 1 ? STAGES : 2;     // metadata ring
+  static constexpr size_t Q_ELEMS = (size_t)NQ * BQ * LD;
+  static constexpr size_t STAGE_ELEMS = (size_t)PLANES * BK * LD;
+  static constexpr size_t BYTES = (Q_ELEMS + STAGES * STAGE_ELEMS) * sizeof(bf16) +
+                                  (size_t)(MS * META * BK + 3 * BQ + BQ / 8 + MS) * sizeof(int);
+};
+
+template <int N>
+__device__ __forceinline__ void split_store(float x, bf16* p, int stride) {
+#pragma unroll
+  for (int t = 0; t < N; ++t) {
+    const bf16 h = __float2bfloat16_rn(x);
+    p[t * stride] = h;
+    x -= __bfloat162float(h);
+  }
+}
+
+// 2^x, the hardware approximation (~2 ulp), 0 for -inf
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Not volatile: a pure function of its registers, which the compiler may
+// schedule among the (volatile, program-ordered) fragment loads.
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s));
+}
+
+// 16 (4) bytes global -> shared; zero-filled, reading nothing, unless
+// `pred`
+__device__ __forceinline__ void cp16(void* dst, const void* src, bool pred) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  const int n = pred ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(d), "l"(src), "r"(n));
+}
+__device__ __forceinline__ void cp4(void* dst, const void* src, bool pred) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  const int n = pred ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(d), "l"(src), "r"(n));
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
 
 template <typename T>
 struct Args {
@@ -57,268 +192,540 @@ struct Args {
   const int *pos_q, *pos_k, *sum_q, *sum_k, *valid_k, *seg_q, *seg_k;
   T* o;
   float* lse;
-  int B, S, H, Hk, D, Dv, window, sum_isolated, use_seg;
+  int B, S, H, Hk, D, Dv, window, sum_isolated, use_seg, n_qb, direct;
   float scale, y_min, y_max, midpoint;
 };
 
-__host__ __device__ constexpr size_t smem_floats(bool nope, bool reset) {
-  return (size_t)BQ * LDQ + (size_t)BK * LDQ + (nope ? (size_t)BK * LDQ : 0) +
-         (size_t)BK * DMAX + (reset ? (size_t)BK * DMAX : 0) +
-         (size_t)BQ * LDP + (reset ? (size_t)BQ * LDP : 0);
-}
-
-__host__ __device__ constexpr size_t smem_bytes(bool nope, bool reset) {
-  return smem_floats(nope, reset) * sizeof(float) + (3 * BQ + 3 * BK) * sizeof(int);
-}
-
 template <typename T, bool NOPE, bool RESET>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 2)
 windowed_attn_kernel(const Args<T> a) {
-  extern __shared__ float smem[];
-  float* q_s = smem;
-  float* k_s = q_s + BQ * LDQ;
-  float* kn_s = k_s + BK * LDQ;
-  float* v_s = kn_s + (NOPE ? BK * LDQ : 0);
-  float* v0_s = v_s + BK * DMAX;
-  float* p_s = v0_s + (RESET ? BK * DMAX : 0);
-  float* pa_s = p_s + BQ * LDP;
-  int* pos_qs = reinterpret_cast<int*>(smem + smem_floats(NOPE, RESET));
-  int* sum_qs = pos_qs + BQ;
-  int* seg_qs = sum_qs + BQ;
-  int* pos_ks = seg_qs + BQ;
-  int* flag_ks = pos_ks + BK;   // bit 0: attendable key slot, bit 1: [SUM] key
-  int* seg_ks = flag_ks + BK;
+  using C = Cfg<T, NOPE, RESET>;
+  constexpr int MT = C::MT, BQ = C::BQ, NR = 2 * MT;
+  constexpr int NQ = C::NQ, NK = C::NK, NP = C::NP, NV = C::NV;
+  constexpr int ST = C::STAGES, MS = C::MS;
+  constexpr int TQK = NQ > NK ? NQ : NK;     // term pairs i + j < TQK
+  constexpr int TPV = NP > NV ? NP : NV;
+  // planes of a stage: K terms, K_nope terms, V terms, V0 terms
+  constexpr int PK = 0, PKN = NK, PV = NK + (NOPE ? NK : 0), PV0 = PV + NV;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* q_p = reinterpret_cast<bf16*>(smem_raw);
+  bf16* st_p = q_p + C::Q_ELEMS;
+  int* meta = reinterpret_cast<int*>(st_p + ST * C::STAGE_ELEMS);
+  int* pos_r = meta + MS * META * BK;
+  int* sum_r = pos_r + BQ;
+  int* seg_r = sum_r + BQ;
+  int* red = seg_r + BQ;      // per warp of rows: least, greatest position, segment
+  int* interior = red + BQ / 8;   // per ring slot: every pair of the tile attends
+  auto plane = [&](int st, int p) { return st_p + st * C::STAGE_ELEMS + (size_t)p * BK * LD; };
+  // tile i's slots in ring slot i % MS: positions, flags, [SUM] flags, segments
+  auto meta_of = [&](int i) { return meta + (i % MS) * META * BK; };
 
-  const int iq = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int h = blockIdx.x, iq = a.n_qb - 1 - (int)blockIdx.y, b = blockIdx.z;
   const int hk = h / (a.H / a.Hk);
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int S = a.S, D = a.D, Dv = a.Dv;
-  const int q0 = iq * BQ;
-  const float alibi_h = a.alibi[h];
+  const int q0 = iq * BQ, nr = min(BQ, S - q0);
+  const int DP = (D + 15) & ~15, DVP = (Dv + 15) & ~15;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, cq = lane & 3;
+  const bool direct = !C::F32 && a.direct;     // copies by cp.async
 
-  for (int r = tid; r < BQ; r += THREADS) {
-    const int qi = q0 + r;
-    const bool in = qi < S;
-    const size_t bs = (size_t)b * S + qi;
-    pos_qs[r] = in ? a.pos_q[bs] : 0;
-    sum_qs[r] = (in && a.sum_q != nullptr) ? (a.sum_q[bs] != 0) : 0;
-    seg_qs[r] = (in && a.use_seg) ? a.seg_q[bs] : 0;
-  }
-  __syncthreads();
-  for (int idx = tid; idx < BQ * D; idx += THREADS) {
-    const int r = idx / D, d = idx - r * D, qi = q0 + r;
-    float x = 0.f;
-    if (qi < S) {
-      const size_t off = (((size_t)b * S + qi) * a.H + h) * D + d;
-      x = (NOPE && sum_qs[r]) ? to_f(a.qn[off]) : to_f(a.q[off]);
+  // the q tile's rows: position, [SUM] flag, segment, and each warp's
+  // least and greatest position and segment
+  if (tid < BQ) {
+    const bool in = tid < nr;
+    const size_t bs = (size_t)b * S + q0 + tid;
+    const int p = in ? a.pos_q[bs] : 0;
+    const int sm = (in && a.sum_q != nullptr) ? (a.sum_q[bs] != 0) : 0;
+    const int sg = (in && a.use_seg) ? a.seg_q[bs] : 0;
+    pos_r[tid] = p;
+    sum_r[tid] = sm;
+    seg_r[tid] = sg;
+    const int lo = __reduce_min_sync(FULL, in ? p : INT_MAX);
+    const int hi = __reduce_max_sync(FULL, in ? p : INT_MIN);
+    const int slo = __reduce_min_sync(FULL, in ? sg : INT_MAX);
+    const int shi = __reduce_max_sync(FULL, in ? sg : INT_MIN);
+    if (lane == 0) {
+      red[4 * warp] = lo;
+      red[4 * warp + 1] = hi;
+      red[4 * warp + 2] = slo;
+      red[4 * warp + 3] = shi;
     }
-    q_s[r * LDQ + d] = x;
   }
-  const int tile_has_sum = __syncthreads_or(tid < BQ ? sum_qs[tid] : 0);
-
-  float m[RI], l[RI], acc[RI][VJ];
+  if (direct && ((D | Dv) & 15)) {   // pads cp.async never writes
+    for (int i = tid; i < (int)(C::Q_ELEMS + ST * C::STAGE_ELEMS); i += THREADS)
+      q_p[i] = __ushort_as_bfloat16((unsigned short)0);
+  }
+  const int any_sum = __syncthreads_or(tid < nr && sum_r[tid]);
+  int pq_min = INT_MAX, pq_max = INT_MIN, sg_min = INT_MAX, sg_max = INT_MIN;
 #pragma unroll
-  for (int i = 0; i < RI; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < VJ; ++j) acc[i][j] = 0.f;
+  for (int w = 0; w < BQ / 32; ++w) {
+    pq_min = min(pq_min, red[4 * w]);
+    pq_max = max(pq_max, red[4 * w + 1]);
+    sg_min = min(sg_min, red[4 * w + 2]);
+    sg_max = max(sg_max, red[4 * w + 3]);
   }
 
-  // physical band: kv blocks holding rows [q0 - window, q0 + BQ - 1]
-  const int last = min(q0 + BQ, S) - 1;
+  // physical band: kv tiles holding rows [q0 - window, q0 + nr - 1]
   const int kb_lo = max(q0 - a.window, 0) / BK;
-  const int kb_hi = last / BK;
+  const int n_t = (q0 + nr - 1) / BK - kb_lo + 1;
 
-  for (int kb = kb_lo; kb <= kb_hi; ++kb) {
-    const int k0 = kb * BK;
-    __syncthreads();   // the previous block's tiles are no longer read
-    for (int c = tid; c < BK; c += THREADS) {
-      const int kj = k0 + c;
-      const bool in = kj < S;
-      const size_t bs = (size_t)b * S + kj;
-      pos_ks[c] = in ? a.pos_k[bs] : 0;
-      const int ok = in && (a.valid_k == nullptr || a.valid_k[bs] != 0);
-      const int sk = (in && a.sum_isolated) ? (a.sum_k[bs] != 0) : 0;
-      flag_ks[c] = ok | (sk << 1);
-      seg_ks[c] = (in && a.use_seg) ? a.seg_k[bs] : 0;
+  // The q tile, q_nope on [SUM] rows (NoPE), zero past D and past S: by
+  // cp.async in tile 0's group, or converted into NQ term planes.
+  if (direct) {
+    const int nch = D / 8;
+    for (int idx = tid; idx < BQ * nch; idx += THREADS) {
+      const int r = idx / nch, ch = idx - r * nch;
+      const bool in = r < nr;
+      const T* src = (NOPE && sum_r[r]) ? a.qn : a.q;
+      cp16(q_p + r * LD + ch * 8,
+           src + (((size_t)b * S + q0 + (in ? r : 0)) * a.H + h) * D + ch * 8, in);
     }
-    for (int idx = tid; idx < BK * D; idx += THREADS) {
-      const int c = idx / D, d = idx - c * D, kj = k0 + c;
-      float x = 0.f, xn = 0.f;
-      if (kj < S) {
-        const size_t off = (((size_t)b * S + kj) * a.Hk + hk) * D + d;
-        x = to_f(a.k[off]);
-        if (NOPE && tile_has_sum) xn = to_f(a.kn[off]);
+  } else {
+    for (int idx = tid; idx < BQ * DP; idx += THREADS) {
+      const int r = idx / DP, d = idx - r * DP;
+      float x = 0.f;
+      if (r < nr && d < D) {
+        const T* src = (NOPE && sum_r[r]) ? a.qn : a.q;
+        x = to_f(src[(((size_t)b * S + q0 + r) * a.H + h) * D + d]);
       }
-      k_s[c * LDQ + d] = x;
-      if (NOPE) kn_s[c * LDQ + d] = xn;
+      split_store<NQ>(x, q_p + r * LD + d, BQ * LD);
     }
-    for (int idx = tid; idx < BK * Dv; idx += THREADS) {
-      const int c = idx / Dv, d = idx - c * Dv, kj = k0 + c;
-      float x = 0.f, x0 = 0.f;
-      if (kj < S) {
-        const size_t off = (((size_t)b * S + kj) * a.Hk + hk) * Dv + d;
-        x = to_f(a.v[off]);
-        if (RESET) x0 = to_f(a.v0[off]);
-      }
-      v_s[c * DMAX + d] = x;
-      if (RESET) v0_s[c * DMAX + d] = x0;
-    }
-    __syncthreads();
+  }
 
-    // scores: rows ty + 16 i, columns tx + 16 j
-    float s[RI][CJ];
-#pragma unroll
-    for (int i = 0; i < RI; ++i)
-#pragma unroll
-      for (int j = 0; j < CJ; ++j) s[i][j] = 0.f;
-    if (NOPE && tile_has_sum) {
-      bool rs[RI];
-#pragma unroll
-      for (int i = 0; i < RI; ++i) rs[i] = sum_qs[ty + 16 * i] != 0;
-      for (int d = 0; d < D; ++d) {
-        float kr[CJ], kx[CJ];
-#pragma unroll
-        for (int j = 0; j < CJ; ++j) {
-          kr[j] = k_s[(tx + 16 * j) * LDQ + d];
-          kx[j] = kn_s[(tx + 16 * j) * LDQ + d];
-        }
-#pragma unroll
-        for (int i = 0; i < RI; ++i) {
-          const float qv = q_s[(ty + 16 * i) * LDQ + d];
-#pragma unroll
-          for (int j = 0; j < CJ; ++j) s[i][j] += qv * (rs[i] ? kx[j] : kr[j]);
-        }
-      }
+  // tile i's slot metadata: thread c < BK copies slot c's position, valid
+  // flag, [SUM] flag (isolation) and segment
+  auto meta_load = [&](int i, bool async) {
+    if (tid >= BK) return;
+    const int kj = (kb_lo + i) * BK + tid;
+    const bool in = kj < S;
+    const size_t bs = (size_t)b * S + (in ? kj : 0);
+    int* m = meta_of(i);
+    if (async) {
+      cp4(m + tid, a.pos_k + bs, in);
+      if (a.valid_k != nullptr) cp4(m + BK + tid, a.valid_k + bs, in);
+      else m[BK + tid] = in;
+      if (a.sum_isolated) cp4(m + 2 * BK + tid, a.sum_k + bs, in);
+      if (a.use_seg) cp4(m + 3 * BK + tid, a.seg_k + bs, in);
     } else {
-      for (int d = 0; d < D; ++d) {
-        float kr[CJ];
+      m[tid] = in ? a.pos_k[bs] : 0;
+      m[BK + tid] = in && (a.valid_k == nullptr || a.valid_k[bs] != 0);
+      if (a.sum_isolated) m[2 * BK + tid] = in ? a.sum_k[bs] : 0;
+      if (a.use_seg) m[3 * BK + tid] = in ? a.seg_k[bs] : 0;
+    }
+  };
+  // The owner of slot c (warp 0), once the slot's copies have landed (its
+  // own): fold the flags into one word, bit 0 an attendable key slot, bit 1
+  // an isolated [SUM] key, and return whether some row of this q tile may
+  // attend the slot; lane 0 records whether every row attends every slot
+  // (an interior tile: valid, no isolated [SUM] key, causal and within the
+  // window for all rows, one segment), whose scores need no mask.
+  auto slot_live = [&](int i) {
+    if (tid >= BK) return false;
+    int* m = meta_of(i);
+    const int kj = (kb_lo + i) * BK + tid;
+    const int pk = m[tid];
+    const int sk = a.sum_isolated ? (m[2 * BK + tid] != 0) : 0;
+    const int f = (kj < S && m[BK + tid] != 0) ? (1 | (sk << 1)) : 0;
+    m[BK + tid] = f;
+    bool live = (f & 1) && pk <= pq_max && (long long)pk >= (long long)pq_min - a.window;
+    if (f & 2) live = live && pk >= pq_min;
+    bool all = f == 1 && pk <= pq_min && (long long)pq_max - pk <= a.window;
+    if (a.use_seg) {
+      const int sgk = m[3 * BK + tid];
+      live = live && sgk >= sg_min && sgk <= sg_max;
+      all = all && sgk == sg_min && sg_min == sg_max;
+    }
+    all = __all_sync(FULL, all);
+    if (tid == 0) interior[i % MS] = all;
+    return live;
+  };
+  // 16-byte copies of tile i's K, V (K_nope, V0 where a row needs them)
+  // rows into stage i % ST; thread tid copies chunk tid % 16 of slots
+  // tid / 16 + 8 j; slots past S are zero-filled without a read
+  auto issue = [&](int i) {
+    const int st = i % ST, k0 = (kb_lo + i) * BK;
+    const int ch = tid & 15, c0 = tid >> 4;
+    meta_load(i, true);
 #pragma unroll
-        for (int j = 0; j < CJ; ++j) kr[j] = k_s[(tx + 16 * j) * LDQ + d];
+    for (int j = 0; j < BK / 8; ++j) {
+      const int c = c0 + 8 * j, kj = k0 + c;
+      const bool ok = kj < S;
+      const size_t row = ((size_t)b * S + (ok ? kj : 0)) * a.Hk + hk;
+      if (ch < D / 8) {
+        cp16(plane(st, PK) + c * LD + ch * 8, a.k + row * D + ch * 8, ok);
+        if (NOPE && any_sum)
+          cp16(plane(st, PKN) + c * LD + ch * 8, a.kn + row * D + ch * 8, ok);
+      }
+      if (ch < Dv / 8) {
+        cp16(plane(st, PV) + c * LD + ch * 8, a.v + row * Dv + ch * 8, ok);
+        if (RESET && any_sum)
+          cp16(plane(st, PV0) + c * LD + ch * 8, a.v0 + row * Dv + ch * 8, ok);
+      }
+    }
+  };
+  // the fp32 (and unaligned bf16) path: tile i's rows from memory into
+  // term planes of stage i % ST, zero past D, Dv and S; a warp per slot
+  auto convert = [&](int i) {
+    const int st = i % ST, k0 = (kb_lo + i) * BK;
+    for (int c = warp; c < BK; c += WARPS) {
+      const int kj = k0 + c;
+      const bool ok = kj < S;
+      const size_t row = ((size_t)b * S + (ok ? kj : 0)) * a.Hk + hk;
+      for (int d = lane; d < DP; d += 32) {
+        const bool on = ok && d < D;
+        split_store<NK>(on ? to_f(a.k[row * D + d]) : 0.f, plane(st, PK) + c * LD + d, BK * LD);
+        if (NOPE && any_sum)
+          split_store<NK>(on ? to_f(a.kn[row * D + d]) : 0.f, plane(st, PKN) + c * LD + d, BK * LD);
+      }
+      for (int d = lane; d < DVP; d += 32) {
+        const bool on = ok && d < Dv;
+        split_store<NV>(on ? to_f(a.v[row * Dv + d]) : 0.f, plane(st, PV) + c * LD + d, BK * LD);
+        if (RESET && any_sum)
+          split_store<NV>(on ? to_f(a.v0[row * Dv + d]) : 0.f, plane(st, PV0) + c * LD + d, BK * LD);
+      }
+    }
+  };
+
+  // this thread's rows: R = 2 mt + hh is row g + 8 hh of the warp's m-tile mt
+  const int wr0 = warp * 16 * MT;
+  const bool w_live = wr0 < nr;
+  int pq[NR], sg[NR];
+  bool rin[NR], rsum[NR];
 #pragma unroll
-        for (int i = 0; i < RI; ++i) {
-          const float qv = q_s[(ty + 16 * i) * LDQ + d];
+  for (int R = 0; R < NR; ++R) {
+    const int r = wr0 + 16 * (R >> 1) + g + 8 * (R & 1);
+    rin[R] = r < nr;
+    pq[R] = pos_r[r];
+    sg[R] = seg_r[r];
+    rsum[R] = sum_r[r] != 0;
+  }
+  // which products each m-tile's rows need: Q.K^T, and with a [SUM] row
+  // Qn.Kn^T (NoPE) and P a(d).V0 (reset)
+  bool m_sum[MT], w_sum = false;
 #pragma unroll
-          for (int j = 0; j < CJ; ++j) s[i][j] += qv * kr[j];
+  for (int mt = 0; mt < MT; ++mt) {
+    m_sum[mt] = __any_sync(FULL, rsum[2 * mt] || rsum[2 * mt + 1]);
+    w_sum = w_sum || m_sum[mt];
+  }
+  const bool w_n = NOPE && w_sum;
+  const bool w_r = RESET && w_sum;
+  const float sl2 = a.scale * LOG2E;
+  const float al2 = NOPE ? a.alibi[h] * LOG2E : 0.f;
+  const unsigned wlim = (unsigned)a.window;
+  float m[NR], l[NR];
+  float acc[MT][NT_V][4];
+#pragma unroll
+  for (int R = 0; R < NR; ++R) {
+    m[R] = -INFINITY;
+    l[R] = 0.f;
+  }
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int j = 0; j < NT_V; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0.f;
+
+  const int koff = ((lane & 7) + (lane >> 4) * 8) * LD + ((lane >> 3) & 1) * 8;
+  const int voff = ((lane & 7) + ((lane >> 3) & 1) * 8) * LD + (lane >> 4) * 8;
+  const bf16* qrow = q_p + (wr0 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + (lane >> 4) * 8;
+
+  auto compute = [&](int i) {
+    const int st = i % ST;
+    const int* mt_ = meta_of(i);
+    float sc[MT][NT_S][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int j = 0; j < NT_S; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[mt][j][e] = 0.f;
+    // Q.K^T; with [SUM] rows in the warp, + Qn.Kn^T on their rows
+    for (int kd = 0; kd < DP / 16; ++kd) {
+      uint32_t fq[MT][NQ][4], fk[NK][2][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int t = 0; t < NQ; ++t)
+          ldsm_x4(fq[mt][t], qrow + (t * BQ + 16 * mt) * LD + kd * 16);
+#pragma unroll
+      for (int tk = 0; tk < NK; ++tk)
+#pragma unroll
+        for (int jp = 0; jp < 2; ++jp)
+          ldsm_x4(fk[tk][jp], plane(st, PK + tk) + jp * 16 * LD + koff + kd * 16);
+      uint32_t fn[NK][2][4];
+      if (w_n) {
+#pragma unroll
+        for (int tk = 0; tk < NK; ++tk)
+#pragma unroll
+          for (int jp = 0; jp < 2; ++jp)
+            ldsm_x4(fn[tk][jp], plane(st, PKN + tk) + jp * 16 * LD + koff + kd * 16);
+      }
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        if (NOPE && m_sum[mt]) {
+          // A fragments: registers 0 and 2 hold row g, 1 and 3 row g + 8
+          uint32_t fp[NQ][4], fs[NQ][4];
+#pragma unroll
+          for (int t = 0; t < NQ; ++t)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const bool s = rsum[2 * mt + (e & 1)];
+              fp[t][e] = s ? 0u : fq[mt][t][e];
+              fs[t][e] = s ? fq[mt][t][e] : 0u;
+            }
+#pragma unroll
+          for (int tk = 0; tk < NK; ++tk)
+#pragma unroll
+            for (int tq = 0; tq < NQ; ++tq)
+              if (tq + tk < TQK) {
+#pragma unroll
+                for (int jp = 0; jp < 2; ++jp) {
+                  mma(sc[mt][2 * jp], fp[tq], fk[tk][jp][0], fk[tk][jp][1]);
+                  mma(sc[mt][2 * jp + 1], fp[tq], fk[tk][jp][2], fk[tk][jp][3]);
+                  mma(sc[mt][2 * jp], fs[tq], fn[tk][jp][0], fn[tk][jp][1]);
+                  mma(sc[mt][2 * jp + 1], fs[tq], fn[tk][jp][2], fn[tk][jp][3]);
+                }
+              }
+        } else {
+#pragma unroll
+          for (int tk = 0; tk < NK; ++tk)
+#pragma unroll
+            for (int tq = 0; tq < NQ; ++tq)
+              if (tq + tk < TQK) {
+#pragma unroll
+                for (int jp = 0; jp < 2; ++jp) {
+                  mma(sc[mt][2 * jp], fq[mt][tq], fk[tk][jp][0], fk[tk][jp][1]);
+                  mma(sc[mt][2 * jp + 1], fq[mt][tq], fk[tk][jp][2], fk[tk][jp][3]);
+                }
+              }
         }
       }
     }
 
-    // masks, ALiBi, online softmax
+    // masks, ALiBi, online softmax in base 2 (scores times log2 e);
+    // element (mt, j, 2 hh + e) is row R = 2 mt + hh, column j * 8 + 2 cq + e
+    int cpk[NT_S][2], cfl[NT_S][2], csg[NT_S][2];
 #pragma unroll
-    for (int i = 0; i < RI; ++i) {
-      const int r = ty + 16 * i;
-      const bool row_in = q0 + r < S;
-      const bool sum_row = sum_qs[r] != 0;
-      float dist[CJ];
+    for (int j = 0; j < NT_S; ++j) {
+      const int c = j * 8 + 2 * cq;
+      const int2 p2 = *reinterpret_cast<const int2*>(mt_ + c);
+      const int2 f2 = *reinterpret_cast<const int2*>(mt_ + BK + c);
+      cpk[j][0] = p2.x; cpk[j][1] = p2.y;
+      cfl[j][0] = f2.x; cfl[j][1] = f2.y;
+      if (a.use_seg) {
+        const int2 s2 = *reinterpret_cast<const int2*>(mt_ + 3 * BK + c);
+        csg[j][0] = s2.x; csg[j][1] = s2.y;
+      } else {
+        csg[j][0] = csg[j][1] = 0;
+      }
+    }
+    float alpha[NR];
+    bool rescale = false;
+    // the scores of row R (an interior tile's need no mask)
+    auto scores = [&](int R, auto all) {
+      const int mt = R >> 1, hh = R & 1;
       float tmax = -INFINITY;
 #pragma unroll
-      for (int j = 0; j < CJ; ++j) {
-        const int c = tx + 16 * j;
-        const int dd = pos_qs[r] - pos_ks[c];
-        const int f = flag_ks[c];
-        bool ok = row_in && (f & 1) && dd >= 0 && dd <= a.window;
-        ok = ok && (!(f & 2) || dd == 0);
-        if (a.use_seg) ok = ok && seg_qs[r] == seg_ks[c];
-        float x = s[i][j] * a.scale;
-        if (NOPE && sum_row) x -= alibi_h * (float)dd;
-        s[i][j] = ok ? x : -INFINITY;
-        dist[j] = (float)dd;
-        tmax = fmaxf(tmax, s[i][j]);
-      }
+      for (int j = 0; j < NT_S; ++j)
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, off));
-      const float m_new = fmaxf(m[i], tmax);
-      float alpha = 1.f, rsum = 0.f;
-      float p[CJ];
+        for (int e = 0; e < 2; ++e) {
+          const int f = cfl[j][e], dd = pq[R] - cpk[j][e];
+          // valid, causal and in the window (one unsigned compare),
+          // isolated [SUM] keys only at distance 0, the same segment (rows
+          // past S hold zeros and are never written)
+          const bool ok = decltype(all)::value ||
+                          ((f & 1) && (unsigned)dd <= wlim &&
+                           (!(f & 2) || dd == 0) && csg[j][e] == sg[R]);
+          float x = sc[mt][j][2 * hh + e] * sl2;
+          if (NOPE && rsum[R]) x -= al2 * (float)dd;
+          sc[mt][j][2 * hh + e] = ok ? x : -INFINITY;
+          tmax = fmaxf(tmax, sc[mt][j][2 * hh + e]);
+        }
+      return tmax;
+    };
+    const bool all = interior[i % MS] != 0;
 #pragma unroll
-      for (int j = 0; j < CJ; ++j) p[j] = 0.f;
+    for (int R = 0; R < NR; ++R) {
+      const int mt = R >> 1, hh = R & 1;
+      float tmax = all ? scores(R, std::true_type()) : scores(R, std::false_type());
+      tmax = fmaxf(tmax, __shfl_xor_sync(FULL, tmax, 1));
+      tmax = fmaxf(tmax, __shfl_xor_sync(FULL, tmax, 2));
+      const float m_new = fmaxf(m[R], tmax);
+      float rs = 0.f;
+      alpha[R] = 1.f;
+#pragma unroll
+      for (int j = 0; j < NT_S; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = sc[mt][j][2 * hh + e];
+          x = m_new == -INFINITY ? 0.f : ex2(x - m_new);
+          rs += x;
+        }
       if (m_new != -INFINITY) {
-        alpha = expf(m[i] - m_new);
-#pragma unroll
-        for (int j = 0; j < CJ; ++j) {
-          p[j] = s[i][j] == -INFINITY ? 0.f : expf(s[i][j] - m_new);
-          rsum += p[j];
-        }
-        m[i] = m_new;
+        alpha[R] = ex2(m[R] - m_new);
+        m[R] = m_new;
       }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        rsum += __shfl_xor_sync(0xffffffffu, rsum, off);
-      l[i] = l[i] * alpha + rsum;
-#pragma unroll
-      for (int j = 0; j < VJ; ++j) acc[i][j] *= alpha;
-#pragma unroll
-      for (int j = 0; j < CJ; ++j) {
-        const int c = tx + 16 * j;
-        p_s[r * LDP + c] = p[j];
-        if (RESET) {
-          const float ad = a.y_min + (a.y_max - a.y_min) /
-                                         (1.f + expf(-(dist[j] - a.midpoint)));
-          pa_s[r * LDP + c] = sum_row ? p[j] * ad : 0.f;
-        }
-      }
+      rs += __shfl_xor_sync(FULL, rs, 1);
+      rs += __shfl_xor_sync(FULL, rs, 2);
+      l[R] = l[R] * alpha[R] + rs;
+      rescale = rescale || alpha[R] != 1.f;
     }
-    __syncthreads();
+    if (__any_sync(FULL, rescale)) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int j = 0; j < NT_V; ++j) {
+          acc[mt][j][0] *= alpha[2 * mt];
+          acc[mt][j][1] *= alpha[2 * mt];
+          acc[mt][j][2] *= alpha[2 * mt + 1];
+          acc[mt][j][3] *= alpha[2 * mt + 1];
+        }
+    }
 
-    // acc += P V (+ P a(d) (V0 - V) on [SUM] rows)
-    for (int c = 0; c < BK; ++c) {
-      float pv[RI], pr[RI];
+    // P.V (+ P a(d).V0), k-step by k-step; V fragments two 16-column pairs
+    // at a time, each for every m-tile
+    auto pv = [&](const uint32_t (&pa)[MT][NP][4], int pl, int kk, bool v0) {
 #pragma unroll
-      for (int i = 0; i < RI; ++i) {
-        pv[i] = p_s[(ty + 16 * i) * LDP + c];
-        if (RESET) pr[i] = pa_s[(ty + 16 * i) * LDP + c];
+      for (int n2 = 0; n2 < NT_V / 4; ++n2) {
+        if (n2 * 32 < DVP) {
+          uint32_t bv[NV][2][4];
+#pragma unroll
+          for (int tv = 0; tv < NV; ++tv)
+#pragma unroll
+            for (int u = 0; u < 2; ++u)
+              if ((n2 * 2 + u) * 16 < DVP)
+                ldsm_x4_t(bv[tv][u], plane(st, pl + tv) + kk * 16 * LD + voff + (n2 * 2 + u) * 16);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+            if (!v0 || m_sum[mt])
+#pragma unroll
+            for (int tv = 0; tv < NV; ++tv)
+#pragma unroll
+              for (int tp = 0; tp < NP; ++tp)
+                if (tp + tv < TPV) {
+#pragma unroll
+                  for (int u = 0; u < 2; ++u)
+                    if ((n2 * 2 + u) * 16 < DVP) {
+                      const int np = n2 * 2 + u;
+                      mma(acc[mt][2 * np], pa[mt][tp], bv[tv][u][0], bv[tv][u][1]);
+                      mma(acc[mt][2 * np + 1], pa[mt][tp], bv[tv][u][2], bv[tv][u][3]);
+                    }
+                }
+        }
       }
+    };
+    // P (or, on [SUM] rows with reset, P (1 - a(d)) in pass 0 and P a(d)
+    // in pass 1) of k-step kk as NP bf16 terms in the A layout
+    auto split_p = [&](int kk, int pass, uint32_t (&pa)[MT][NP][4]) {
 #pragma unroll
-      for (int j = 0; j < VJ; ++j) {
-        const int col = tx + 16 * j;
-        if (col < Dv) {
-          const float vv = v_s[c * DMAX + col];
-          const float dv0 = RESET ? v0_s[c * DMAX + col] - vv : 0.f;
+      for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-          for (int i = 0; i < RI; ++i) {
-            acc[i][j] += pv[i] * vv;
-            if (RESET) acc[i][j] += pr[i] * dv0;
+        for (int r = 0; r < 4; ++r) {
+          const int j = 2 * kk + (r >> 1), hh = r & 1, R = 2 * mt + hh;
+          float x[2] = {sc[mt][j][2 * hh], sc[mt][j][2 * hh + 1]};
+          if (w_r) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              float ad = 0.f;
+              if (rsum[R]) {
+                const float dd = (float)(pq[R] - cpk[j][e]);
+                ad = a.y_min + (a.y_max - a.y_min) / (1.f + expf(-(dd - a.midpoint)));
+              }
+              x[e] = pass ? x[e] * ad : x[e] - x[e] * ad;
+            }
+          }
+#pragma unroll
+          for (int t = 0; t < NP; ++t) {
+            const __nv_bfloat162 h2 = __floats2bfloat162_rn(x[0], x[1]);   // x0 low
+            pa[mt][t][r] = *reinterpret_cast<const uint32_t*>(&h2);
+            x[0] -= __low2float(h2);
+            x[1] -= __high2float(h2);
           }
         }
+    };
+#pragma unroll
+    for (int kk = 0; kk < KK; ++kk) {
+      uint32_t pa[MT][NP][4];
+      split_p(kk, 0, pa);
+      pv(pa, PV, kk, false);
+      if (w_r) {
+        split_p(kk, 1, pa);
+        pv(pa, PV0, kk, true);
       }
     }
+  };
+
+  // The pipeline (cp.async groups, one per tile, the q tile in the first):
+  // tile i + ST - 1's copies are in flight while tile i is computed. Each
+  // tile has one barrier, which also tells every thread whether the tile
+  // holds a slot some row may attend.
+  if (direct) {
+#pragma unroll
+    for (int i = 0; i < ST - 1; ++i) {
+      if (i < n_t) issue(i);
+      cp_commit();
+    }
   }
+  for (int i = 0; i < n_t; ++i) {
+    if (direct)
+      cp_wait<(ST > 1 ? ST - 2 : 0)>();   // tile i's group
+    else
+      meta_load(i, false);
+    const bool mine = slot_live(i);
+    const int live = __syncthreads_or(mine);
+    if (direct) {
+      if (i + ST - 1 < n_t) issue(i + ST - 1);
+      cp_commit();
+    }
+    if (!live) continue;
+    if (!direct) {
+      convert(i);
+      __syncthreads();
+    }
+    if (w_live) compute(i);
+  }
+  if (direct) cp_wait<0>();
 
 #pragma unroll
-  for (int i = 0; i < RI; ++i) {
-    const int qi = q0 + ty + 16 * i;
-    if (qi >= S) continue;
-    const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
-    const size_t ob = (((size_t)b * S + qi) * a.H + h) * Dv;
+  for (int R = 0; R < NR; ++R) {
+    if (!rin[R]) continue;
+    const int mt = R >> 1, hh = R & 1;
+    const int qi = q0 + wr0 + 16 * mt + g + 8 * hh;
+    const float inv = l[R] > 0.f ? 1.f / l[R] : 0.f;
+    T* orow = a.o + (((size_t)b * S + qi) * a.H + h) * Dv;
 #pragma unroll
-    for (int j = 0; j < VJ; ++j) {
-      const int col = tx + 16 * j;
-      if (col < Dv) store(a.o + ob + col, acc[i][j] * inv);
-    }
-    if (tx == 0)
-      a.lse[((size_t)b * a.H + h) * S + qi] = l[i] > 0.f ? m[i] + logf(l[i]) : 1e30f;
+    for (int j = 0; j < NT_V; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = j * 8 + 2 * cq + e;
+        if (col < Dv) store(orow + col, acc[mt][j][2 * hh + e] * inv);
+      }
+    if (cq == 0)
+      a.lse[((size_t)b * a.H + h) * S + qi] =
+          l[R] > 0.f ? m[R] * LN2 + logf(l[R]) : 1e30f;
   }
 }
 
 template <typename T, bool NOPE, bool RESET>
-int launch(const Args<T>& a, cudaStream_t stream) {
-  const size_t smem = smem_bytes(NOPE, RESET);
+int launch(const Args<T>& a, int smem, cudaStream_t stream) {
+  using C = Cfg<T, NOPE, RESET>;
+  // the plan must be this source's (windowed_tile_plan)
+  if (smem != (int)C::BYTES || a.n_qb != (a.S + C::BQ - 1) / C::BQ)
+    return (int)cudaErrorInvalidValue;
   auto kern = windowed_attn_kernel<T, NOPE, RESET>;
   cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((a.S + BQ - 1) / BQ, a.H, a.B);
+  const dim3 grid(a.H, a.n_qb, a.B);
   kern<<<grid, THREADS, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int dispatch(const Args<T>& a, bool nope, bool reset, cudaStream_t st) {
-  if (nope) return reset ? launch<T, true, true>(a, st) : launch<T, true, false>(a, st);
-  return reset ? launch<T, false, true>(a, st) : launch<T, false, false>(a, st);
+int dispatch(const Args<T>& a, bool nope, bool reset, int smem, cudaStream_t st) {
+  if (nope) return reset ? launch<T, true, true>(a, smem, st) : launch<T, true, false>(a, smem, st);
+  return reset ? launch<T, false, true>(a, smem, st) : launch<T, false, false>(a, smem, st);
 }
 
 template <typename T>
@@ -328,7 +735,7 @@ Args<T> make_args(const void* q, const void* qn, const void* k, const void* kn,
                   const void* sum_k, const void* valid_k, const void* seg_q,
                   const void* seg_k, void* o, void* lse, int B, int S, int H,
                   int Hk, int D, int Dv, int window, int sum_isolated,
-                  int use_seg, float scale, float y_min, float y_max,
+                  int use_seg, int n_qb, float scale, float y_min, float y_max,
                   float midpoint) {
   Args<T> a;
   a.q = static_cast<const T*>(q);
@@ -349,14 +756,21 @@ Args<T> make_args(const void* q, const void* qn, const void* k, const void* kn,
   a.lse = static_cast<float*>(lse);
   a.B = B; a.S = S; a.H = H; a.Hk = Hk; a.D = D; a.Dv = Dv;
   a.window = window; a.sum_isolated = sum_isolated; a.use_seg = use_seg;
+  a.n_qb = n_qb;
   a.scale = scale; a.y_min = y_min; a.y_max = y_max; a.midpoint = midpoint;
+  // 16-byte copies need 16-byte rows and bases
+  const uintptr_t al = (uintptr_t)q | (uintptr_t)qn | (uintptr_t)k |
+                       (uintptr_t)kn | (uintptr_t)v | (uintptr_t)v0;
+  a.direct = sizeof(T) == 2 && D % 8 == 0 && Dv % 8 == 0 && al % 16 == 0;
   return a;
 }
 
 }  // namespace
 
 // Returns the launch's cudaError_t (0 = launched). Pointers the flags
-// switch off may be null; valid_k may be null (every key valid).
+// switch off may be null; valid_k may be null (every key valid). The plan
+// (n_qb q tiles of 64 rows, `smem` bytes of dynamic shared memory) comes
+// from `windowed_tile_plan`; a plan this source does not make is refused.
 extern "C" int windowed_attn_fwd(
     const void* q, const void* qn, const void* k, const void* kn,
     const void* v, const void* v0, const void* alibi, const void* pos_q,
@@ -364,25 +778,26 @@ extern "C" int windowed_attn_fwd(
     const void* valid_k, const void* seg_q, const void* seg_k, void* o,
     void* lse, int B, int S, int H, int Hk, int D, int Dv, int window,
     int use_nope, int use_reset, int sum_isolated, int use_seg, int is_bf16,
-    float scale, float y_min, float y_max, float midpoint, void* stream) {
+    int n_qb, int smem, float scale, float y_min, float y_max,
+    float midpoint, void* stream) {
   if (D > DMAX || Dv > DMAX || D <= 0 || Dv <= 0 || Hk <= 0 || H % Hk != 0 ||
       window <= 0 || (use_nope && (qn == nullptr || kn == nullptr || sum_q == nullptr)) ||
-      (use_reset && v0 == nullptr) || (sum_isolated && sum_k == nullptr) ||
+      (use_reset && (v0 == nullptr || sum_q == nullptr)) ||
+      (sum_isolated && sum_k == nullptr) ||
       (use_seg && (seg_q == nullptr || seg_k == nullptr)))
     return (int)cudaErrorInvalidValue;
   if (B == 0 || S == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
-    auto a = make_args<__nv_bfloat16>(q, qn, k, kn, v, v0, alibi, pos_q, pos_k,
-                                      sum_q, sum_k, valid_k, seg_q, seg_k, o,
-                                      lse, B, S, H, Hk, D, Dv, window,
-                                      sum_isolated, use_seg, scale, y_min,
-                                      y_max, midpoint);
-    return dispatch(a, use_nope != 0, use_reset != 0, st);
+    auto a = make_args<bf16>(q, qn, k, kn, v, v0, alibi, pos_q, pos_k, sum_q,
+                             sum_k, valid_k, seg_q, seg_k, o, lse, B, S, H, Hk,
+                             D, Dv, window, sum_isolated, use_seg, n_qb, scale,
+                             y_min, y_max, midpoint);
+    return dispatch(a, use_nope != 0, use_reset != 0, smem, st);
   }
   auto a = make_args<float>(q, qn, k, kn, v, v0, alibi, pos_q, pos_k, sum_q,
                             sum_k, valid_k, seg_q, seg_k, o, lse, B, S, H, Hk,
-                            D, Dv, window, sum_isolated, use_seg, scale, y_min,
-                            y_max, midpoint);
-  return dispatch(a, use_nope != 0, use_reset != 0, st);
+                            D, Dv, window, sum_isolated, use_seg, n_qb, scale,
+                            y_min, y_max, midpoint);
+  return dispatch(a, use_nope != 0, use_reset != 0, smem, st);
 }

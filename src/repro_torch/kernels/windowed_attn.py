@@ -10,8 +10,17 @@ key) when ``return_lse`` is set. The kernel reads this layout in place: no
 transpose, and no copy of K/V per query head (GQA maps head h to kv head
 h // n_rep).
 
-Schedule contract (as the reference's): the band of kv blocks a q block
-visits is physical (rows within ``window`` of the block), the mask is
+The kernel multiplies on tensor cores (``mma.sync``, bf16 operands, fp32
+sums; fp32 inputs as sums of three bf16 terms) over kv tiles that
+``cp.async`` stages ahead of the products. Its cost is operations: 2 (Dqk
++ Dv) FLOPs per attended (query, key) pair and head, 0.2054 TFLOP at
+dti-llama's prefill shape (B=8, S=2048, H=32, Hk=8, D=128, window 1024).
+``windowed_tile_plan`` holds the host side of its design: the tile sizes,
+the grid, the stages and the shared memory it launches with, and the kv
+band each q tile walks. The C entry point refuses a plan it would not make.
+
+Schedule contract (as the reference's): the band of kv tiles a q tile
+visits is physical (rows within ``window`` of the tile), the mask is
 positional. The two agree because physical distance equals positional
 distance on every attendable pair, which is why shared-prefix rows stay on
 the dense path (``repro_torch.core.windowed.attention``).
@@ -27,7 +36,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -35,10 +44,71 @@ from repro_torch.kernels import as_i32, check_launch, load, ptr
 from repro_torch.core.windowed import ResetConfig, attention_dense
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = {"windowed_attn_fwd": [_P] * 16 + [_I] * 12 + [_F] * 4 + [_P]}
+_ARGTYPES = {"windowed_attn_fwd": [_P] * 16 + [_I] * 14 + [_F] * 4 + [_P]}
 _BWD_ARGTYPES = {fn: [_P] * 21 + [_I] * 12 + [_F] * 4 + [_P]
                  for fn in ("windowed_attn_dq", "windowed_attn_dkv")}
 MAX_HEAD_DIM = 128
+# csrc/windowed_attn.cu's tiles: warps per CTA, keys per kv tile, the
+# bf16 plane row stride, int words per staged slot
+WARPS, BLOCK_K = 4, 32
+PLANE_LD = MAX_HEAD_DIM + 8
+META_WORDS = 4
+SMEM_LIMIT = 232448          # bytes of shared memory one CTA may use (H100)
+
+
+class TilePlan(NamedTuple):
+    """How kernel 1 runs one call: ``grid`` = (H, q tiles, B) CTAs of
+    ``warps`` warps, each a q tile of ``block_q`` rows (``block_q / warps``
+    per warp) walking kv tiles of ``block_k`` keys through ``stages``
+    shared-memory stages of ``stage_bytes`` each; ``smem_bytes`` in all.
+    ``terms`` = bf16 terms of (q, K, P, V) in the products."""
+    block_q: int
+    block_k: int
+    warps: int
+    terms: Tuple[int, int, int, int]
+    stages: int
+    stage_bytes: int
+    smem_bytes: int
+    grid: Tuple[int, int, int]
+
+
+def windowed_tile_plan(b: int, s: int, h: int, *, bf16: bool,
+                       use_nope: bool, use_reset: bool) -> TilePlan:
+    """The plan ``csrc/windowed_attn.cu`` launches with (its ``Cfg``).
+    bf16: one term for q and K, two for P, one for V; 32 rows a warp (two
+    m-tiles share each K/V fragment), 16 with the reset stream (whose
+    registers would spill); three stages of K and V, two when K_nope or V0
+    is live too, so that two CTAs fit an SM. fp32: 16 rows a warp, three
+    terms each, converted from memory into one stage. Planes are padded to
+    ``MAX_HEAD_DIM`` whatever the head dims."""
+    mt = 2 if bf16 and not use_reset else 1
+    block_q = WARPS * 16 * mt
+    nq, nk, np_, nv = (1, 1, 2, 1) if bf16 else (3, 3, 3, 3)
+    planes = nk * (1 + use_nope) + nv * (1 + use_reset)
+    stages = (3 if planes <= 2 else 2) if bf16 else 1
+    ring = max(stages, 2)
+    plane = BLOCK_K * PLANE_LD * 2
+    smem = (nq * block_q * PLANE_LD * 2 + stages * planes * plane
+            + (ring * META_WORDS * BLOCK_K + 3 * block_q + block_q // 8
+               + ring) * 4)
+    return TilePlan(block_q, BLOCK_K, WARPS, (nq, nk, np_, nv), stages,
+                    planes * plane, smem, (h, -(-s // block_q), b))
+
+
+def tile_of_block(plan: TilePlan, x: int, y: int, z: int):
+    """The (batch row, head, first query row) of CTA ``(x, y, z)``: q
+    tiles run last first, the longest bands before the shortest."""
+    return z, x, (plan.grid[1] - 1 - y) * plan.block_q
+
+
+def kv_band(q0: int, s: int, window: int, block_q: int,
+            block_k: int = BLOCK_K) -> Tuple[int, int]:
+    """Key rows ``[lo, hi)`` of the kv tiles the q tile from row ``q0``
+    walks: whole tiles holding rows ``[q0 - window, q0 + block_q - 1]``,
+    cut at ``s``."""
+    last = min(q0 + block_q, s) - 1
+    lo = max(q0 - window, 0) // block_k * block_k
+    return lo, min((last // block_k + 1) * block_k, s)
 
 
 def windowed_attention_plain(q, k, v, *, pos_q, pos_k, window: int,
@@ -173,11 +243,14 @@ def _fwd(st, q, k, v, live, alibi_f, ints):
     o = torch.empty((st.b, st.s, st.h, st.dv), dtype=q.dtype, device=q.device)
     lse = torch.empty((st.b, st.h, st.s), dtype=torch.float32,
                       device=q.device)
+    bf16 = q.dtype == torch.bfloat16
+    plan = windowed_tile_plan(st.b, st.s, st.h, bf16=bf16,
+                              use_nope=st.use_nope, use_reset=st.use_reset)
     lib = load("windowed_attn", _ARGTYPES)
     rc = lib.windowed_attn_fwd(
         ptr(q), ptr(qn), ptr(k), ptr(kn), ptr(v), ptr(v0), ptr(alibi_f),
-        *map(ptr, ints), ptr(o), ptr(lse), *st.ints(q.dtype == torch.bfloat16),
-        *st.floats(), _stream(q))
+        *map(ptr, ints), ptr(o), ptr(lse), *st.ints(bf16), plan.grid[1],
+        plan.smem_bytes, *st.floats(), _stream(q))
     check_launch("windowed_attn", rc)
     return o, lse
 
@@ -274,4 +347,5 @@ def windowed_attention_bwd_plain(q, k, v, do, dlse=None, **kw):
 
 
 __all__ = ["windowed_attention", "windowed_attention_plain",
-           "windowed_attention_bwd_plain"]
+           "windowed_attention_bwd_plain", "windowed_tile_plan", "TilePlan",
+           "tile_of_block", "kv_band"]

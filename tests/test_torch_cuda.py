@@ -392,3 +392,124 @@ def test_embedding_bag_kernel_propagates_nonfinite_rows(gen):
         torch.testing.assert_close(out, want, atol=1e-5, rtol=0,
                                    equal_nan=True)
         assert bool(torch.isfinite(out[2:]).all())
+
+
+# S, D, Dv, Hk, window, nope, reset, packed, sum_iso, empty: the flags of
+# kernel 1's tensor-core body (ragged S, a window under one kv tile of 32
+# and windows off it, Dv != D, D in {64, 96, 128}, n_rep in {1, 4, 8})
+WINDOWED_CASES = {
+    "reset_nope_empty_row": (150, 64, 64, 2, 40, True, True, False, True, True),
+    "packed_window_under_tile": (190, 64, 48, 1, 20, True, False, True, True, False),
+    "d96_reset_packed_ragged": (333, 96, 96, 8, 100, False, True, True, False, True),
+    "d128_window_past_s": (300, 128, 128, 2, 1024, True, True, True, True, False),
+    "d128_dv64_plain": (257, 128, 64, 8, 64, False, False, False, True, False),
+    "d96_dv128_nope_empty_row": (129, 96, 128, 1, 33, True, False, False, False, True),
+}
+
+
+def windowed_case_operands(gen, case, dtype, B=2, H=8):
+    """Operands of a WINDOWED_CASES entry: row 0 padded in its tail, the
+    last row without a valid key when ``empty``; packed rows hold three
+    prompts whose positions restart; [SUM] rows at random (~12 %)."""
+    S, D, Dv, hk, window, nope, reset, packed, sum_iso, empty = \
+        WINDOWED_CASES[case]
+    r = lambda *sh: torch.randn(sh, generator=gen, device="cuda").to(dtype)
+    pos = torch.arange(S, device="cuda", dtype=torch.int32).repeat(B, 1)
+    seg = torch.zeros(B, S, dtype=torch.int32, device="cuda")
+    if packed:
+        for cut in (S // 4, (2 * S) // 3):
+            seg[:, cut:] += 1
+            pos[:, cut:] = torch.arange(S - cut, device="cuda",
+                                        dtype=torch.int32)
+    valid = torch.ones(B, S, dtype=torch.bool, device="cuda")
+    valid[0, S - 21:] = False
+    if empty:
+        valid[-1] = False
+    is_sum = torch.rand(B, S, generator=gen, device="cuda") < 0.12
+    kw = dict(pos_q=pos, pos_k=pos, window=window, valid_k=valid,
+              sum_isolated=sum_iso, is_sum_q=is_sum, is_sum_k=is_sum)
+    if nope:
+        kw.update(q_nope=r(B, S, H, D), k_nope=r(B, S, hk, D),
+                  alibi=torch.rand(H, generator=gen, device="cuda") * 0.5)
+    if reset:
+        kw.update(v0=r(B, S, hk, Dv), reset=ResetConfig(0.05, 0.3,
+                                                         window / 2))
+    if packed:
+        kw.update(seg_q=seg, seg_k=seg)
+    return r(B, S, H, D), r(B, S, hk, D), r(B, S, hk, Dv), kw
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(WINDOWED_CASES))
+def test_windowed_kernel_flags_match_plain(gen, case, dtype):
+    """Kernel 1 (mma.sync, fp32 through three-term splits) against the
+    plain version in fp32 on the same inputs: o by ``_hold``, lse within
+    TOL (fp32) or 1e-3 (bf16, chip_smoke.py's LSE_TOL); a row without a
+    valid key gives o = 0 and lse = 1e30; one launch per call."""
+    q, k, v, kw = windowed_case_operands(gen, case, dtype)
+    before = kernels.LAUNCHES["windowed_attn"]
+    o, lse = windowed_attention(q, k, v, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["windowed_attn"] == before + 1
+    f32 = lambda x: x.float() if torch.is_tensor(x) and x.is_floating_point() \
+        else x
+    want, lse_w = windowed_attention_plain(
+        f32(q), f32(k), f32(v), **{n: f32(x) for n, x in kw.items()})
+    _hold(o, want)
+    torch.testing.assert_close(lse, lse_w, rtol=0,
+                               atol=TOL if dtype == torch.float32 else 1e-3)
+    if WINDOWED_CASES[case][-1]:
+        assert torch.all(o[-1] == 0) and torch.all(lse[-1] == 1e30)
+
+
+@pytest.mark.parametrize("case", ["reset_nope_empty_row",
+                                  "d128_window_past_s"])
+def test_windowed_kernel_unaligned_rows_give_the_same_bits(gen, case):
+    """bf16 operands whose base is not 16-byte aligned take the path that
+    converts each tile from memory in place of cp.async; it stages the same
+    bf16 values, so o and lse are bit for bit those of aligned copies."""
+    q, k, v, kw = windowed_case_operands(gen, case, torch.bfloat16)
+
+    def shifted(t):
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        out = flat[1:].view(t.shape)
+        out.copy_(t)
+        return out
+    names = [n for n in ("q_nope", "k_nope", "v0") if n in kw]
+    kw2 = dict(kw, **{n: shifted(kw[n]) for n in names})
+    a = windowed_attention(q, k, v, return_lse=True, **kw)
+    b = windowed_attention(shifted(q), shifted(k), shifted(v),
+                           return_lse=True, **kw2)
+    torch.cuda.synchronize()
+    assert shifted(q).data_ptr() % 16 != 0
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+def test_windowed_kernel_refuses_a_plan_it_would_not_make(gen):
+    """The entry point checks the plan the wrapper hands it (q tiles, shared
+    memory) against its own and refuses, without launching, one that
+    differs."""
+    from repro_torch.kernels import load, ptr
+    from repro_torch.kernels import windowed_attn as wa
+    q, k, v, kw = windowed_case_operands(gen, "d128_dv64_plain",
+                                         torch.bfloat16)
+    full = dict(is_sum_q=None, is_sum_k=None, valid_k=None, seg_q=None,
+                seg_k=None, q_nope=None, k_nope=None, alibi=None, v0=None,
+                reset=None, sum_isolated=True, scale=None)
+    full.update(kw)
+    st, live, alibi_f, ints = wa._prepare(q, k, v, **full)
+    plan = wa.windowed_tile_plan(st.b, st.s, st.h, bf16=True,
+                                 use_nope=st.use_nope,
+                                 use_reset=st.use_reset)
+    o = torch.empty(q.shape[:3] + (v.shape[3],), dtype=q.dtype,
+                    device="cuda")
+    lse = torch.empty(st.b, st.h, st.s, device="cuda")
+    lib = load("windowed_attn", wa._ARGTYPES)
+    stream = torch.cuda.current_stream().cuda_stream
+    for n_qb, smem in ((plan.grid[1], plan.smem_bytes + 16),
+                       (plan.grid[1] + 1, plan.smem_bytes)):
+        rc = lib.windowed_attn_fwd(
+            ptr(q), None, ptr(k), None, ptr(v), None, ptr(alibi_f),
+            *map(ptr, ints), ptr(o), ptr(lse), *st.ints(True), n_qb, smem,
+            *st.floats(), stream)
+        assert rc != 0
