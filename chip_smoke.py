@@ -16,8 +16,10 @@ Phases, each fatal on failure:
    windowed-attention forward (kernel 1; 2a runs its flag sweep on bf16
    inputs too, held per row as 2c is); 2b/2c: decode attention
    (kernel 4); 2d: the backward kernels (dq, dk/dv) through the autograd
-   Function, then at the training shape, then cross-segment gradients,
-   which must be exactly 0. 2e: decode attention's int8 mode
+   Function, then at the training shape with [SUM] rows in each row's tail
+   and with [SUM] rows every 7th slot, each case twice (the two calls must
+   give the same bits), then cross-segment gradients, which must be
+   exactly 0. 2e: decode attention's int8 mode
    (``decode_attn_q8``: int8 K/V codes, fp32 scales in one or two groups,
    RoPE and dequantization inside the kernel) over every flag in fp32,
    then at the decode shape with keys at positions up to 2047. 2f: the
@@ -91,7 +93,8 @@ Phases, each fatal on failure:
    beside its plain version and ``scaled_dot_product_attention`` (forward
    or backward, after dequantization and RoPE for the int8 mode; for
    kernel 5 ``F.embedding_bag``: the library yardstick, never used by the
-   port), with CUDA events; kernel 1 also at the training shape, kernel 4
+   port), with CUDA events; kernel 1 also at the training shape, kernels
+   2 and 3 also with [SUM] rows every 7th slot, kernel 4
    in both modes also at the scheduler's smallest bucket (s=16), where
    its split plan cuts the cache into ranges; ``torch.profiler``
    breakdowns of one decode burst step, one prefill call, one train step
@@ -173,10 +176,11 @@ def check_close(name, got, want, tol):
     return err
 
 
-def check_rows(name, got, want, quiet=False, floor=0.0):
+def check_rows(name, got, want, quiet=False, floor=0.0, worst_of=None):
     """Hold a bf16 kernel output against the fp32 plain one, element by
     element, at ROUND_TOL * |want| + ROW_TOL * max|want| over its row
-    (+ ``floor``)."""
+    (+ ``floor``). ``worst_of`` (a dict) keeps the worst err/tol under
+    ``name``'s first word."""
     want = want.float()
     err = (got.float() - want).abs()
     tol = (ROUND_TOL * want.abs()
@@ -184,6 +188,9 @@ def check_rows(name, got, want, quiet=False, floor=0.0):
     bad = int((err > tol).sum())
     worst = (err / tol.clamp_min(1e-30)).max().item()
     max_err = err.max().item()
+    if worst_of is not None:
+        key = name.split()[0]
+        worst_of[key] = max(worst_of.get(key, 0.0), worst)
     if not quiet or bad:
         log(f"  {name}: max|err| {max_err:.3e}, worst err/tol {worst:.3f} "
             f"(tol {ROUND_TOL:g}|o| + {ROW_TOL:g} max|o_row|)")
@@ -456,11 +463,12 @@ def kernel_grads(q, k, v, do, **kw):
         got.get(n) for n in ("q_nope", "k_nope", "v0"))
 
 
-def train_windowed(gen):
+def train_windowed(gen, spread=False):
     """Kernels 2 and 3 at the training shape of phase 7: B=8, S=2048,
-    H=32, Hk=8, D=128, window 1024, NoPE + reset + [SUM] isolation, 20
-    [SUM] rows in each row's tail as streaming prompts place them, and
-    padded tails of 8-60 slots."""
+    H=32, Hk=8, D=128, window 1024, NoPE + reset + [SUM] isolation, padded
+    tails of 8-60 slots, and [SUM] rows as streaming prompts place them, 20
+    in each row's tail; with ``spread``, every 7th slot of the whole row
+    (the dk/dv pass's phase B then revisits every q tile)."""
     o = windowed_operands(gen, B=8, S=2048, H=32, Hk=8, D=128, Dv=128,
                           dtype=torch.bfloat16)
     B, S = o["valid"].shape
@@ -469,12 +477,58 @@ def train_windowed(gen):
     for b in range(B):
         n = S - 8 - 7 * b
         o["valid"][b, n:] = False
-        o["is_sum"][b, n - 1 - 7 * torch.arange(20, device="cuda")] = True
+        if spread:
+            o["is_sum"][b, 6:n:7] = True
+        else:
+            o["is_sum"][b, n - 1 - 7 * torch.arange(20, device="cuda")] = True
     o["do"] = (torch.randn(B, S, 32, 128, generator=gen, device="cuda")
                .to(torch.bfloat16))
     kw = windowed_kwargs(o, window=1024, nope=True, reset=True,
                          packed=False, sum_iso=True)
     return o, kw
+
+
+def hold_train_grads(o, kw, label):
+    """Kernels 2 and 3 on ``train_windowed``'s operands, twice: the two
+    calls must give the same bits, and the gradients are held to the plain
+    version in fp32, row by row, given the kernels' delta (``check_rows``
+    with GRAD_FLOOR). Returns the largest error per stream."""
+    from repro_torch.kernels.windowed_attn import (
+        windowed_attention, windowed_attention_bwd_plain,
+        windowed_attention_plain)
+    got = kernel_grads(o["q"], o["k"], o["v"], o["do"], **kw)
+    again = kernel_grads(o["q"], o["k"], o["v"], o["do"], **kw)
+    with torch.no_grad():
+        o_k = windowed_attention(o["q"], o["k"], o["v"], **kw)
+    torch.cuda.synchronize()
+    for name, g, a in zip(GRADS, got, again):
+        if (g is None) != (a is None) or (g is not None
+                                          and not torch.equal(g, a)):
+            fail(f"{name} [{label}]: two backward calls differ")
+    log(f"  [{label}] two backward calls give the same bits")
+    delta = lambda out, do: (out.float() * do.float()).sum(-1).transpose(1, 2)
+    errs, worst = {}, {}
+    for b in range(o["q"].shape[0]):       # the plain version row by row
+        row = lambda t: (t[b:b + 1].float() if t.is_floating_point()
+                         else t[b:b + 1])
+        kwb = {n: (row(t) if torch.is_tensor(t) and t.dim() >= 2 else t)
+               for n, t in kw.items()}
+        args = (row(o["q"]), row(o["k"]), row(o["v"]))
+        with torch.no_grad():
+            o_p, _ = windowed_attention_plain(*args, **kwb)
+        dlse = delta(o_p, row(o["do"])) - delta(o_k[b:b + 1], o["do"][b:b + 1])
+        want = windowed_attention_bwd_plain(*args, row(o["do"]), dlse=dlse,
+                                            **kwb)
+        for name, g, w in zip(GRADS, got, want):
+            if g is None:
+                continue
+            errs[name] = max(errs.get(name, 0.0), check_rows(
+                f"{name:7s} [{label}] row {b}", g[b:b + 1], w, quiet=True,
+                floor=GRAD_FLOOR * float(w.abs().max()), worst_of=worst))
+    for name in GRADS:
+        log(f"  [{label}] {name}: max|err| over 8 rows {errs[name]:.3e}, "
+            f"worst err/tol {worst[name]:.3f}")
+    return errs
 
 
 def card_leakage(lens, *, window, seed, with_sum, target_seg):
@@ -544,35 +598,13 @@ def check_kernels_bwd():
             if g is not None:
                 check_close(f"{name:7s} [{tag}]", g, w, SMALL_TOL)
 
-    log("phase 2d: training shape, bf16 kernels vs the fp32 plain version")
-    from repro_torch.kernels.windowed_attn import (windowed_attention,
-                                                   windowed_attention_plain)
+    log("phase 2d: training shape, bf16 kernels vs the fp32 plain version; "
+        "[SUM] rows in each row's tail, then every 7th slot")
     o, kw = train_windowed(gen)
-    got = kernel_grads(o["q"], o["k"], o["v"], o["do"], **kw)
-    with torch.no_grad():
-        o_k = windowed_attention(o["q"], o["k"], o["v"], **kw)
-    torch.cuda.synchronize()
-    delta = lambda out, do: (out.float() * do.float()).sum(-1).transpose(1, 2)
-    errs = {}
-    for b in range(o["q"].shape[0]):       # the plain version row by row
-        row = lambda t: (t[b:b + 1].float() if t.is_floating_point()
-                         else t[b:b + 1])
-        kwb = {n: (row(t) if torch.is_tensor(t) and t.dim() >= 2 else t)
-               for n, t in kw.items()}
-        args = (row(o["q"]), row(o["k"]), row(o["v"]))
-        with torch.no_grad():
-            o_p, _ = windowed_attention_plain(*args, **kwb)
-        dlse = delta(o_p, row(o["do"])) - delta(o_k[b:b + 1], o["do"][b:b + 1])
-        want = windowed_attention_bwd_plain(*args, row(o["do"]), dlse=dlse,
-                                            **kwb)
-        for name, g, w in zip(GRADS, got, want):
-            if g is None:
-                continue
-            errs[name] = max(errs.get(name, 0.0), check_rows(
-                f"{name:7s} row {b}", g[b:b + 1], w, quiet=True,
-                floor=GRAD_FLOOR * float(w.abs().max())))
-    for name in GRADS:
-        log(f"  {name}: max|err| over 8 rows {errs[name]:.3e}")
+    errs = hold_train_grads(o, kw, "tail")
+    spread = train_windowed(gen, spread=True)
+    for name, err in hold_train_grads(*spread, "spread").items():
+        errs[name] = max(errs[name], err)
     t0 = time.perf_counter()
     plain_ms = cuda_ms(lambda: windowed_attention_bwd_plain(
         o["q"], o["k"], o["v"], o["do"], **kw), iters=1, warmup=1)
@@ -589,7 +621,7 @@ def check_kernels_bwd():
         if leak != 0.0:
             fail(f"gradient leaks across segments: {leak}")
     return {name: dict(err=max(errs[g] for g in grads), ops=(o, kw),
-                       plain_ms=plain_ms)
+                       spread=spread, plain_ms=plain_ms)
             for name, grads in PASS_GRADS.items()}
 
 
@@ -2019,25 +2051,36 @@ def time_bwd_kernels(bwd):
     import torch.nn.functional as F
     from repro_torch.core.windowed import dti_mask
     from repro_torch.kernels import windowed_attn as wa
+
+    def launches(o, kw):
+        """Each pass on its own, on ``o``'s operands, and its buffers."""
+        q, k, v = o["q"], o["k"], o["v"]
+        fwd_kw = dict(is_sum_q=None, is_sum_k=None, valid_k=None,
+                      seg_q=None, seg_k=None, q_nope=None, k_nope=None,
+                      alibi=None, v0=None, reset=None, sum_isolated=True,
+                      scale=None)
+        fwd_kw.update(kw)
+        st, live, alibi_f, ints = wa._prepare(q, k, v, **fwd_kw)
+        out, lse = wa._fwd(st, q, k, v, live, alibi_f, ints)
+        args = (st, q, k, v, live, alibi_f, ints, lse, wa._delta(out, o["do"]),
+                o["do"])
+        bufs = {"windowed_attn_dq": (torch.empty_like(q), torch.empty_like(q)),
+                "windowed_attn_dkv": (torch.empty_like(k), torch.empty_like(v),
+                                      torch.empty_like(k), torch.empty_like(v))}
+        return {name: (lambda name=name, outs=outs:
+                       wa._bwd_pass(name, *args, outs))
+                for name, outs in bufs.items()}, (st, live, alibi_f, ints, out,
+                                                  lse, bufs)
+
     o, kw = bwd["windowed_attn_dq"]["ops"]
     q, k, v, do = o["q"], o["k"], o["v"], o["do"]
     B, S, H, D = q.shape
     Hk, Dv = k.shape[2], v.shape[3]
-    fwd_kw = dict(is_sum_q=None, is_sum_k=None, valid_k=None, seg_q=None,
-                  seg_k=None, q_nope=None, k_nope=None, alibi=None, v0=None,
-                  reset=None, sum_isolated=True, scale=None)
-    fwd_kw.update(kw)
-    st, live, alibi_f, ints = wa._prepare(q, k, v, **fwd_kw)
-    out, lse = wa._fwd(st, q, k, v, live, alibi_f, ints)
+    calls, (st, live, alibi_f, ints, out, lse, bufs) = launches(o, kw)
     fwd_ms = cuda_ms(lambda: wa._fwd(st, q, k, v, live, alibi_f, ints),
                      iters=10, warmup=2)
     log(f"  windowed_attn at the training shape (NoPE + reset, bf16, "
         f"two launches per layer a step): {fwd_ms:.4f} ms")
-    delta = wa._delta(out, do)
-    args = (st, q, k, v, live, alibi_f, ints, lse, delta, do)
-    bufs = {"windowed_attn_dq": (torch.empty_like(q), torch.empty_like(q)),
-            "windowed_attn_dkv": (torch.empty_like(k), torch.empty_like(v),
-                                  torch.empty_like(k), torch.empty_like(v))}
     mask = dti_mask(o["pos"], o["pos"], window=1024, is_sum_k=o["is_sum"],
                     valid_k=o["valid"])
     pairs = int(mask.sum())
@@ -2047,10 +2090,14 @@ def time_bwd_kernels(bwd):
              "windowed_attn_dkv": pairs * H * 2 * (2 * D + 2 * Dv)}
     res = {}
     for name, outs in bufs.items():
-        ms = cuda_ms(lambda: wa._bwd_pass(name, *args, outs), iters=5,
-                     warmup=1)
+        ms = cuda_ms(calls[name], iters=5, warmup=1)
         res[name] = dict(ms=ms, bytes=ins + _bytes(*outs), flops=flops[name],
                          plain_ms=bwd[name]["plain_ms"])
+    spread, _ = launches(*bwd["windowed_attn_dq"]["spread"])
+    log("  [SUM] rows every 7th slot (phase B revisits every q tile): "
+        + ", ".join(f"{name} {cuda_ms(fn, iters=5, warmup=1):.4f} ms"
+                    for name, fn in spread.items()))
+    del spread
     rep = H // Hk
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in
                   (q, k.repeat_interleave(rep, 2), v.repeat_interleave(rep, 2)))
@@ -2177,7 +2224,7 @@ def profile_call(fn, label):
     events = [e for e in prof.key_averages()
               if e.device_type != DeviceType.CPU and dev(e) > 0]
     busy = sum(dev(e) for e in events) / 1e3
-    top = sorted(events, key=dev, reverse=True)[:8]
+    top = sorted(events, key=dev, reverse=True)[:10]
     log(f"  profile [{label}]: wall {wall:.2f} ms under the profiler, "
         f"device busy {busy:.2f} ms, idle share "
         f"{1 - busy / wall if wall else float('nan'):.3f}; top device time: "

@@ -1,4 +1,4 @@
-"""Windowed DTI attention forward: CUDA kernel wrapper and its plain version.
+"""Windowed DTI attention: the CUDA kernels' wrappers and plain versions.
 
 Replaces the Pallas TPU kernel ``repro.kernels.windowed_attn.windowed_attn``
 (``_kernel``, launched by ``windowed_attention_fwd_bhsd``) with
@@ -30,7 +30,17 @@ raises, for the forward and, when an operand asks for a gradient, for the
 backward: a ``torch.autograd.Function`` pairs kernel 1 with the dq and
 dk/dv kernels of ``csrc/windowed_attn_bwd.cu`` (the reference's
 ``windowed_attn_bwd._dq_kernel`` and ``_dkv_kernel``), which recompute
-``p = exp(s - lse)`` from the saved row logsumexp.
+``p = exp(s - lse)`` from the saved row logsumexp and multiply on tensor
+cores as kernel 1 does (dS, P as hi + lo bf16 pairs). Their cost is
+operations too: 2 (2 Dqk + Dv) FLOPs per attended pair and head for dq,
+2 (2 Dqk + 2 Dv) for dk/dv. ``windowed_bwd_plan`` holds their host side:
+the dq pass is one CTA per (head, q tile of 64 rows, batch row) over the
+forward's kv band (``kv_band``); the dk/dv pass one CTA per (kv tile of
+64 keys, kv head, batch row) over the q tiles of 32 rows of the
+transposed band (``q_band``), for each query head of its group, in two
+phases: dK and dV over the whole band, then dK_nope and dV0 over the q
+tiles that hold a [SUM] row (``sum_tiles``). The wrapper computes
+delta = <do, o> (``_delta``), as the reference does outside its kernels.
 """
 from __future__ import annotations
 
@@ -45,7 +55,7 @@ from repro_torch.core.windowed import ResetConfig, attention_dense
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {"windowed_attn_fwd": [_P] * 16 + [_I] * 14 + [_F] * 4 + [_P]}
-_BWD_ARGTYPES = {fn: [_P] * 21 + [_I] * 12 + [_F] * 4 + [_P]
+_BWD_ARGTYPES = {fn: [_P] * 21 + [_I] * 14 + [_F] * 4 + [_P]
                  for fn in ("windowed_attn_dq", "windowed_attn_dkv")}
 MAX_HEAD_DIM = 128
 # csrc/windowed_attn.cu's tiles: warps per CTA, keys per kv tile, the
@@ -54,6 +64,9 @@ WARPS, BLOCK_K = 4, 32
 PLANE_LD = MAX_HEAD_DIM + 8
 META_WORDS = 4
 SMEM_LIMIT = 232448          # bytes of shared memory one CTA may use (H100)
+# csrc/windowed_attn_bwd.cu's tiles: query rows per q tile of the dk/dv
+# pass, int words per staged query row, q tiles phase B's table holds
+BWD_Q_TILE, Q_META_WORDS, BAND_TABLE = 32, 5, 256
 
 
 class TilePlan(NamedTuple):
@@ -109,6 +122,94 @@ def kv_band(q0: int, s: int, window: int, block_q: int,
     last = min(q0 + block_q, s) - 1
     lo = max(q0 - window, 0) // block_k * block_k
     return lo, min((last // block_k + 1) * block_k, s)
+
+
+class BwdPlan(NamedTuple):
+    """How one pass of kernels 2 and 3 runs: ``grid`` CTAs of ``warps``
+    warps (16 rows each), each owning ``block_rows`` rows (dq: query rows;
+    dk/dv: keys) and walking tiles of ``block_cols`` (dq: keys; dk/dv:
+    query rows) through ``stages`` shared-memory stages of
+    ``stage_bytes`` each; ``smem_bytes`` in all, ``ctas_per_sm`` CTAs on
+    an SM. ``terms`` = bf16 terms of (each operand, P and dS)."""
+    block_rows: int
+    block_cols: int
+    warps: int
+    terms: Tuple[int, int]
+    stages: int
+    stage_bytes: int
+    smem_bytes: int
+    ctas_per_sm: int
+    grid: Tuple[int, int, int]
+
+
+def windowed_bwd_plan(b: int, s: int, h: int, hk: int, *, bf16: bool,
+                      use_nope: bool, use_reset: bool
+                      ) -> Tuple[BwdPlan, BwdPlan]:
+    """The plans ``csrc/windowed_attn_bwd.cu`` launches its dq and dk/dv
+    passes with (its ``DqCfg`` and ``DkvCfg``). bf16: one term for every
+    operand, two for P and dS; fp32: three each, one stage, converted from
+    memory. dq: 4 warps of 16 query rows over kv tiles of ``BLOCK_K`` keys
+    (K, K_nope, V, V0 planes a stage), Q and dO staged once; three stages
+    when only K and V are live, else two. dk/dv: 16 keys a warp (4 warps;
+    2 in fp32) whose K, K_nope, V, V0 are staged once, over q tiles of
+    ``BWD_Q_TILE`` rows (Q and dO planes a stage, and each row's five words
+    of position, [SUM], segment, lse, delta); three stages when at most
+    three key planes are live. bf16 fits two CTAs (8 warps) on an SM."""
+    nt, np_ = (1, 2) if bf16 else (3, 3)
+    planes = nt * (2 + use_nope + use_reset)
+    row = PLANE_LD * 2
+    per_sm = 2 if bf16 else 1
+    bq = 16 * WARPS
+    stages = (3 if planes <= 2 else 2) if bf16 else 1
+    ring = max(stages, 2)
+    smem = ((2 * nt * bq + stages * planes * BLOCK_K) * row
+            + (ring * META_WORDS * BLOCK_K + 5 * bq + bq // 8 + ring) * 4)
+    dq = BwdPlan(bq, BLOCK_K, WARPS, (nt, np_), stages,
+                 planes * BLOCK_K * row, smem, per_sm, (h, -(-s // bq), b))
+    warps = WARPS if bf16 else 2
+    bkv = 16 * warps
+    stages = (3 if planes <= 3 else 2) if bf16 else 1
+    ring = max(stages, 2)
+    smem = ((planes * bkv + stages * 2 * nt * BWD_Q_TILE) * row
+            + (ring * Q_META_WORDS * BWD_Q_TILE + ring + 8 * warps
+               + BAND_TABLE // 4 + BAND_TABLE // 2 + 1) * 4)
+    dkv = BwdPlan(bkv, BWD_Q_TILE, warps, (nt, np_), stages,
+                  2 * nt * BWD_Q_TILE * row, smem, per_sm,
+                  (-(-s // bkv), hk, b))
+    return dq, dkv
+
+
+def dq_block(plan: BwdPlan, x: int, y: int, z: int):
+    """The (batch row, head, first query row) of dq CTA ``(x, y, z)``: q
+    tiles run last first."""
+    return z, x, (plan.grid[1] - 1 - y) * plan.block_rows
+
+
+def dkv_block(plan: BwdPlan, x: int, y: int, z: int):
+    """The (batch row, kv head, first key) of dk/dv CTA ``(x, y, z)``."""
+    return z, y, x * plan.block_rows
+
+
+def q_band(k0: int, s: int, window: int, block_k: int,
+           block_q: int = BWD_Q_TILE) -> Tuple[int, int]:
+    """Query rows ``[lo, hi)`` of the q tiles the dk/dv CTA from key ``k0``
+    walks: whole tiles holding rows ``[k0, k0 + block_k - 1 + window]``,
+    cut at ``s``."""
+    last = min(k0 + block_k - 1 + window, s - 1)
+    return k0 // block_q * block_q, min((last // block_q + 1) * block_q, s)
+
+
+def sum_tiles(is_sum_row, k0: int, s: int, window: int, block_k: int,
+              block_q: int = BWD_Q_TILE):
+    """First rows of the q tiles phase B of the dk/dv CTA from key ``k0``
+    revisits: those of its band holding a [SUM] row (``is_sum_row``, one
+    flag per row of the batch row), as the kernel's table lists them; a
+    band of more than ``BAND_TABLE`` tiles revisits every tile."""
+    lo, hi = q_band(k0, s, window, block_k, block_q)
+    firsts = list(range(lo, hi, block_q))
+    if len(firsts) > BAND_TABLE:
+        return firsts
+    return [q0 for q0 in firsts if any(is_sum_row[q0:q0 + block_q])]
 
 
 def windowed_attention_plain(q, k, v, *, pos_q, pos_k, window: int,
@@ -260,11 +361,17 @@ def _bwd_pass(name, st, q, k, v, live, alibi_f, ints, lse, delta, do, outs):
     ``windowed_attn_dkv`` (outs: dk, dv, dk_nope, dv0) into ``outs``."""
     qn, kn, v0 = live
     outs = (list(outs) + [None] * 4)[:4]
+    bf16 = q.dtype == torch.bfloat16
+    dq_plan, dkv_plan = windowed_bwd_plan(st.b, st.s, st.h, st.hk, bf16=bf16,
+                                          use_nope=st.use_nope,
+                                          use_reset=st.use_reset)
+    plan = dkv_plan if name == "windowed_attn_dkv" else dq_plan
+    n_blocks = plan.grid[0] if plan is dkv_plan else plan.grid[1]
     lib = load("windowed_attn_bwd", _BWD_ARGTYPES)
     rc = getattr(lib, name)(
         ptr(q), ptr(qn), ptr(k), ptr(kn), ptr(v), ptr(v0), ptr(do), ptr(lse),
         ptr(delta), ptr(alibi_f), *map(ptr, ints), *map(ptr, outs),
-        *st.ints(q.dtype == torch.bfloat16), *st.floats(), _stream(q))
+        *st.ints(bf16), n_blocks, plan.smem_bytes, *st.floats(), _stream(q))
     check_launch(name, rc)
 
 
@@ -348,4 +455,5 @@ def windowed_attention_bwd_plain(q, k, v, do, dlse=None, **kw):
 
 __all__ = ["windowed_attention", "windowed_attention_plain",
            "windowed_attention_bwd_plain", "windowed_tile_plan", "TilePlan",
-           "tile_of_block", "kv_band"]
+           "tile_of_block", "kv_band", "windowed_bwd_plan", "BwdPlan",
+           "dq_block", "dkv_block", "q_band", "sum_tiles"]

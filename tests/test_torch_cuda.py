@@ -513,3 +513,138 @@ def test_windowed_kernel_refuses_a_plan_it_would_not_make(gen):
             *map(ptr, ints), ptr(o), ptr(lse), *st.ints(True), n_qb, smem,
             *st.floats(), stream)
         assert rc != 0
+
+
+GRAD_FLOOR = 1e-5    # chip_smoke.py's: of the batch row's largest |gradient|
+
+
+def _kernel_grads(q, k, v, do, kw):
+    """Kernels 2 and 3 through the autograd Function around kernel 1:
+    ``(dq, dk, dv, dq_nope, dk_nope, dv0)``, None for streams not live."""
+    names = [n for n in ("q_nope", "k_nope", "v0") if kw.get(n) is not None]
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    extra = {n: kw[n].detach().requires_grad_(True) for n in names}
+    windowed_attention(*leaves, **dict(kw, **extra)).backward(do)
+    got = {n: extra[n].grad for n in names}
+    return tuple(t.grad for t in leaves) + tuple(
+        got.get(n) for n in ("q_nope", "k_nope", "v0"))
+
+
+def _hold_grad(got, want):
+    """fp32 within TOL; bf16 per element within ROUND_TOL |g| + ROW_TOL
+    max|g| over its row + GRAD_FLOOR max|g| over its batch row
+    (chip_smoke.py's gate for kernels 2 and 3)."""
+    if got.dtype == torch.float32:
+        torch.testing.assert_close(got, want.float(), atol=TOL, rtol=0)
+        return
+    want = want.float()
+    floor = want.abs().flatten(1).amax(1).view(-1, *[1] * (want.dim() - 1))
+    tol = (ROUND_TOL * want.abs()
+           + ROW_TOL * want.abs().amax(-1, keepdim=True) + GRAD_FLOOR * floor)
+    assert bool(((got.float() - want).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(WINDOWED_CASES))
+def test_windowed_backward_flags_match_plain(gen, case, dtype):
+    """Kernels 2 (dq) and 3 (dk/dv) on tensor cores over kernel 1's flag
+    cases, [SUM] rows spread through every row (~12 %, so the masked
+    fragments and phase B of the dk/dv pass run in many tiles), against
+    the plain version in fp32 on the same inputs given the kernels' delta
+    (``windowed_attention_bwd_plain``'s ``dlse``); one launch of each a
+    call, and a second call gives the same bits."""
+    q, k, v, kw = windowed_case_operands(gen, case, dtype)
+    do = torch.randn(q.shape[:3] + (v.shape[3],), generator=gen,
+                     device="cuda").to(dtype)
+    before = dict(kernels.LAUNCHES)
+    got = _kernel_grads(q, k, v, do, kw)
+    again = _kernel_grads(q, k, v, do, kw)
+    with torch.no_grad():
+        o_k = windowed_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    for name in ("windowed_attn_dq", "windowed_attn_dkv"):
+        assert kernels.LAUNCHES[name] == before[name] + 2, name
+    for g, a in zip(got, again):
+        assert (g is None) == (a is None)
+        assert g is None or torch.equal(g, a)
+    f32 = lambda x: x.float() if torch.is_tensor(x) and x.is_floating_point() \
+        else x
+    kw32 = {n: f32(x) for n, x in kw.items()}
+    delta = lambda o: (o.float() * do.float()).sum(-1).transpose(1, 2)
+    with torch.no_grad():
+        o_p, _ = windowed_attention_plain(f32(q), f32(k), f32(v), **kw32)
+    want = windowed_attention_bwd_plain(f32(q), f32(k), f32(v), f32(do),
+                                        dlse=delta(o_p) - delta(o_k), **kw32)
+    for g, w in zip(got, want):
+        assert (g is None) == (w is None)
+        if g is not None:
+            assert g.dtype == dtype
+            _hold_grad(g, w)
+
+
+@pytest.mark.parametrize("case", ["reset_nope_empty_row",
+                                  "d128_window_past_s"])
+def test_windowed_backward_unaligned_rows_give_the_same_bits(gen, case):
+    """bf16 operands whose base is not 16-byte aligned take the path that
+    converts each tile from memory in place of cp.async; it stages the
+    same bf16 values, so every gradient is bit for bit that of aligned
+    copies."""
+    q, k, v, kw = windowed_case_operands(gen, case, torch.bfloat16)
+    do = torch.randn(q.shape[:3] + (v.shape[3],), generator=gen,
+                     device="cuda").to(torch.bfloat16)
+
+    def shifted(t):
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        out = flat[1:].view(t.shape)
+        out.copy_(t)
+        return out
+    names = [n for n in ("q_nope", "k_nope", "v0") if n in kw]
+    kw2 = dict(kw, **{n: shifted(kw[n]) for n in names})
+    a = _kernel_grads(q, k, v, do, kw)
+    b = _kernel_grads(shifted(q), shifted(k), shifted(v), shifted(do), kw2)
+    torch.cuda.synchronize()
+    assert shifted(q).data_ptr() % 16 != 0
+    for x, y in zip(a, b):
+        assert (x is None) == (y is None)
+        assert x is None or torch.equal(x, y)
+
+
+@pytest.mark.parametrize("name", ["windowed_attn_dq", "windowed_attn_dkv"])
+def test_windowed_backward_refuses_a_plan_it_would_not_make(gen, name):
+    """Each backward entry point checks the plan the wrapper hands it
+    (tiles of the grid, shared memory) against its own and refuses,
+    without launching, one that differs."""
+    from repro_torch.kernels import load, ptr
+    from repro_torch.kernels import windowed_attn as wa
+    q, k, v, kw = windowed_case_operands(gen, "reset_nope_empty_row",
+                                         torch.bfloat16)
+    full = dict(is_sum_q=None, is_sum_k=None, valid_k=None, seg_q=None,
+                seg_k=None, q_nope=None, k_nope=None, alibi=None, v0=None,
+                reset=None, sum_isolated=True, scale=None)
+    full.update(kw)
+    st, live, alibi_f, ints = wa._prepare(q, k, v, **full)
+    out, lse = wa._fwd(st, q, k, v, live, alibi_f, ints)
+    do = torch.randn_like(out)
+    delta = wa._delta(out, do)
+    plans = wa.windowed_bwd_plan(st.b, st.s, st.h, st.hk, bf16=True,
+                                 use_nope=st.use_nope,
+                                 use_reset=st.use_reset)
+    dkv = name == "windowed_attn_dkv"
+    plan = plans[1] if dkv else plans[0]
+    n = plan.grid[0] if dkv else plan.grid[1]
+    outs = ([torch.empty_like(k), torch.empty_like(v), torch.empty_like(k),
+             torch.empty_like(v)] if dkv else
+            [torch.empty_like(q), torch.empty_like(q), None, None])
+    lib = load("windowed_attn_bwd", wa._BWD_ARGTYPES)
+    stream = torch.cuda.current_stream().cuda_stream
+    qn, kn, v0 = live
+    before = dict(kernels.LAUNCHES)
+    for n_blocks, smem in ((n, plan.smem_bytes + 16), (n + 1, plan.smem_bytes),
+                           (n, plans[0 if dkv else 1].smem_bytes)):
+        rc = getattr(lib, name)(
+            ptr(q), ptr(qn), ptr(k), ptr(kn), ptr(v), ptr(v0), ptr(do),
+            ptr(lse), ptr(delta), ptr(alibi_f), *map(ptr, ints),
+            *map(ptr, outs), *st.ints(True), n_blocks, smem, *st.floats(),
+            stream)
+        assert rc != 0
+    assert kernels.LAUNCHES == before
