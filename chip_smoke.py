@@ -25,13 +25,17 @@ Phases, each fatal on failure:
    then at the decode shape with keys at positions up to 2047. 2f: the
    embedding bag (kernel 5, ``embedding_bag`` on fp32/bf16 tables and
    ``embedding_bag_q8`` on int8 codes with per-row scales) over
-   ``tests/test_kernels.py``'s grid and the recsys row widths (10, 18, 50,
-   64), sum, mean and weighted, with masked out-of-range ids and an
-   all-invalid bag (fp32 and int8 within 1e-5, bf16 within 2^-8 |x| +
-   1e-6); then its op path, with the counts reset before it and read
-   after it, at the real shapes: DIN's FULL item table (2^26 x 18, fp32
-   and its int8 codes) with 65,536 bags of 100 slots and MIND's (2^24 x
-   64) with 512, sum and mean, each held to the plain version within 1e-5.
+   ``tests/test_kernels.py``'s grid, the recsys row widths (10, 18, 50,
+   64) and widths 1, 17 and 33, on the table and on its view ``[1:]``
+   (int8: ``codes[1:]`` with ``scale[1:]``), so that every vector width
+   and lane grouping of ``bag_plan`` runs, sum, mean and weighted, with
+   masked out-of-range ids and an all-invalid bag (fp32 and int8 within
+   1e-5, bf16 within 2^-8 |x| + 1e-6); then its op path, with the counts
+   reset before it and read after it, at the real shapes: DIN's FULL item
+   table (2^26 x 18, fp32 and its int8 codes) with 65,536 bags of 100
+   slots and MIND's (2^24 x 64) with 512, sum and mean, each held to the
+   plain version within 1e-5; then two calls at DIN's shape in each of
+   fp32, bf16 and int8 must give the same bits.
 11. recsys — DIN, MIND, SASRec and xDeepFM in fp32 before the dti-llama
    weights are loaded: (a) FULL widths with tables cut to 2^20 rows
    (xDeepFM: each field to min(v, 2^16)), the card against the CPU on the
@@ -96,7 +100,10 @@ Phases, each fatal on failure:
    port), with CUDA events; kernel 1 also at the training shape, kernels
    2 and 3 also with [SUM] rows every 7th slot, kernel 4
    in both modes also at the scheduler's smallest bucket (s=16), where
-   its split plan cuts the cache into ranges; ``torch.profiler``
+   its split plan cuts the cache into ranges, kernel 5 (timed in phase
+   2f) also on DIN's bf16 table and at MIND's shape in both modes (queued
+   behind a sleep, so that host launch time does not count), beside its
+   32-byte sector floor; ``torch.profiler``
    breakdowns of one decode burst step, one prefill call, one train step
    and the 9a and 9b scheduler runs.
 
@@ -1601,11 +1608,15 @@ def check_bf16_bag(name, got, want):
 
 def check_kernels_bag(kernels):
     """Kernel 5 in both modes: small shapes in fp32, bf16 and int8 over
-    ``tests/test_kernels.py``'s grid and the recsys row widths, then the op
-    path at the real shapes, with the counts reset before it and read
-    after it. Returns the op path's launches, the real shapes' errors and
+    ``tests/test_kernels.py``'s grid, the recsys row widths and widths 1,
+    17 and 33, each on the table and on its view ``[1:]`` (every vector
+    width and lane grouping ``bag_plan`` can choose), then the op path at
+    the real shapes, with the counts reset before it and read after it,
+    then two calls in each mode at DIN's shape, which must give the same
+    bits. Returns the op path's launches, the real shapes' errors and
     phase 6's times."""
     from repro_torch.core.quant import dequantize_q8, quantize_q8
+    from repro_torch.kernels import embedding_bag as eb
     from repro_torch.kernels.embedding_bag import (bag_weights, embedding_bag,
                                                    embedding_bag_plain)
     from repro_torch.sparse.embedding import init_table
@@ -1614,32 +1625,39 @@ def check_kernels_bag(kernels):
     log("phase 2f: embedding_bag vs plain, small shapes (fp32, bf16, int8)")
     grid = [(64, 8, 4, 3), (512, 32, 16, 8), (1000, 128, 8, 20),
             (37, 16, 5, 7), (300, 10, 9, 20), (300, 18, 9, 20),
-            (300, 50, 6, 12), (300, 64, 6, 12), (300, 200, 3, 33)]
+            (300, 50, 6, 12), (300, 64, 6, 12), (300, 200, 3, 33),
+            (300, 1, 7, 40), (300, 17, 5, 37), (300, 33, 4, 21)]
     for V, D, B, H in grid:
-        table = torch.randn(V, D, generator=gen, device="cuda")
-        ids, valid = bag_operands(gen, table, B, H)
+        # V + 1 rows: the table is its first V, the offset view its last V
+        full = torch.randn(V + 1, D, generator=gen, device="cuda")
+        ids, valid = bag_operands(gen, full[:V], B, H)
         weights = torch.randn(B, H, generator=gen, device="cuda")
-        codes, scale = quantize_q8(table)
-        deq = dequantize_q8(codes, scale)
-        for mode, wts in (("sum", None), ("mean", None), ("sum", weights)):
-            tag = (f"V{V} D{D} B{B} H{H} {mode}"
-                   + (" weighted" if wts is not None else ""))
-            w = bag_weights(ids, valid, mode=mode, weights=wts)
-            got = embedding_bag(table, ids, valid, mode=mode, weights=wts)
-            torch.cuda.synchronize()
-            check_close(f"fp32 [{tag}]", got,
-                        embedding_bag_plain(table, ids, w), BAG_TOL)
-            if not (got[0] == 0).all():
-                fail("an all-invalid bag did not give 0")
-            got = embedding_bag(table.bfloat16(), ids, valid, mode=mode,
-                                weights=wts)
-            check_bf16_bag(f"bf16 [{tag}]", got, embedding_bag_plain(
-                table.bfloat16(), ids, w))
-            got = embedding_bag(codes, ids, valid, mode=mode, weights=wts,
-                                table_scale=scale)
-            torch.cuda.synchronize()
-            check_close(f"int8 [{tag}]", got,
-                        embedding_bag_plain(deq, ids, w), BAG_TOL)
+        fcodes, fscale = quantize_q8(full)
+        fhalf = full.bfloat16()
+        for view, sl in (("", slice(0, V)), (" [1:]", slice(1, V + 1))):
+            table, half = full[sl], fhalf[sl]
+            codes, scale = fcodes[sl], fscale[sl]
+            deq = dequantize_q8(codes, scale)
+            for mode, wts in (("sum", None), ("mean", None),
+                              ("sum", weights)):
+                tag = (f"V{V} D{D} B{B} H{H} {mode}"
+                       + (" weighted" if wts is not None else "") + view)
+                w = bag_weights(ids, valid, mode=mode, weights=wts)
+                got = embedding_bag(table, ids, valid, mode=mode,
+                                    weights=wts)
+                torch.cuda.synchronize()
+                check_close(f"fp32 [{tag}]", got,
+                            embedding_bag_plain(table, ids, w), BAG_TOL)
+                if not (got[0] == 0).all():
+                    fail("an all-invalid bag did not give 0")
+                got = embedding_bag(half, ids, valid, mode=mode, weights=wts)
+                check_bf16_bag(f"bf16 [{tag}]", got,
+                               embedding_bag_plain(half, ids, w))
+                got = embedding_bag(codes, ids, valid, mode=mode,
+                                    weights=wts, table_scale=scale)
+                torch.cuda.synchronize()
+                check_close(f"int8 [{tag}]", got,
+                            embedding_bag_plain(deq, ids, w), BAG_TOL)
 
     log(f"phase 2f: the op path at the real shapes: DIN's FULL item table "
         f"(2^26 x 18, fp32 and int8 codes) with {DIN_BAGS} bags of "
@@ -1673,51 +1691,133 @@ def check_kernels_bag(kernels):
                 f"{tag} {mode} B{i.shape[0]} H{i.shape[1]}",
                 outs[2 * k + j], want, BAG_TOL))
         del ref
-    del outs, mind, mind_ids, mind_valid
-    times = time_bag(din, codes, scale, din_ids, din_valid)
+    del outs
+    din_bf16 = din.bfloat16()
+    w = bag_weights(din_ids, din_valid)
+    for tag, t, s in (("fp32", din, None), ("bf16", din_bf16, None),
+                      ("int8", codes, scale)):
+        a = eb._launch(t, din_ids, w, s)
+        b = eb._launch(t, din_ids, w, s)
+        torch.cuda.synchronize()
+        if not torch.equal(a, b):
+            fail(f"two calls at DIN's shape ({tag}) differ")
+        log(f"  two calls at DIN's shape, {tag}: {a.numel()} values equal "
+            f"bit for bit")
+        del a, b
+    times = time_bag(
+        (din_ids, din_valid, {"fp32": (din, None), "bf16": (din_bf16, None),
+                              "int8": (codes, scale)}),
+        (mind_ids, mind_valid, {"fp32": (mind, None),
+                                "int8": quantize_q8(mind)}))
+    del mind, din_bf16
     return dict(launches=launches, errs=errs, times=times)
 
 
-def time_bag(table, codes, scale, ids, valid):
-    """Kernel 5 at DIN's real shape, both modes (sum, the valid mask as
-    weights), beside its plain version and ``F.embedding_bag(...,
-    mode="sum", per_sample_weights=w)`` (the library yardstick, never
-    called by the port; it asserts on the masked slots' out-of-range ids,
-    so it is handed them clamped, outside the timed call; for int8 codes
-    it is handed the codes widened to fp32 and the scales folded into the
-    weights, as a PyTorch user must).
-    The bound counts what these inputs need: each distinct row of a slot
-    once, masked and zero-weight slots too (the kernel adds row * w for
-    every slot, as the reference does; masked ids are clamped, so most of
-    them land on the table's first or last row), its int8 scale, the ids
-    and weights, the fp32 output; 2 D fp32 operations per slot at 67
-    TFLOP/s."""
+def bag_costs(table, scale, ids, w):
+    """What a call at these inputs must move. ``bytes``: each distinct row
+    of a slot (clamped ids) once, masked and zero-weight slots too (the
+    kernel adds row * w for every slot, as the reference does; masked ids
+    are clamped, so most of them land on the table's first or last row),
+    its int8 scale, the ids and weights, the fp32 output. ``floor``: the
+    same with each row and scale counted as the 32-byte sectors it spans
+    (the sector floor). ``lines``: the 128-byte lines fetched at random
+    places, those each distinct row spans plus, in int8, one scale line
+    per distinct row (a scale line's next use mostly comes after L2 has
+    let it go: DIN's scales are 268 MB)."""
+    V, D = table.shape
+    rb = D * table.element_size()
+    rows = torch.unique(ids.long().clamp(0, V - 1))
+    n = int(rows.numel())
+    first, last = rows * rb, rows * rb + rb - 1
+    sectors = int((last // 32 - first // 32 + 1).sum())
+    lines = int((last // 128 - first // 128 + 1).sum())
+    side = ids.numel() * 4 + w.numel() * 4 + ids.shape[0] * D * 4
+    nbytes = n * rb + side
+    if scale is not None:
+        sectors += int(torch.unique(rows * 4 // 32).numel())
+        lines += n
+        nbytes += n * 4
+    return dict(rows=n, slots=int(ids.numel()), bytes=nbytes,
+                floor=sectors * 32 + side, lines=lines)
+
+
+def log_bag(shape, name, ms, c, more=""):
+    B, H = c["shape"]
+    log(f"  kernel 5 at {shape}'s shape ({name}, B{B} H{H} D{c['D']}): "
+        f"{ms:.4f} ms{more}; byte bound "
+        f"{c['bytes'] / HBM_BYTES_PER_S * 1e3:.4f} ms "
+        f"({c['bytes'] / 1e6:.1f} MB), 32-byte sector floor "
+        f"{c['floor'] / HBM_BYTES_PER_S * 1e3:.4f} ms "
+        f"({c['floor'] / 1e6:.1f} MB); {c['rows']} distinct rows, "
+        f"{c['lines']} 128-byte line fetches, "
+        f"{c['lines'] / ms / 1e6:.2f} G lines/s")
+
+
+def cuda_ms_queued(fn, iters=20, warmup=3):
+    """Device time per call of a short kernel: the launches are queued
+    behind a sleep on the stream, so the host's launch time is hidden."""
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(10_000_000)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def time_bag(din, mind):
+    """Kernel 5 at DIN's real shape (sum, the valid mask as weights) on
+    the fp32 table, its bf16 copy and its int8 codes, beside its plain
+    version and ``F.embedding_bag(..., mode="sum", per_sample_weights=w)``
+    (the library yardstick, never called by the port; it asserts on the
+    masked slots' out-of-range ids, so it is handed them clamped, outside
+    the timed call; for int8 codes it is handed the codes widened to fp32
+    and the scales folded into the weights, as a PyTorch user must); then
+    at MIND's shape in fp32 and int8, queued. Each beside ``bag_costs``
+    (bound: its bytes at 3.35 TB/s, or 2 D fp32 operations per slot at
+    67 TFLOP/s). ``din`` and ``mind``: (ids, valid, {mode: (table,
+    scale)}). Returns the fp32 and int8 rows at DIN's shape."""
     import torch.nn.functional as F
     from repro_torch.kernels import embedding_bag as eb
+    ids, valid, tables = din
     w = eb.bag_weights(ids, valid)
-    ids_c = ids.clamp(0, table.shape[0] - 1)
-    rows, slots = int(torch.unique(ids_c).numel()), int(ids_c.numel())
-    B, H = ids.shape
-    D = table.shape[1]
-    side = ids.numel() * 4 + w.numel() * 4 + B * D * 4
+    ids_c = ids.clamp(0, tables["fp32"][0].shape[0] - 1)
     res = {}
-    for name, t, s in (("embedding_bag", table, None),
-                       ("embedding_bag_q8", codes, scale)):
+    for mode, (t, s) in tables.items():
+        c = dict(bag_costs(t, s, ids, w), shape=ids.shape, D=t.shape[1])
         ms = cuda_ms(lambda: eb._launch(t, ids, w, s), iters=20)
         plain = cuda_ms(lambda: eb.embedding_bag_plain(t, ids, w, s),
                         iters=5, warmup=1)
         if s is None:
             lib = cuda_ms(lambda: F.embedding_bag(
-                ids_c, t, mode="sum", per_sample_weights=w), iters=20)
+                ids_c, t, mode="sum", per_sample_weights=w.to(t.dtype)),
+                iters=20)
         else:
             lib = cuda_ms(lambda: F.embedding_bag(
                 ids_c, t.float(), mode="sum",
                 per_sample_weights=w * s[ids_c]), iters=5, warmup=1)
-        nbytes = rows * D * t.element_size() + (rows * 4 if s is not None
-                                                else 0) + side
-        res[name] = dict(ms=ms, plain_ms=plain, library_ms=lib, bytes=nbytes,
-                         flops=2 * D * slots, peak=FP32_FLOPS,
-                         keys=(rows, slots))
+        log_bag("DIN", mode, ms, c, f", plain {plain:.4f} ms, library "
+                f"{lib:.4f} ms")
+        name = {"fp32": "embedding_bag", "int8": "embedding_bag_q8"}.get(mode)
+        if name:
+            res[name] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                             bytes=c["bytes"], flops=2 * c["D"] * c["slots"],
+                             peak=FP32_FLOPS, keys=(c["rows"], c["slots"]),
+                             floor=c["floor"])
+    ids, valid, tables = mind
+    w = eb.bag_weights(ids, valid)
+    for mode, (t, s) in tables.items():
+        c = dict(bag_costs(t, s, ids, w), shape=ids.shape, D=t.shape[1])
+        plan = eb.bag_plan(*ids.shape, t.shape[1], t.element_size(),
+                           t.data_ptr(), torch.cuda.get_device_properties(0)
+                           .multi_processor_count)
+        log_bag("MIND", mode, cuda_ms_queued(lambda: eb._launch(t, ids, w, s)),
+                c, f" (queued; {plan})")
     return res
 
 
@@ -2378,7 +2478,9 @@ def main() -> int:
                    bound_by="bytes" if t_bytes >= t_ops else "operations",
                    library_ms=t["library_ms"])
         if name.startswith("embedding_bag"):
-            what = (f"; distinct rows read, slots summed: {t['keys']}")
+            what = (f"; distinct rows read, slots summed: {t['keys']}; "
+                    f"32-byte sector floor "
+                    f"{t['floor'] / HBM_BYTES_PER_S * 1e3:.4f} ms")
         elif isinstance(t.get("keys"), tuple):
             what = (f"; keys read per (row, kv head), summed over rows, for "
                     f"K/K_nope/V: {t['keys']}")

@@ -119,6 +119,19 @@ def ptr(t):
     return None if t is None else t.data_ptr()
 
 
+_SM_COUNT: Dict[int, int] = {}
+
+
+def sm_count(device: torch.device) -> int:
+    """The SM count of a CUDA device (cached)."""
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if idx not in _SM_COUNT:
+        _SM_COUNT[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return _SM_COUNT[idx]
+
+
 def check_launch(name: str, rc: int) -> None:
     """Raise on a refused or failed launch, else count it."""
     if rc != 0:
@@ -128,4 +141,4 @@ def check_launch(name: str, rc: int) -> None:
 
 __all__ = ["CSRC", "BUILD_DIR", "SOURCES", "KERNELS", "LAUNCHES",
            "reset_launches", "library_path", "build", "load", "as_i32", "ptr",
-           "check_launch"]
+           "sm_count", "check_launch"]

@@ -36,11 +36,11 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict, NamedTuple, Optional
+from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch.kernels import as_i32, check_launch, load, ptr
+from repro_torch.kernels import as_i32, check_launch, load, ptr, sm_count
 from repro_torch.core.windowed import NEG_INF, _repeat_kv
 from repro_torch.models.layers import apply_rope, rope_freqs
 
@@ -91,18 +91,6 @@ def split_workspace(plan: SplitPlan, device) -> Optional[torch.Tensor]:
     if not plan.workspace:
         return None
     return torch.empty(plan.workspace, dtype=torch.float32, device=device)
-
-
-_SM_COUNT: Dict[int, int] = {}
-
-
-def _sm_count(device: torch.device) -> int:
-    idx = device.index if device.index is not None else \
-        torch.cuda.current_device()
-    if idx not in _SM_COUNT:
-        _SM_COUNT[idx] = torch.cuda.get_device_properties(
-            idx).multi_processor_count
-    return _SM_COUNT[idx]
 
 
 def _decode_mask(pos_k, pos_q, window: int, seg_q=None, seg_k=None):
@@ -243,7 +231,7 @@ def decode_attention(q, k, v, pos_q, pos_k, *, window: int, is_sum_q=None,
     ints = [as_i32(pos_q), as_i32(pos_k),
             is_sum_q.to(torch.bool).contiguous() if use_nope else None,
             on(seg_q, use_seg), on(seg_k, use_seg)]
-    plan = decode_split_plan(b, s, h, hk, cap, _sm_count(q.device), dv)
+    plan = decode_split_plan(b, s, h, hk, cap, sm_count(q.device), dv)
     ws = split_workspace(plan, q.device)
     split = (plan.n_rb, plan.n_split, plan.span)
     stream = torch.cuda.current_stream(q.device).cuda_stream

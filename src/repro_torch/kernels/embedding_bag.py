@@ -15,21 +15,104 @@ is made. The kernel sums in fp32; the result is cast to the table's dtype
 (fp32 for int8), as the reference's op casts it. Forward only: the
 reference's kernel has no gradient.
 
+The kernel's work is cut by ``bag_plan``: a warp owns a bag (with few
+bags, a block of warps shares each); ``vec``-byte loads, ``lanes_per_row``
+lanes a row, several rows a warp step, ``steps`` steps of rows in flight,
+warps per block chosen to fill the card. The C entry points derive the
+same plan and refuse one that differs.
+
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import as_i32, check_launch, load, ptr
+from repro_torch.kernels import as_i32, check_launch, load, ptr, sm_count
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = {"embedding_bag_fwd": [_P] * 4 + [_I] * 5 + [_P],
-             "embedding_bag_q8_fwd": [_P] * 5 + [_I] * 4 + [_P]}
+_ARGTYPES = {"embedding_bag_fwd": [_P] * 4 + [_I] * 11 + [_P],
+             "embedding_bag_q8_fwd": [_P] * 5 + [_I] * 10 + [_P]}
+MAX_VEC = 16        # bytes a lane loads at once, at most
+STEPS = 8           # most warp steps of rows in flight (STEPS in the .cu)
+MAX_WARPS = 8       # warps (bags) per block (MAX_WARPS there)
+BLOCKS_PER_SM = 2   # the grid's aim where the bags allow it
+SPLIT_WARPS_PER_SM = 16  # with fewer bags than this, split each over warps
+
+
+class BagPlan(NamedTuple):
+    """How one call's work is cut. A lane loads ``vec`` bytes of a row;
+    ``lanes_per_row`` lanes (a group) cover ``col_chunks`` equal column
+    chunks of it, one per grid row; a warp step loads ``rows_per_step``
+    slots' rows, one per group; a round holds ``steps`` steps, whose rows
+    are all in flight before any is summed. With ``split`` 1 a warp owns a
+    bag, ``warps`` bags a block; else a block of ``warps = split`` warps
+    owns a bag, warp k taking rounds k, k + split, ... and the warps' sums
+    added in order. ``blocks`` blocks a column chunk. ``align`` is the
+    table pointer's alignment in bytes (up to 16)."""
+    vec: int
+    lanes_per_row: int
+    rows_per_step: int
+    steps: int
+    col_chunks: int
+    split: int
+    warps: int
+    blocks: int
+    align: int
+
+
+def bag_plan(b: int, h: int, d: int, esize: int, addr: int,
+             n_sm: int) -> BagPlan:
+    """The plan for ``b`` bags of ``h`` slots over a (V, ``d``) table of
+    ``esize``-byte values at device address ``addr``, as
+    ``csrc/embedding_bag.cu`` makes it: the widest vector that divides
+    both the row's bytes and the pointer's alignment; the fewest column
+    chunks of at most 32 lanes, balanced; up to ``STEPS`` steps a round
+    and at most 32 slots; each bag split over the most warps (up to
+    ``MAX_WARPS``, at most one a round) that keep the warps under
+    ``SPLIT_WARPS_PER_SM * n_sm``; unsplit, the most warps a block that
+    still leave ``BLOCKS_PER_SM * n_sm`` blocks."""
+    align = MAX_VEC
+    while align > 1 and addr % align:
+        align //= 2
+    row = d * esize
+    vec = MAX_VEC
+    while vec > 1 and (row % vec or align % vec):
+        vec //= 2
+    lanes = row // vec
+    col_chunks = -(-lanes // 32)
+    lanes_per_row = -(-lanes // col_chunks)
+    rows_per_step = 32 // lanes_per_row
+    steps = min(STEPS, 32 // rows_per_step)
+    rounds = -(-h // (rows_per_step * steps))
+    split = 1
+    while (2 * split <= min(MAX_WARPS, rounds)
+           and b * col_chunks * 2 * split <= SPLIT_WARPS_PER_SM * n_sm):
+        split *= 2
+    if split > 1:
+        return BagPlan(vec, lanes_per_row, rows_per_step, steps, col_chunks,
+                       split, split, b, align)
+    warps = MAX_WARPS
+    while warps > 1 and -(-b // warps) * col_chunks < BLOCKS_PER_SM * n_sm:
+        warps //= 2
+    return BagPlan(vec, lanes_per_row, rows_per_step, steps, col_chunks, 1,
+                   warps, -(-b // warps), align)
+
+
+def lane_columns(plan: BagPlan, d: int, esize: int, chunk: int,
+                 lane: int) -> Tuple[int, range]:
+    """The group (slot of a step) of ``lane`` in column chunk ``chunk`` and
+    the columns it loads and sums, as the kernel computes them; groups
+    past ``rows_per_step`` and lanes past the row's end load nothing."""
+    per = plan.vec // esize
+    g = lane // plan.lanes_per_row
+    col = (chunk * plan.lanes_per_row + lane - g * plan.lanes_per_row) * per
+    if g >= plan.rows_per_step or col >= d:
+        return g, range(0)
+    return g, range(col, col + per)
 
 
 def bag_weights(ids: torch.Tensor, valid: Optional[torch.Tensor] = None, *,
@@ -85,16 +168,22 @@ def _launch(table, ids, w, table_scale) -> torch.Tensor:
     ids32, w32 = as_i32(ids), w.float().contiguous()
     out = torch.empty((b, d), dtype=torch.float32, device=table.device)
     stream = torch.cuda.current_stream(table.device).cuda_stream
+    plan = bag_plan(b, h, d, table.element_size(), table.data_ptr(),
+                    sm_count(table.device))
+    args = (plan.vec, plan.lanes_per_row, plan.steps, plan.split, plan.warps,
+            plan.align)
     lib = load("embedding_bag", _ARGTYPES)
     if quant:
         scale = table_scale.float().contiguous()
         rc = lib.embedding_bag_q8_fwd(ptr(table), ptr(scale), ptr(ids32),
-                                      ptr(w32), ptr(out), b, h, v, d, stream)
+                                      ptr(w32), ptr(out), b, h, v, d, *args,
+                                      stream)
         check_launch("embedding_bag_q8", rc)
     else:
         rc = lib.embedding_bag_fwd(ptr(table), ptr(ids32), ptr(w32),
                                    ptr(out), b, h, v, d,
-                                   int(table.dtype == torch.bfloat16), stream)
+                                   int(table.dtype == torch.bfloat16), *args,
+                                   stream)
         check_launch("embedding_bag", rc)
     return out
 
@@ -127,4 +216,5 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
     return out.to(out_dtype)
 
 
-__all__ = ["bag_weights", "embedding_bag", "embedding_bag_plain"]
+__all__ = ["BagPlan", "bag_plan", "bag_weights", "embedding_bag",
+           "embedding_bag_plain", "lane_columns"]

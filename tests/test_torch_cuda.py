@@ -648,3 +648,116 @@ def test_windowed_backward_refuses_a_plan_it_would_not_make(gen, name):
             stream)
         assert rc != 0
     assert kernels.LAUNCHES == before
+
+
+def _bag_case(gen, V, D, B, H, view):
+    """A (V + 1, D) table and its int8 codes; the table is its first V
+    rows, or with ``view`` its last V (a contiguous view whose pointer
+    lies D values past the allocation's, so ``bag_plan`` picks a narrower
+    vector for most D). Masked slots hold out-of-range ids; bag 0 is all
+    invalid."""
+    from repro_torch.core.quant import quantize_q8
+    full = torch.randn(V + 1, D, generator=gen, device="cuda")
+    codes, scale = quantize_q8(full)
+    sl = slice(1, V + 1) if view else slice(0, V)
+    ids = torch.randint(0, V, (B, H), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    valid = torch.rand(B, H, generator=gen, device="cuda") < 0.8
+    valid[0] = False
+    junk = torch.randint(-2 * V, 3 * V, (B, H), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    weights = torch.randn(B, H, generator=gen, device="cuda")
+    return (full[sl], full.bfloat16()[sl], codes[sl], scale[sl],
+            torch.where(valid, ids, junk), valid, weights)
+
+
+@pytest.mark.parametrize("view", [False, True])
+@pytest.mark.parametrize("D", [1, 10, 17, 18, 33, 50, 64, 128, 200])
+def test_embedding_bag_kernel_widths_and_views_match_plain(gen, D, view):
+    """Every vector width and lane grouping of ``bag_plan`` in the three
+    modes, on the table and on its view ``[1:]``: bags whose H is not a
+    multiple of the rows a step loads, a single bag of a single slot, and
+    few bags of many slots (each split over warps; weighted means, as a
+    long history is pooled, so that sums stay of order 1 for the absolute
+    tolerance). fp32 and int8 within 1e-5, bf16 within 2^-8 |x| + 1e-6 of
+    the plain version."""
+    from repro_torch.core.quant import dequantize_q8
+    from repro_torch.kernels.embedding_bag import (bag_weights, embedding_bag,
+                                                   embedding_bag_plain)
+    for B, H, mode in ((9, 37, "sum"), (1, 1, "sum"), (3, 300, "mean"),
+                       (700, 45, "sum")):
+        table, half, codes, scale, ids, valid, weights = _bag_case(
+            gen, 300, D, B, H, view)
+        if view:
+            assert table.data_ptr() % 16 == (4 * D) % 16
+        w = bag_weights(ids, valid, mode=mode, weights=weights)
+        got = embedding_bag(table, ids, valid, mode=mode, weights=weights)
+        torch.testing.assert_close(got, embedding_bag_plain(table, ids, w),
+                                   atol=1e-5, rtol=0)
+        assert B == 1 or torch.all(got[0] == 0)
+        got = embedding_bag(half, ids, valid, mode=mode,
+                            weights=weights).float()
+        want = embedding_bag_plain(half, ids, w)
+        assert torch.all((got - want).abs() <= 2.0 ** -8 * want.abs() + 1e-6)
+        got = embedding_bag(codes, ids, valid, mode=mode, weights=weights,
+                            table_scale=scale)
+        torch.testing.assert_close(
+            got, embedding_bag_plain(dequantize_q8(codes, scale), ids, w),
+            atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("kind", ["fp32", "bf16", "int8"])
+@pytest.mark.parametrize("B,H", [(4096, 100), (6, 500)])
+def test_embedding_bag_kernel_two_calls_give_the_same_bits(gen, kind, B, H):
+    """No atomics: the plan fixes every sum's order, so two calls (one bag
+    a warp, or few bags each split over warps) give the same bits."""
+    from repro_torch.kernels.embedding_bag import embedding_bag
+    table, half, codes, scale, ids, valid, weights = _bag_case(
+        gen, 100_000, 18, B, H, False)
+    t, s = {"fp32": (table, None), "bf16": (half, None),
+            "int8": (codes, scale)}[kind]
+    a = embedding_bag(t, ids, valid, mode="mean", table_scale=s)
+    b = embedding_bag(t, ids, valid, mode="mean", table_scale=s)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_embedding_bag_refuses_a_plan_it_would_not_make(gen, quant):
+    """Each entry point derives its plan from the pointer and shapes and
+    refuses, without launching, a host plan that differs in any field it
+    is handed; it launches the plan ``bag_plan`` makes."""
+    from repro_torch.kernels import load, ptr, sm_count
+    from repro_torch.kernels import embedding_bag as eb
+    table, half, codes, scale, ids, valid, weights = _bag_case(
+        gen, 300, 18, 40, 30, True)
+    t = codes if quant else table
+    w = eb.bag_weights(ids, valid)
+    out = torch.empty(40, 18, device="cuda")
+    plan = eb.bag_plan(40, 30, 18, t.element_size(), t.data_ptr(),
+                       sm_count(t.device))
+    lib = load("embedding_bag", eb._ARGTYPES)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call(vec, lanes, steps, split, warps, align):
+        if quant:
+            return lib.embedding_bag_q8_fwd(
+                ptr(t), ptr(scale), ptr(ids), ptr(w), ptr(out), 40, 30, 300,
+                18, vec, lanes, steps, split, warps, align, stream)
+        return lib.embedding_bag_fwd(
+            ptr(t), ptr(ids), ptr(w), ptr(out), 40, 30, 300, 18, 0, vec,
+            lanes, steps, split, warps, align, stream)
+
+    good = (plan.vec, plan.lanes_per_row, plan.steps, plan.split, plan.warps,
+            plan.align)
+    before = dict(kernels.LAUNCHES)
+    for k in range(len(good)):
+        for bad in (good[k] * 2, max(good[k] // 2, 1) if good[k] > 1 else 3):
+            wrong = good[:k] + (bad,) + good[k + 1:]
+            assert call(*wrong) != 0, wrong
+    assert call(*good) == 0
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES == before
+    torch.testing.assert_close(
+        out, eb.embedding_bag_plain(t, ids, w, scale if quant else None),
+        atol=1e-5, rtol=0)
