@@ -35,7 +35,15 @@ Phases, each fatal on failure:
    table (2^26 x 18, fp32 and its int8 codes) with 65,536 bags of 100
    slots and MIND's (2^24 x 64) with 512, sum and mean, each held to the
    plain version within 1e-5; then two calls at DIN's shape in each of
-   fp32, bf16 and int8 must give the same bits.
+   fp32, bf16 and int8 must give the same bits. 2g: decode attention's
+   absorbed-MLA mode (``decode_attn_mla``, ``decode_attn_mla_q8``: head
+   dims past 128) in fp32 over every flag (window, segments of a
+   commit=False burst, NoPE + ALiBi, Dqk != Dv, a partial value chunk,
+   int8 with two scale groups) within 1e-4, on bf16 inputs per row, then at
+   minicpm3-4b's decode shape (B=8, cap=2048, s=64, 40 heads on one latent
+   key, Dqk 288, Dv 256) in bf16 and on int8 codes with keys up to
+   position 2047 at phase 2c's per-row tolerance, each twice (the same
+   bits).
 11. recsys — DIN, MIND, SASRec and xDeepFM in fp32 before the dti-llama
    weights are loaded: (a) FULL widths with tables cut to 2^20 rows
    (xDeepFM: each field to min(v, 2^16)), the card against the CPU on the
@@ -47,6 +55,21 @@ Phases, each fatal on failure:
    8,000); finite, probabilities in (0, 1), timed, peak memory printed.
    serve_bulk (262,144) is not run. The models gather with plain lookups,
    as the reference's do: no kernel launches on this path.
+12. minicpm3-4b — its ``FULL`` config (62 layers, d_model 2560, 40
+   heads, MLA with kv_lora 256, random seeded bf16 weights) with
+   ``attn_impl="cuda"``, before the dti-llama weights are loaded, the counts
+   reset before it: phases 3 and 4 on it (``CTRServer.score`` of 8 prompts
+   with kernel 1 once per layer at Dqk 96, Dv 64; the chunked context, the
+   6-candidate burst held to per-candidate prefill, ring steps, kernel 4's
+   MLA mode once per layer per step, no plain call), their times and
+   profiles, then ``ServeScheduler`` over phase 9's stream on paged bf16
+   and paged int8 latent KV (the MLA mode, ``decode_attn_mla_q8`` on int8,
+   once per layer per step; every request finished; bf16 within 5e-2 of
+   the naive oracle for 4 requests, int8 within 5e-2 of bf16), timed.
+   12b: at FULL widths, 2 layers, fp32, the kernel path against the dense
+   path within 1e-4 (prefill, every decode step, the first 6 scheduler
+   requests), and one paged int8 step bit for bit equal to the same step
+   on a contiguous latent cache.
 3. prefill — the serving path begins: dti-llama ``FULL`` (32 layers,
    Llama-3.1-8B widths, random seeded weights, bf16) scores 8
    sliding-window prompts of ~1,570 tokens through ``CTRServer.score``;
@@ -95,7 +118,8 @@ Phases, each fatal on failure:
    frozen weight-gradient pass's cost, each scheduler run's ms per step,
    candidates/s, pages, KV bytes and host time per step, and each kernel
    beside its plain version and ``scaled_dot_product_attention`` (forward
-   or backward, after dequantization and RoPE for the int8 mode; for
+   or backward, after dequantization and RoPE for the int8 mode, the
+   backend it picks named for the MLA mode's operands; for
    kernel 5 ``F.embedding_bag``: the library yardstick, never used by the
    port), with CUDA events; kernel 1 also at the training shape, kernels
    2 and 3 also with [SUM] rows every 7th slot, kernel 4
@@ -776,11 +800,12 @@ def drive_decode(cfg, params, users, kernels):
     from repro_torch.serve.engine import make_decode_fn
     sp = SpecialTokens()
     per_step = cfg.n_layers if cfg.attn_impl == "cuda" else 0
+    key = decode_kernel(cfg, None)
 
     def step(fn, *args):
-        before = kernels.LAUNCHES["decode_attn"]
+        before = kernels.LAUNCHES[key]
         p, cache = fn(params, *args)
-        n = kernels.LAUNCHES["decode_attn"] - before
+        n = kernels.LAUNCHES[key] - before
         if n != per_step:
             fail(f"decode kernel ran {n} times in one step, want {per_step}")
         return p.float().cpu().numpy(), cache
@@ -827,6 +852,12 @@ def drive_decode(cfg, params, users, kernels):
     return dict(valid_p=np.concatenate(valid_p), n_steps=len(valid_p),
                 burst=p_burst, ring=p_ring, ring_cap=ring["pos"].shape[1],
                 decode=decode, cache=cache, burst_args=bt)
+
+
+def decode_kernel(cfg, kv_dtype):
+    """The decode kernel's launch key for ``cfg``'s attention and KV."""
+    name = "decode_attn_mla" if cfg.attn_type == "mla" else "decode_attn"
+    return f"{name}_q8" if kv_dtype == "int8" else name
 
 
 def phase_decode(cfg, params, users, server, p_prefill, kernels):
@@ -1040,7 +1071,9 @@ def phase_train(cfg, params, mat, kernels):
     want = {"windowed_attn": 2 * cfg.n_layers,
             "windowed_attn_dq": cfg.n_layers,
             "windowed_attn_dkv": cfg.n_layers, "decode_attn": 0,
-            "decode_attn_q8": 0, "embedding_bag": 0, "embedding_bag_q8": 0}
+            "decode_attn_q8": 0, "decode_attn_mla": 0,
+            "decode_attn_mla_q8": 0, "embedding_bag": 0,
+            "embedding_bag_q8": 0}
     if any(d != want for d in per_step) or len(per_step) != TRAIN_STEPS:
         fail(f"launches per step {per_step}, want {want} x {TRAIN_STEPS}")
     if plain.n:
@@ -1235,6 +1268,153 @@ def check_kernels_q8():
 
 
 # ---------------------------------------------------------------------------
+# phase 2g: kernel 4's absorbed-MLA mode against its plain version
+# ---------------------------------------------------------------------------
+
+def real_mla(gen, *, dtype=torch.bfloat16):
+    """Kernel 4's MLA mode at minicpm3-4b's decode shape: B=8, cap=2048,
+    s=64, 40 heads on one latent key (Hk=1), Dqk 288 (kv_lora 256 + rope
+    32), Dv 256, window 1024, a 6-candidate burst over contexts of
+    1.4k-1.9k, NoPE stream on."""
+    fills = [1400 + 70 * b for b in range(8)]
+    o = decode_operands(gen, B=8, s=64, H=40, Hk=1, D=288, Dv=256, cap=2048,
+                        dtype=dtype, fills=fills, n_seg=6)
+    return o, decode_kwargs(o, window=1024, nope=True, seg=True)
+
+
+def keys_to_cap(o):
+    """Row 7 of ``o`` (as ``decode_operands`` makes it) holds keys at every
+    position up to cap - 1, its burst in the last s slots."""
+    s, cap = o["q"].shape[1], o["pos_k"].shape[1]
+    n = cap - s
+    ar = torch.arange(cap, device="cuda", dtype=torch.int32)
+    o["pos_k"][7] = ar
+    o["pos_q"][7] = ar[n:]
+    o["seg_k"][7, :n] = -1
+    o["seg_k"][7, n:] = o["seg_q"][7]
+
+
+def check_same_bits(name, fn):
+    a, b = fn(), fn()
+    torch.cuda.synchronize()
+    if not torch.equal(a, b):
+        fail(f"{name}: two calls gave different bits")
+    log(f"  {name}: two calls give the same bits")
+
+
+def check_kernels_mla():
+    """Kernel 4's MLA mode (``decode_attn_mla``, ``decode_attn_mla_q8``):
+    small fp32 shapes over every flag (window, segments of a commit=False
+    burst, NoPE + ALiBi, Dqk != Dv, a partial value chunk, int8 with two
+    scale groups) within SMALL_TOL, small bf16 shapes per row, then the
+    MLA decode shape in bf16 and on int8 codes (keys up to position 2047)
+    against the plain version in fp32 at phase 2c's per-row tolerance, each
+    twice (the same bits). Returns what phase 6 times."""
+    from repro_torch import kernels
+    from repro_torch.kernels.decode_attn import (decode_attention,
+                                                 decode_attention_plain)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(12)
+    log("phase 2g: decode_attn_mla (kernel 4's MLA mode) vs plain, fp32, "
+        "small shapes")
+    # window, nope, seg, Hk, D, Dv, s, cap, skip, n_seg, (rope_start, base)
+    cases = [
+        (0, False, False, 1, 288, 256, 5, 200, False, 0, None),
+        (40, True, False, 1, 288, 256, 5, 200, True, 0, None),
+        (0, True, True, 1, 288, 256, 12, 200, False, 3, None),
+        (40, True, True, 2, 160, 136, 12, 190, True, 4, None),
+        (0, True, True, 1, 200, 72, 70, 300, False, 5, None),   # 9 row blocks
+        (0, True, True, 1, 136, 256, 5, 130, False, 0, None),
+        (0, True, True, 1, 288, 256, 12, 200, False, 3, (256, 1800)),
+        (20, False, False, 1, 288, 256, 5, 100, True, 0, (256, 0)),
+        (0, True, True, 2, 160, 144, 12, 200, False, 4, (128, 900)),
+        (30, True, False, 1, 200, 136, 5, 190, False, 0, (168, 1500)),
+    ]
+    before = dict(kernels.LAUNCHES)
+    for (window, nope, seg, hk, d, dv, s, cap, skip, n_seg, q8) in cases:
+        o = decode_operands(gen, B=3, s=s, H=8, Hk=hk, D=d, Dv=dv, cap=cap,
+                            dtype=torch.float32, fills=(120, 150, 0),
+                            skip_block=skip, n_seg=n_seg)
+        k, v = o["k"], o["v"]
+        if q8 is None:
+            kw = decode_kwargs(o, window=window, nope=nope, seg=seg)
+        else:
+            rs, base = q8
+            o["pos_k"] = torch.where(o["pos_k"] >= 0, o["pos_k"] + base, -1)
+            o["pos_q"] = o["pos_q"] + base
+            codes = quantize_kv(o, rope_start=rs, G=2, gen=gen)
+            k, v = codes["k"], codes["v"]
+            kw = q8_kwargs(o, codes, window=window, nope=nope, seg=seg,
+                           rope_start=rs, theta=10000.0)
+        got = decode_attention(o["q"], k, v, o["pos_q"], o["pos_k"], **kw)
+        torch.cuda.synchronize()
+        want = decode_attention_plain(o["q"], k, v, o["pos_q"], o["pos_k"],
+                                      **kw)
+        tag = (f"w={window} nope={nope} seg={seg} n_rep={8 // hk} D={d} "
+               f"Dv={dv} s={s} cap={cap} skip={skip}"
+               + ("" if q8 is None else f" int8 G=2 rope_start={q8[0]} "
+                  f"pos<{int(o['pos_k'].max()) + 1}"))
+        check_close(f"o [{tag}]", got, want, SMALL_TOL)
+        if not (got[2] == 0).all():
+            fail("empty cache row did not give 0 (MLA mode)")
+    n_q8 = sum(c[-1] is not None for c in cases)
+    launched = {k: n - before[k] for k, n in kernels.LAUNCHES.items()
+                if n != before[k]}
+    if launched != {"decode_attn_mla": len(cases) - n_q8,
+                    "decode_attn_mla_q8": n_q8}:
+        fail(f"phase 2g small shapes launched {launched}")
+
+    log("phase 2g: bf16 inputs, small shapes (aligned rows by cp.async, "
+        "D=196 through the conversion pass), per row")
+    for d, dv, hk in ((288, 256, 1), (196, 100, 1), (160, 136, 2)):
+        o = decode_operands(gen, B=3, s=12, H=8, Hk=hk, D=d, Dv=dv, cap=200,
+                            dtype=torch.bfloat16, fills=(120, 150, 0),
+                            n_seg=3)
+        kw = decode_kwargs(o, window=40, nope=True, seg=True)
+        got = decode_attention(o["q"], o["k"], o["v"], o["pos_q"],
+                               o["pos_k"], **kw)
+        torch.cuda.synchronize()
+        args, kw32 = _f32(o["q"], o["k"], o["v"], o["pos_q"], o["pos_k"],
+                          **kw)
+        check_rows(f"o [bf16 D={d} Dv={dv} n_rep={8 // hk}]", got,
+                   decode_attention_plain(*args, **kw32))
+
+    log("phase 2g: the MLA decode shape, bf16 kernel vs the fp32 plain "
+        "version")
+    res = {}
+    o, kw = real_mla(gen)
+    args = (o["q"], o["k"], o["v"], o["pos_q"], o["pos_k"])
+    got = decode_attention(*args, **kw)
+    torch.cuda.synchronize()
+    a32, kw32 = _f32(*args, **kw)
+    err = check_rows("decode_attn_mla o B8 cap2048 s64 H40 Hk1 D288 Dv256 "
+                     "w1024", got, decode_attention_plain(*a32, **kw32))
+    del a32, kw32, got
+    check_same_bits("decode_attn_mla at the MLA decode shape",
+                    lambda: decode_attention(*args, **kw))
+    res["decode_attn_mla"] = dict(err=err, ops=(o, kw))
+
+    o, _ = real_mla(gen)
+    keys_to_cap(o)
+    codes = quantize_kv(o, rope_start=256, G=2, gen=gen)
+    kw = q8_kwargs(o, codes, window=1024, nope=True, seg=True,
+                   rope_start=256, theta=10000.0)
+    args = (o["q"], codes["k"], codes["v"], o["pos_q"], o["pos_k"])
+    got = decode_attention(*args, **kw)
+    torch.cuda.synchronize()
+    a32, kw32 = _f32(*args, **kw)
+    err = check_rows("decode_attn_mla_q8 o B8 cap2048 s64 H40 Hk1 D288 "
+                     "Dv256 w1024, two scale groups, keys at positions up "
+                     f"to {int(o['pos_k'].max())}", got,
+                     decode_attention_plain(*a32, **kw32))
+    del a32, kw32, got
+    check_same_bits("decode_attn_mla_q8 at the MLA decode shape",
+                    lambda: decode_attention(*args, **kw))
+    res["decode_attn_mla_q8"] = dict(err=err, ops=(o, codes, kw))
+    return res
+
+
+# ---------------------------------------------------------------------------
 # phases 9 and 10: the scheduler
 # ---------------------------------------------------------------------------
 
@@ -1336,16 +1516,21 @@ def run_sched(cfg, params, reqs, kernels, *, kv_dtype, paged, n_pages=None,
     return res
 
 
+DECODE_KERNELS = ("decode_attn", "decode_attn_q8", "decode_attn_mla",
+                  "decode_attn_mla_q8")
+
+
 def check_sched_run(res, cfg, kernel, label):
     """Every request finished, no watchdog, the kernel of the KV layout once
     per layer in every step and no other decode kernel or plain call."""
-    other = "decode_attn" if kernel == "decode_attn_q8" else "decode_attn_q8"
+    others = [k for k in DECODE_KERNELS if k != kernel]
     steps = res["tel"]["steps"]
     bad = [d for d in res["per_step"]
-           if d[kernel] != cfg.n_layers or d[other] != 0]
+           if d[kernel] != cfg.n_layers or any(d[k] for k in others)]
     if bad or len(res["per_step"]) != steps:
         fail(f"{label}: per-step launches {bad[:3]} (want {kernel} = "
-             f"{cfg.n_layers}, {other} = 0) over {steps} steps")
+             f"{cfg.n_layers}, the other decode kernels 0) over {steps} "
+             "steps")
     if res["launches"][kernel] != cfg.n_layers * steps:
         fail(f"{label}: {kernel} ran {res['launches'][kernel]} times in "
              f"{steps} steps")
@@ -1561,6 +1746,148 @@ def phase_sched32(cfg, params, kernels):
         log(f"  one step on a paged cache (pages out of order) == the same "
             f"step on a contiguous cache, {kv or 'bf16'} KV: {n} values "
             f"equal bit for bit")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phases 12 and 12b: minicpm3-4b (MLA) at full width
+# ---------------------------------------------------------------------------
+
+def build_mla_model():
+    """minicpm3-4b ``FULL`` with random seeded bf16 weights, on the kernels
+    (``attn_impl="cuda"``; its config's own default is the blocked path)."""
+    from repro_torch.configs.minicpm3_4b import FULL
+    from repro_torch.models.transformer import init_params
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(FULL, attn_impl="cuda")
+    params = init_params(cfg, seed=0)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for lp in params["layers"] for p in _leaves(lp))
+    log(f"  minicpm3-4b FULL params on card: {n / 1e9:.2f}B per-layer "
+        f"weights + {params['embed'].numel() / 1e6:.1f}M tied embedding, "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB, "
+        f"{time.perf_counter() - t0:.1f}s")
+    return cfg, params
+
+
+def phase_mla(kernels):
+    """minicpm3-4b FULL on the kernels, bf16: prefill (kernel 1 at Dqk 96,
+    Dv 64 over 40 kv heads), the decode path of phase 4 (kernel 4's MLA
+    mode), the scheduler of phase 9 on paged bf16 and paged int8 latent KV,
+    then the fp32 checks at 2 layers (12b). Returns the launches of its
+    main paths and its times; frees its weights."""
+    log("phase 12: minicpm3-4b (MLA) FULL, bf16, attn_impl cuda")
+    cfg, params = build_mla_model()
+    users, prompts = serving_material(cfg)
+    kernels.reset_launches()
+    server, p_prefill = phase_prefill(cfg, params, prompts, kernels)
+    run = phase_decode(cfg, params, users, server, p_prefill, kernels)
+    launches = dict(kernels.LAUNCHES)
+    want = {k: 0 for k in kernels.KERNELS}
+    want.update(windowed_attn=cfg.n_layers * (1 + run["n_prefill_calls"]),
+                decode_attn_mla=cfg.n_layers * run["n_steps"])
+    log(f"  MLA serving path launches {launches}: kernel 1 in "
+        f"{1 + run['n_prefill_calls']} prefill calls, kernel 4's MLA mode "
+        f"in {run['n_steps']} decode steps")
+    if launches != want:
+        fail(f"MLA serving path launches {launches}, want {want}")
+
+    times = dict(prefill_ms=cuda_ms(lambda: server.score(prompts), iters=3,
+                                    warmup=1),
+                 decode_ms=cuda_ms(lambda: run["decode"](
+                     params, run["cache"], *run["burst_args"]), iters=5,
+                     warmup=1))
+    card = card_line()
+    log(f"  minicpm3-4b prefill call B=8 S=2048 62 layers: "
+        f"{times['prefill_ms']:.2f} ms; decode burst step B=8 s=64 "
+        f"cap=2048: {times['decode_ms']:.2f} ms ({card})")
+    profile_call(lambda: run["decode"](params, run["cache"],
+                                       *run["burst_args"]),
+                 "minicpm3-4b decode burst step B=8 s=64 cap=2048")
+    profile_call(lambda: server.score(prompts),
+                 "minicpm3-4b prefill call B=8 S=2048 62 layers")
+    del run, server
+    torch.cuda.empty_cache()
+
+    reqs = sched_stream(cfg, N_REQ)
+    log(f"phase 12: ServeScheduler on the latent cache, phase 9's stream "
+        f"({N_REQ} requests), {SCHED}")
+    sched = {}
+    for key, kv in (("bf16", None), ("int8", "int8")):
+        label = f"12 scheduler, paged {key} MLA KV"
+        res = run_sched(cfg, params, reqs, kernels, kv_dtype=kv, paged=True,
+                        label=label)
+        res.pop("sched")
+        check_sched_run(res, cfg, decode_kernel(cfg, kv), label)
+        for name, n in res["launches"].items():
+            launches[name] += n
+        sched[key] = res
+        torch.cuda.empty_cache()
+    oracle, max_len = sched_oracle(cfg, params, reqs[:N_ORACLE])
+    errs = {"bf16 vs oracle": float(np.abs(sched["bf16"]["scores"][:N_ORACLE]
+                                           - oracle).max()),
+            "int8 vs bf16": float(np.abs(sched["int8"]["scores"]
+                                         - sched["bf16"]["scores"]).max())}
+    log(f"  max |score diff|: {errs} (tol {SCHED_TOL}; oracle: "
+        f"{len(oracle) * len(oracle[0])} sliding-window prompts of max_len "
+        f"{max_len})")
+    for name, err in errs.items():
+        if not err <= SCHED_TOL:
+            fail(f"phase 12 scores {name} differ by {err}")
+    for key, res in sched.items():
+        tel = res["tel"]
+        times[f"sched_{key}"] = (res["wall"] * 1e3 / tel["steps"],
+                                 res["candidates"] / res["wall"])
+        log(f"  scheduler, {key} KV: {times[f'sched_{key}'][0]:.2f} ms per "
+            f"step over {tel['steps']} steps, "
+            f"{times[f'sched_{key}'][1]:.1f} candidates/s, KV bytes "
+            f"{res['kv_bytes']}, host per step {res['host_ms']:.3f} ms "
+            f"({card})")
+    checks = phase_mla32(cfg, params, users, prompts, kernels)
+    del params
+    torch.cuda.empty_cache()
+    return dict(launches=launches, times=times, errs=errs, checks=checks)
+
+
+def phase_mla32(cfg, params, users, prompts, kernels):
+    """12b: minicpm3-4b at FULL widths, 2 layers, fp32: the kernel path
+    against the dense path (prefill, every decode step of phase 4's path,
+    the first 6 scheduler requests on paged fp32 latent KV) within
+    SCHED32_TOL (summation order); then, in bf16, one decode step on a
+    paged int8 latent cache (pages out of order) equal bit for bit to the
+    same step on a contiguous one."""
+    log("phase 12b: minicpm3-4b FULL widths, 2 layers, fp32: kernel path vs "
+        "dense path")
+    c32 = dataclasses.replace(cfg, n_layers=2, param_dtype="float32",
+                              compute_dtype="float32")
+    p32 = _layers(params, 2, torch.float32)
+    out = {"prefill": float(np.abs(_score(c32, p32, prompts, "cuda")
+                                   - _score(c32, p32, prompts, "dense",
+                                            batch=4)).max())}
+    dec = drive_decode(c32, p32, users, kernels)["valid_p"]
+    dec_dense = drive_decode(dataclasses.replace(c32, attn_impl="dense"),
+                             p32, users, kernels)["valid_p"]
+    out["decode"] = float(np.abs(dec - dec_dense).max())
+    reqs = sched_stream(cfg, N_REQ_SHORT)
+    got = {impl: run_sched(c32, p32, reqs, kernels, kv_dtype=None,
+                           paged=True, attn_impl=impl,
+                           label=f"12b {impl}, 2 layers")
+           for impl in ("cuda", "dense")}
+    for impl, res in got.items():
+        if res["finished"] != len(reqs):
+            fail(f"phase 12b {impl}: {res['finished']} requests finished")
+    out["scheduler"] = float(np.abs(got["cuda"]["scores"]
+                                    - got["dense"]["scores"]).max())
+    del got, p32
+    for name, err in out.items():
+        log(f"  fp32 {name}: max|p_cuda - p_dense| {err:.3e} (tol "
+            f"{SCHED32_TOL:g})")
+        if not err <= SCHED32_TOL:
+            fail(f"phase 12b {name}: kernel path differs from dense by {err}")
+    n = step_paged_vs_contiguous(dataclasses.replace(cfg, n_layers=2),
+                                 _layers(params, 2, cfg.pdtype), "int8")
+    log(f"  one step on a paged int8 latent cache (pages out of order) == "
+        f"the same step on a contiguous cache: {n} values equal bit for bit")
     return out
 
 
@@ -2054,9 +2381,19 @@ def time_kernels(real):
     return out
 
 
+def sdpa_backend(q, k, v, mask):
+    """The backend ``scaled_dot_product_attention`` picks for these
+    operands, by PyTorch's own choice function."""
+    from torch.nn.attention import SDPBackend
+    try:
+        return SDPBackend(torch._fused_sdp_choice(q, k, v, mask)).name
+    except Exception as e:             # a private function: say so
+        return f"unknown ({type(e).__name__}: {e})"
+
+
 def time_decode(o, kw):
-    """Kernel 4's bf16 mode on ``o``'s operands beside its plain version
-    and SDPA; the bound as ``time_kernels`` counts it."""
+    """Kernel 4's bf16 mode (GQA or MLA) on ``o``'s operands beside its
+    plain version and SDPA; the bound as ``time_kernels`` counts it."""
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attn import (_decode_mask,
                                                  decode_attention,
@@ -2083,7 +2420,7 @@ def time_decode(o, kw):
     lib = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt,
                                                          attn_mask=mask))
     return dict(ms=ms, plain_ms=plain, library_ms=lib, bytes=nbytes,
-                flops=flops, keys=keys)
+                flops=flops, keys=keys, backend=sdpa_backend(qt, kt, vt, mask))
 
 
 def time_decode_s16():
@@ -2225,6 +2562,7 @@ def time_q8(q8res):
     import torch.nn.functional as F
     from repro_torch.core.quant import dequantize_q8
     from repro_torch.kernels.decode_attn import (_decode_mask,
+                                                 _dequant_keys,
                                                  decode_attention,
                                                  decode_attention_plain)
     from repro_torch.models.layers import apply_rope
@@ -2247,16 +2585,23 @@ def time_q8(q8res):
     rep = H // Hk
 
     def library():
-        kd = dequantize_q8(q8["k"], q8["k_scale"][..., 0])
-        kr = apply_rope(kd, o["pos_k"].clamp(min=0), kw["rope_theta"])
+        if G == 1:
+            kd = dequantize_q8(q8["k"], q8["k_scale"][..., 0])
+            kr = apply_rope(kd, o["pos_k"].clamp(min=0), kw["rope_theta"])
+        else:          # two groups, the span from rope_start roped
+            kr = _dequant_keys(q8["k"], q8["k_scale"], o["pos_k"],
+                               kw["rope_start"], kw["rope_theta"])[0]
         vd = dequantize_q8(q8["v"], q8["v_scale"])
         kt = kr.to(q.dtype).repeat_interleave(rep, 2).transpose(1, 2)
         vt = vd.to(q.dtype).repeat_interleave(rep, 2).transpose(1, 2)
         return F.scaled_dot_product_attention(q.transpose(1, 2), kt, vt,
                                               attn_mask=mask4)
     lib = cuda_ms(library)
+    kt = q8["k"].to(q.dtype).repeat_interleave(rep, 2).transpose(1, 2)
+    vt = q8["v"].to(q.dtype).repeat_interleave(rep, 2).transpose(1, 2)
+    backend = sdpa_backend(q.transpose(1, 2), kt, vt, mask4)
     return dict(ms=ms, plain_ms=plain, library_ms=lib, bytes=nbytes,
-                flops=flops, keys=n_any)
+                flops=flops, keys=n_any, backend=backend)
 
 
 def profile_sched(cfg, params, kv_dtype, dev="cuda"):
@@ -2374,9 +2719,11 @@ def main() -> int:
     real = check_kernels_real()
     bwd = check_kernels_bwd()
     q8res = check_kernels_q8()
+    mla_k = check_kernels_mla()
     bag = check_kernels_bag(kernels)
     recsys = phase_recsys(kernels)
     torch.cuda.empty_cache()
+    mla = phase_mla(kernels)
 
     cfg, params = build_model()
     users, prompts = serving_material(cfg)
@@ -2387,6 +2734,7 @@ def main() -> int:
     want = {"windowed_attn": cfg.n_layers * (1 + run["n_prefill_calls"]),
             "windowed_attn_dq": 0, "windowed_attn_dkv": 0,
             "decode_attn": cfg.n_layers * run["n_steps"], "decode_attn_q8": 0,
+            "decode_attn_mla": 0, "decode_attn_mla_q8": 0,
             "embedding_bag": 0, "embedding_bag_q8": 0}
     log(f"  serving path launches {launches}: kernel 1 in "
         f"{1 + run['n_prefill_calls']} prefill calls, kernel 4 in "
@@ -2407,7 +2755,7 @@ def main() -> int:
     for res in sched_runs.values():
         for name, n in res["launches"].items():
             launches[name] += n
-    for name, n in bag["launches"].items():
+    for name, n in (*bag["launches"].items(), *mla["launches"].items()):
         launches[name] += n
     sched32 = phase_sched32(cfg, params, kernels)
 
@@ -2434,11 +2782,17 @@ def main() -> int:
     times = time_kernels(real)
     times.update(time_bwd_kernels(bwd))
     times["decode_attn_q8"] = time_q8(q8res)
+    times["decode_attn_mla"] = time_decode(*mla_k["decode_attn_mla"]["ops"])
+    times["decode_attn_mla_q8"] = time_q8(mla_k["decode_attn_mla_q8"])
+    for name in ("decode_attn_mla", "decode_attn_mla_q8"):
+        log(f"  {name}: SDPA picks {times[name]['backend']} for these "
+            f"operands (MQA, Dqk 288, Dv 256, a boolean mask)")
     time_decode_s16()
     times.update(bag["times"])
     prof = {kv: profile_sched(cfg, params, kv) for kv in (None, "int8")}
     errs = {name: r["err"] for name, r in {**real, **bwd}.items()}
     errs["decode_attn_q8"] = q8res["err"]
+    errs.update({name: r["err"] for name, r in mla_k.items()})
     errs.update(bag["errs"])
     for key, res in sched_runs.items():
         tel = res["tel"]
@@ -2462,6 +2816,10 @@ def main() -> int:
                            "src/repro/kernels/decode_attn/decode_attn.py:116"),
            "decode_attn_q8": ("src/repro_torch/kernels/csrc/decode_attn.cu",
                               "src/repro/kernels/decode_attn/decode_attn.py:139"),
+           "decode_attn_mla": ("src/repro_torch/kernels/csrc/decode_attn.cu",
+                               "src/repro/kernels/decode_attn/decode_attn.py:317"),
+           "decode_attn_mla_q8": ("src/repro_torch/kernels/csrc/decode_attn.cu",
+                                  "src/repro/kernels/decode_attn/decode_attn.py:139"),
            "embedding_bag": ("src/repro_torch/kernels/csrc/embedding_bag.cu",
                              "src/repro/kernels/embedding_bag/embedding_bag.py:29"),
            "embedding_bag_q8": ("src/repro_torch/kernels/csrc/embedding_bag.cu",
@@ -2500,6 +2858,13 @@ def main() -> int:
         f"{check32['loss_diff']:.3e} grad rel {check32['grad_rel']:.3e}; "
         f"scheduler score diffs {sched_errs}, fp32 checks {sched32}, "
         f"profiles {prof} ({card})")
+    mt = mla["times"]
+    log(f"  minicpm3-4b (MLA): prefill {mt['prefill_ms']:.2f} ms, decode "
+        f"burst step {mt['decode_ms']:.2f} ms, scheduler bf16 KV "
+        f"{mt['sched_bf16'][0]:.2f} ms/step {mt['sched_bf16'][1]:.1f} "
+        f"candidates/s, int8 KV {mt['sched_int8'][0]:.2f} ms/step "
+        f"{mt['sched_int8'][1]:.1f} candidates/s; score diffs {mla['errs']}; "
+        f"fp32 checks {mla['checks']} ({card})")
     log(f"  recsys: card vs CPU AdamW loss diffs {recsys['cut']}; FULL "
         + "; ".join(f"{a} serve {r['serve_ms']:.3f} ms, train B"
                     f"{r['train_batch']} {r['train_ms']:.2f} ms, retrieval "

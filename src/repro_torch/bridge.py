@@ -8,7 +8,9 @@ convert them here. This module imports neither jax nor ``repro``.
 Layouts: the reference stacks per-layer params on a leading axis
 (``params["stack"]``, plus ``params["prefix"]`` for MoE models' leading
 dense layers); the port keeps a list ``params["layers"]`` in layer order.
-Every leaf keeps its shape otherwise: a linear ``w`` is ``(d_in, d_out)``,
+Every leaf (GQA's ``q``/``k``/``v``/``o``, MLA's ``kv_down``, ``kv_norm``,
+``kv_up``, ``k_rope``, ``q_down``, ``q_norm``, ``q_up`` or ``q``, ``o``,
+their LoRA leaves) keeps its shape otherwise: a linear ``w`` is ``(d_in, d_out)``,
 LoRA ``lora_a``/``lora_b``/``lora_scale`` and rmsnorm ``scale`` as they
 are, ``embed (V, d)`` and ``lm_head.w (d, V)``.
 
@@ -39,10 +41,10 @@ ATTN_IMPL = {"pallas": "cuda", "dense": "dense", "blocked": "blocked"}
 
 def config_from_jax(fields: Mapping[str, Any], **overrides) -> ModelConfig:
     """Port config from a reference ``ModelConfig``'s fields
-    (``dataclasses.asdict(cfg)``). ``remat`` and ``remat_policy`` carry
-    over; fields the port has no use for (kernel tile sizes, the blocked
-    path's q chunk, chunked LM loss, MLA and MoE widths) are dropped;
-    ``"pallas"`` maps to ``"cuda"``."""
+    (``dataclasses.asdict(cfg)``). ``remat``, ``remat_policy``, the MLA
+    widths and the blocked path's q chunk carry over; fields the port has
+    no use for (kernel tile sizes, chunked LM loss, MoE widths) are
+    dropped; ``"pallas"`` maps to ``"cuda"``."""
     names = {f.name for f in dataclasses.fields(ModelConfig)}
     kw = {k: v for k, v in fields.items() if k in names}
     kw["attn_impl"] = ATTN_IMPL[kw.get("attn_impl", "dense")]

@@ -1,10 +1,14 @@
 """Windowed causal attention with the DTI extensions (counterpart of
 ``repro.core.windowed``).
 
-Two execution paths with the same semantics:
+Three execution paths with the same semantics:
 
 * ``attention_dense`` — materialises the (Sq, Sk) score matrix. The oracle,
   and the plain version behind the windowed-attention kernel.
+* ``attention_blocked`` — block-local: query block i attends key blocks
+  i - 1 and i of the window's size, O(S * 2W) instead of O(S^2). Plain
+  PyTorch, as the reference computes it outside any Pallas kernel; the
+  configs that set ``attn_impl="blocked"`` run on it.
 * ``repro_torch.kernels.windowed_attn.windowed_attention`` — the
   hand-written CUDA kernel (``impl="cuda"``); on CPU tensors it runs the
   plain version.
@@ -129,6 +133,110 @@ def attention_dense(q, k, v, *, pos_q, pos_k, window: int = 0,
     return (out, lse) if return_lse else out
 
 
+def _to_blocks(x: torch.Tensor, blk: int) -> torch.Tensor:
+    """(B, S, ...) -> (B, nb, blk, ...). S must be divisible by blk."""
+    return x.reshape(x.shape[0], x.shape[1] // blk, blk, *x.shape[2:])
+
+
+def _with_prev(xb: torch.Tensor) -> torch.Tensor:
+    """(B, nb, blk, ...) -> (B, nb, 2 blk, ...): (previous block, own
+    block); block 0's previous block is zeros."""
+    prev = torch.cat([torch.zeros_like(xb[:, :1]), xb[:, :-1]], dim=1)
+    return torch.cat([prev, xb], dim=2)
+
+
+def attention_blocked(q, k, v, *, pos_q, pos_k, window: int, is_sum_q=None,
+                      is_sum_k=None, valid_k=None, seg_q=None, seg_k=None,
+                      q_nope=None, k_nope=None, alibi=None, v0=None,
+                      reset: Optional[ResetConfig] = None,
+                      sum_isolated: bool = True,
+                      scale: Optional[float] = None, q_chunk: int = 4):
+    """Block-local windowed attention; semantics == ``attention_dense``.
+
+    Requires Sq == Sk == S, window > 0 and S % window == 0. Query block i
+    attends key blocks {i - 1, i}; the (pos_q - pos_k <= window) mask
+    inside the pair keeps the semantics exact. Packed rows keep the
+    invariant: segments are contiguous with positions restarting, and the
+    seg_q == seg_k term kills cross-segment aliases inside the pair.
+
+    With more than ``q_chunk`` blocks (and a multiple of it), chunks of
+    ``q_chunk`` query blocks are computed in turn, so the live fp32 logits
+    stay O(q_chunk * H * W * 2W), as the reference's ``lax.map`` keeps
+    them."""
+    if window <= 0:
+        raise ValueError("the blocked path needs a window")
+    b, s, h, dqk = q.shape
+    n_rep = h // k.shape[2]
+    if scale is None:
+        scale = dqk ** -0.5
+    blk = window
+    if s % blk:
+        raise ValueError(f"seq {s} not divisible by window {blk}")
+    nb = s // blk
+    pad_valid = _with_prev(_to_blocks(
+        torch.ones_like(pos_k, dtype=torch.bool) if valid_k is None
+        else valid_k, blk)).clone()
+    pad_valid[:, 0, :blk] = False          # block 0 has no previous block
+    use_nope = is_sum_q is not None and q_nope is not None
+    use_reset = reset is not None and v0 is not None and is_sum_q is not None
+    xs = {"qb": _to_blocks(q, blk),
+          "kb": _with_prev(_to_blocks(_repeat_kv(k, n_rep), blk)),
+          "vb": _with_prev(_to_blocks(_repeat_kv(v, n_rep), blk)),
+          "pq": _to_blocks(pos_q, blk), "pk": _with_prev(_to_blocks(pos_k, blk)),
+          "pad_valid": pad_valid}
+    if use_nope:
+        xs["qnb"] = _to_blocks(q_nope, blk)
+        xs["knb"] = _with_prev(_to_blocks(_repeat_kv(k_nope, n_rep), blk))
+    if is_sum_q is not None:
+        xs["sq_b"] = _to_blocks(is_sum_q, blk)
+    if sum_isolated and is_sum_k is not None:
+        xs["sk_b"] = _with_prev(_to_blocks(is_sum_k, blk))
+    if seg_q is not None and seg_k is not None:
+        xs["sgq_b"] = _to_blocks(seg_q, blk)
+        xs["sgk_b"] = _with_prev(_to_blocks(seg_k, blk))
+    if use_reset:
+        xs["v0b"] = _with_prev(_to_blocks(_repeat_kv(v0, n_rep), blk))
+
+    def compute(c):
+        logits = torch.einsum("bnqhd,bnkhd->bnhqk", c["qb"].float(),
+                              c["kb"].float()) * scale
+        d = c["pq"][:, :, :, None] - c["pk"][:, :, None, :]
+        if use_nope:
+            logits2 = torch.einsum("bnqhd,bnkhd->bnhqk", c["qnb"].float(),
+                                   c["knb"].float()) * scale
+            if alibi is not None:
+                logits2 = logits2 - (alibi.float()[None, None, :, None, None]
+                                     * d[:, :, None].float())
+            logits = torch.where(c["sq_b"][:, :, None, :, None], logits2,
+                                 logits)
+        mask = (d >= 0) & (d <= window) & c["pad_valid"][:, :, None, :]
+        if "sk_b" in c:
+            mask = mask & (~c["sk_b"][:, :, None, :] | (d == 0))
+        if "sgq_b" in c:
+            mask = mask & (c["sgq_b"][:, :, :, None]
+                           == c["sgk_b"][:, :, None, :])
+        logits = logits.masked_fill(~mask[:, :, None], NEG_INF)
+        probs = torch.softmax(logits, dim=-1)
+        probs = probs * mask.any(dim=-1)[:, :, None, :, None]
+        out = torch.einsum("bnhqk,bnkhd->bnqhd", probs.to(c["vb"].dtype),
+                           c["vb"])
+        if use_reset:
+            a = reset_alpha(d.clamp(min=0), reset)[:, :, None]
+            probs_a = probs * a * c["sq_b"][:, :, None, :, None]
+            out = out + torch.einsum("bnhqk,bnkhd->bnqhd",
+                                     probs_a.to(c["vb"].dtype),
+                                     c["v0b"] - c["vb"])
+        return out
+
+    if q_chunk and nb > q_chunk and nb % q_chunk == 0:
+        out = torch.cat([compute({n: t[:, i:i + q_chunk]
+                                  for n, t in xs.items()})
+                         for i in range(0, nb, q_chunk)], dim=1)
+    else:
+        out = compute(xs)
+    return out.reshape(b, s, h, v.shape[-1])
+
+
 def attention(impl: str, *args, **kwargs):
     if impl != "dense" and kwargs.pop("seg_shared", None) is not None:
         # Multi-target serving rows interleave candidate segments whose
@@ -143,11 +251,9 @@ def attention(impl: str, *args, **kwargs):
         from repro_torch.kernels.windowed_attn import windowed_attention
         return windowed_attention(*args, **kwargs)
     if impl == "blocked":
-        raise NotImplementedError(
-            "blocked attention is not ported (ROADMAP queue A); use "
-            "'dense' or 'cuda'")
+        return attention_blocked(*args, **kwargs)
     raise ValueError(f"unknown attention impl {impl!r}")
 
 
 __all__ = ["NEG_INF", "ResetConfig", "reset_alpha", "dti_mask",
-           "attention_dense", "attention"]
+           "attention_dense", "attention_blocked", "attention"]

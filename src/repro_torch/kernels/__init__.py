@@ -34,8 +34,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("windowed_attn", "windowed_attn_bwd", "decode_attn",
            "embedding_bag")
 KERNELS = ("windowed_attn", "windowed_attn_dq", "windowed_attn_dkv",
-           "decode_attn", "decode_attn_q8", "embedding_bag",
-           "embedding_bag_q8")
+           "decode_attn", "decode_attn_q8", "decode_attn_mla",
+           "decode_attn_mla_q8", "embedding_bag", "embedding_bag_q8")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

@@ -3,7 +3,10 @@
 // Replaces: src/repro/kernels/decode_attn/decode_attn.py, `_kernel`
 // (launched by `decode_attention_bshd`), the Pallas TPU kernel, in both
 // its modes: bf16/fp32 KV (entry point `decode_attn_fwd`) and int8 KV
-// (`decode_attn_q8_fwd`, the same kernel template with QUANT set).
+// (`decode_attn_q8_fwd`, the same kernel template with QUANT set), at
+// head dims up to 128 (GQA), and at the absorbed-MLA geometry
+// (`decode_attn_mla_fwd`, `decode_attn_mla_q8_fwd`: WIDE set; see the
+// end of this header).
 //
 // Computes, for s burst queries per batch row, an online-softmax pass over
 // the row's cache in its native (B, cap, Hk, D) layout: a slot is
@@ -69,6 +72,37 @@
 //   positions travel S tiles ahead of its rows, so no copy waits on a
 //   load. The fp32 mode (and rows not 16-byte aligned) convert straight
 //   from memory.
+//
+// The absorbed-MLA mode (WIDE). `repro/serve/engine.py::_mla_decode_layer`
+// calls the kernel as MQA (Hk = 1, Hq = n_heads) with q = [q_abs | q_pe]
+// against the latent cache: Dqk = kv_lora_rank + qk_rope_dim (288 for
+// minicpm3-4b), Dv = kv_lora_rank (256), and in int8 two scale groups
+// split at rope_start = kv_lora_rank. Same algorithm, same pipeline; what
+// differs is sized by `Geo<true>`:
+//
+// * Planes of Q, K and K_nope are DQ = 288 values wide (row stride 296,
+//   conflict-free for ldmatrix); Q.K^T runs 18 k-steps of 16 from them.
+// * The value columns are split over CTAs, DMAX = 128 per CTA (a grid
+//   axis of n_dv chunks, `decode_split_plan`): each CTA keeps the 16 x 128
+//   fp32 accumulator of a warp in 64 registers, as the GQA mode does, and
+//   recomputes the scores of its rows. The chunks' m and l are equal bit
+//   for bit (the same arithmetic on the same data); chunk 0 writes them to
+//   the kv-split workspace.
+// * Rows wider than 16 copy chunks are copied as (slot, chunk) pairs
+//   strided over the block; Q is staged into its plane after the first
+//   tiles' copies are issued.
+// * fp32 (three bf16 terms) would need 3 x 64 x 296 x 2 bytes of Q planes
+//   beside three-term K, K_nope and V planes, past 227 KB; so the fp32
+//   instantiation has no Q plane and splits each A fragment from the
+//   query rows in memory (L1) at every k-step.
+//
+// What bounds the MLA mode: operations. At the MLA decode shape (B=8,
+// cap=2048, s=64, 40 heads on one latent key, window 1024) about 20 k
+// query rows share each key, ~20 GFLOP against ~15 MB. The value split
+// costs a second Q.K^T (1.53x the needed products); wgmma, TMA and reading
+// V from K's tile (V is the first 256 columns of the same latent) are
+// left for later work.
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -82,12 +116,14 @@ constexpr int BK = 32;             // cache slots per kv tile
 constexpr int WARPS = 4;
 constexpr int THREADS = 32 * WARPS;
 constexpr int RB = 16 * WARPS;     // query rows per CTA
-constexpr int DMAX = 128;          // largest head dim (qk and v)
-constexpr int LD = DMAX + 8;       // plane row stride: conflict-free fragments
+constexpr int DMAX = 128;          // largest head dim (qk and v); value
+                                   // columns per CTA in both modes
 constexpr int NT_S = BK / 8;       // score n-tiles per warp and tile
 constexpr int KK = BK / 16;        // P.V k-steps per tile
 constexpr int MAX_TILES = 256;     // tiles of one kv range (decode_split_plan)
 constexpr int NT_V = DMAX / 8;     // value n-tiles
+constexpr int MLA_DQK = 288;       // the MLA mode's largest qk head dim
+constexpr int MLA_DV = 256;        // and value head dim
 constexpr unsigned FULL = 0xffffffffu;
 constexpr float LOG2E = 1.4426950408889634f;
 
@@ -110,9 +146,17 @@ struct Mode {
   static constexpr int PSTAGES = (!F32 && !QUANT) ? 3 : 1;  // plane stages
 };
 
-// int8 mode, one copy stage: K codes, V codes (BK x DMAX bytes each), K
-// scales (BK x 2) and V scales (BK), as cp.async leaves them
-constexpr int RAW_BYTES = 2 * BK * DMAX + 3 * BK * (int)sizeof(float);
+// Plane widths per geometry: the GQA mode (head dims up to DMAX) and the
+// MLA mode (qk dims up to MLA_DQK, values in DMAX-column chunks)
+template <bool WIDE>
+struct Geo {
+  static constexpr int DQ = WIDE ? MLA_DQK : DMAX;   // Q, K, K_nope planes
+  static constexpr int LDK = DQ + 8;       // their row stride: conflict-free
+  static constexpr int LDV = DMAX + 8;     // the V planes' row stride
+  // int8 mode, one copy stage: K codes (BK x DQ bytes), V codes (BK x
+  // DMAX), K scales (BK x 2) and V scales (BK), as cp.async leaves them
+  static constexpr int RAW_BYTES = BK * (DQ + DMAX) + 3 * BK * (int)sizeof(float);
+};
 
 // 8 values from p[0..n) (zero past n) as floats: one 16-byte load (bf16)
 // or two (fp32) where p is 16-byte aligned and n >= 8
@@ -139,6 +183,28 @@ __device__ __forceinline__ void load8(const float* p, int n, float (&x)[8]) {
   } else {
 #pragma unroll
     for (int i = 0; i < 8; ++i) x[i] = i < n ? p[i] : 0.f;
+  }
+}
+
+// The MLA mode's fp32 A fragment of a k-step: rows (g, g + 8) from r[0],
+// r[1] (null: a row past the block), columns c, c + 1, c + 8, c + 9 (zero
+// from n on), each pair as N bf16 terms (see the header)
+template <int N>
+__device__ __forceinline__ void a_frag_rows(const float* const (&r)[2], int c,
+                                            int n, uint32_t (&f)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float* p = r[i & 1];
+    const int cc = c + (i >> 1) * 8;
+    float x0 = (p != nullptr && cc < n) ? p[cc] : 0.f;
+    float x1 = (p != nullptr && cc + 1 < n) ? p[cc + 1] : 0.f;
+#pragma unroll
+    for (int t = 0; t < N; ++t) {
+      const __nv_bfloat162 h2 = __floats2bfloat162_rn(x0, x1);   // x0 low
+      f[t][i] = *reinterpret_cast<const uint32_t*>(&h2);
+      x0 -= __low2float(h2);
+      x1 -= __high2float(h2);
+    }
   }
 }
 
@@ -219,31 +285,37 @@ struct Args {
   T* o;
   float *ws_acc, *ws_m, *ws_l;         // kv-split partials (n_split > 1)
   int B, s, H, Hk, cap, D, Dv, window, use_seg, G, rope_start;
-  int n_rb, n_split, span, direct;
+  int n_rb, n_split, span, n_dv, direct;
   float scale;
 };
 
-template <typename T, bool NOPE, bool QUANT>
+template <typename T, bool NOPE, bool QUANT, bool WIDE>
 struct Smem {
   using M = Mode<T, QUANT>;
+  using G = Geo<WIDE>;
+  // the MLA mode's fp32 instantiation reads Q from memory (see the header)
+  static constexpr bool QPLANE = !(WIDE && M::F32);
   static constexpr int NKN = NOPE ? M::NK : 0;
-  static constexpr size_t Q_ELEMS = (size_t)M::NQ * RB * LD;
-  static constexpr size_t STAGE_ELEMS = (size_t)(M::NK + NKN + M::NV) * BK * LD;
-  static constexpr size_t RAW = QUANT ? (size_t)M::STAGES * RAW_BYTES : 0;
+  static constexpr size_t Q_ELEMS = QPLANE ? (size_t)M::NQ * RB * G::LDK : 0;
+  static constexpr size_t STAGE_ELEMS =
+      (size_t)(M::NK + NKN) * BK * G::LDK + (size_t)M::NV * BK * G::LDV;
+  static constexpr size_t RAW = QUANT ? (size_t)M::STAGES * G::RAW_BYTES : 0;
   static constexpr size_t BYTES =
       (Q_ELEMS + M::PSTAGES * STAGE_ELEMS) * sizeof(bf16) + RAW +
-      (4 * M::STAGES * BK + BK + DMAX / 2 + 6 * RB + 4 + 3 * MAX_TILES + 1) * sizeof(int);
+      (4 * M::STAGES * BK + BK + G::DQ / 2 + 6 * RB + 4 + 3 * MAX_TILES + 1) * sizeof(int);
 };
 
-template <typename T, bool NOPE, bool QUANT>
+template <typename T, bool NOPE, bool QUANT, bool WIDE>
 __global__ void __launch_bounds__(THREADS, 2)
 decode_attn_kernel(const Args<T> a) {
   using M = Mode<T, QUANT>;
-  using L = Smem<T, NOPE, QUANT>;
+  using L = Smem<T, NOPE, QUANT, WIDE>;
+  using GE = Geo<WIDE>;
   constexpr int NQ = M::NQ, NK = M::NK, NP = M::NP, NV = M::NV;
   constexpr int S = M::STAGES, PS = M::PSTAGES, MS = 2 * S;
   constexpr int TQK = NQ > NK ? NQ : NK;     // term pairs i + j < TQK
   constexpr int TPV = NP > NV ? NP : NV;
+  constexpr int LDK = GE::LDK, LDV = GE::LDV;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* q_p = reinterpret_cast<bf16*>(smem_raw);
   bf16* st_p = q_p + L::Q_ELEMS;
@@ -252,7 +324,7 @@ decode_attn_kernel(const Args<T> a) {
   int* seg_ks = pos_ks + MS * BK;
   float* vs_s = reinterpret_cast<float*>(seg_ks + MS * BK);
   float* rinv_s = vs_s + BK;                              // int8: RoPE freqs
-  int* pos_r = reinterpret_cast<int*>(rinv_s + DMAX / 2);
+  int* pos_r = reinterpret_cast<int*>(rinv_s + GE::DQ / 2);
   int* sum_r = pos_r + RB;
   int* seg_r = sum_r + RB;
   float* alibi_r = reinterpret_cast<float*>(seg_r + RB);
@@ -269,21 +341,27 @@ decode_attn_kernel(const Args<T> a) {
   int* qpos = qlist + a.s;
   int* qseg = qpos + a.s;
   float* qal = reinterpret_cast<float*>(qseg + a.s);
-  auto k_pl = [&](int st, int t) { return st_p + st * L::STAGE_ELEMS + t * BK * LD; };
+  auto k_pl = [&](int st, int t) { return st_p + st * L::STAGE_ELEMS + t * BK * LDK; };
   auto kn_pl = [&](int st, int t) { return k_pl(st, NK + t); };
-  auto v_pl = [&](int st, int t) { return k_pl(st, NK + L::NKN + t); };
+  auto v_pl = [&](int st, int t) { return k_pl(st, NK + L::NKN) + t * BK * LDV; };
   auto raw_kq = [&](int st) {
-    return reinterpret_cast<signed char*>(raw_p + st * RAW_BYTES);
+    return reinterpret_cast<signed char*>(raw_p + st * GE::RAW_BYTES);
   };
-  auto raw_vq = [&](int st) { return raw_kq(st) + BK * DMAX; };
+  auto raw_vq = [&](int st) { return raw_kq(st) + BK * GE::DQ; };
   auto raw_ks = [&](int st) {    // [BK][2]
     return reinterpret_cast<float*>(raw_vq(st) + BK * DMAX);
   };
   auto raw_vs = [&](int st) { return raw_ks(st) + 2 * BK; };
 
-  const int rb = blockIdx.x % a.n_rb, split = blockIdx.x / a.n_rb;
+  // blockIdx.x: row block, then (MLA mode) value chunk, then kv range
+  const int rb = blockIdx.x % a.n_rb;
+  const int dvc = WIDE ? (blockIdx.x / a.n_rb) % a.n_dv : 0;
+  const int split = WIDE ? blockIdx.x / a.n_rb / a.n_dv : blockIdx.x / a.n_rb;
   const int hk = blockIdx.y, b = blockIdx.z;
-  const int n_rep = a.H / a.Hk, s = a.s, D = a.D, Dv = a.Dv, cap = a.cap;
+  // Dv: this CTA's value columns [dv0, dv0 + Dv) of the a.Dv of a row
+  const int dv0 = dvc * DMAX;
+  const int n_rep = a.H / a.Hk, s = a.s, D = a.D, cap = a.cap;
+  const int Dv = WIDE ? min(DMAX, a.Dv - dv0) : a.Dv;
   const int r0 = rb * RB, nr = min(RB, n_rep * s - r0);
   const int kv0 = split * a.span, kv1 = min(cap, kv0 + a.span);
   const int n_t = kv1 > kv0 ? (kv1 - kv0 + BK - 1) / BK : 0;
@@ -401,7 +479,8 @@ decode_attn_kernel(const Args<T> a) {
       alibi_r[r] = r < nr ? qal[h] : 0.f;
     }
   }
-  if (QUANT && tid < (D - a.rope_start) / 2) rinv_s[tid] = a.rinv[tid];
+  if (QUANT)
+    for (int i = tid; i < (D - a.rope_start) / 2; i += THREADS) rinv_s[i] = a.rinv[i];
   if (planes_direct && (D % 16 || Dv % 16)) {   // pads cp.async never writes
     for (int i = tid; i < PS * (int)L::STAGE_ELEMS; i += THREADS)
       st_p[i] = __ushort_as_bfloat16((unsigned short)0);
@@ -413,18 +492,24 @@ decode_attn_kernel(const Args<T> a) {
   // written to the Q planes once the first tiles' copies are on their way.
   // Q planes ([SUM] rows hold q_nope), zero past D and past the last row:
   // thread tid takes 8 values (chunk tid % 16) of rows tid / 16 + 8 i.
+  // (The MLA mode's rows are wider: it loads them when it writes them.)
   const int qch = tid & 15, qr = tid >> 4;
-  float qx[RB / 8][8];
+  // block row r's query vector (q_nope for a [SUM] row)
+  auto q_row = [&](int r) {
+    return ((NOPE && sum_r[r]) ? a.qn : a.q) +
+           (((size_t)b * s + rq[r]) * a.H + hk * n_rep + rh[r]) * D;
+  };
+  float qx[WIDE ? 1 : RB / 8][8];
+  if constexpr (!WIDE) {
 #pragma unroll
-  for (int i = 0; i < RB / 8; ++i) {
-    const int r = qr + 8 * i;
-    if (r < nr && qch * 8 < D) {
-      const int hh = hk * n_rep + rh[r], t = rq[r];
-      load8(((NOPE && sum_r[r]) ? a.qn : a.q) + (((size_t)b * s + t) * a.H + hh) * D + qch * 8,
-            D - qch * 8, qx[i]);
-    } else {
+    for (int i = 0; i < RB / 8; ++i) {
+      const int r = qr + 8 * i;
+      if (r < nr && qch * 8 < D) {
+        load8(q_row(r) + qch * 8, D - qch * 8, qx[i]);
+      } else {
 #pragma unroll
-      for (int e = 0; e < 8; ++e) qx[i][e] = 0.f;
+        for (int e = 0; e < 8; ++e) qx[i][e] = 0.f;
+      }
     }
   }
   // The tiles of this kv range that hold a filled position in
@@ -477,9 +562,54 @@ decode_attn_kernel(const Args<T> a) {
   // cp.async of tile kt: bf16 K, K_nope and V rows into plane stage kt % S,
   // or int8 codes and scales into copy stage kt % S; slots no row attends
   // are zero-filled without a read
-  // Thread tid copies 16-byte chunk tid % 16 of slots tid / 16 + 8 i.
+  // Thread tid copies 16-byte chunk tid % 16 of slots tid / 16 + 8 i; in
+  // the MLA mode the (slot, chunk) pairs of K, then V, in turn.
+  // int8 mode: the tile's K scales (G a slot) and V scales into copy stage
+  // kt % S
+  auto issue_scales = [&](int kt) {
+    const int st = kt % S, k0 = t0(kt);
+    if (tid < BK * a.G) {
+      const int c = a.G == 1 ? tid : tid >> 1, gi = tid - c * a.G;
+      const bool on = pk_at(kt, c) >= 0;
+      const size_t sh = ((size_t)b * cap + (on ? k0 + c : 0)) * a.Hk + hk;
+      cp4(raw_ks(st) + 2 * c + gi, a.ks + sh * a.G + gi, on);
+      if (gi == 0) cp4(raw_vs(st) + c, a.vs + sh, on);
+    }
+  };
+  auto issue_wide = [&](int kt) {
+    const int st = kt % S, k0 = t0(kt);
+    const int kc = QUANT ? D / 16 : D / 8, vc = QUANT ? Dv / 16 : Dv / 8;
+    const bf16* k = reinterpret_cast<const bf16*>(a.k);
+    const bf16* kn = reinterpret_cast<const bf16*>(a.kn);
+    const bf16* v = reinterpret_cast<const bf16*>(a.v);
+    for (int i = tid; i < BK * (kc + vc); i += THREADS) {
+      const bool is_k = i < BK * kc;
+      const int j = is_k ? i : i - BK * kc, w = is_k ? kc : vc;
+      const int c = j / w, ch = j - c * w;
+      const bool ok = pk_at(kt, c) >= 0;
+      const size_t row = ((size_t)b * cap + (ok ? k0 + c : 0)) * a.Hk + hk;
+      if (QUANT) {
+        if (is_k)
+          cp16(raw_kq(st) + c * D + ch * 16, a.kq + row * D + ch * 16, ok);
+        else
+          cp16(raw_vq(st) + c * Dv + ch * 16, a.vq + row * a.Dv + dv0 + ch * 16, ok);
+      } else if (is_k) {
+        if (any_plain)
+          cp16(k_pl(st, 0) + c * LDK + ch * 8, k + row * D + ch * 8, ok);
+        if (NOPE && any_sum)
+          cp16(kn_pl(st, 0) + c * LDK + ch * 8, kn + row * D + ch * 8, ok);
+      } else {
+        cp16(v_pl(st, 0) + c * LDV + ch * 8, v + row * a.Dv + dv0 + ch * 8, ok);
+      }
+    }
+  };
   auto issue = [&](int kt) {
     const int st = kt % S, k0 = t0(kt);
+    if constexpr (WIDE) {
+      issue_wide(kt);
+      if (QUANT) issue_scales(kt);
+      return;
+    }
     const int ch = tid & 15, c0 = tid >> 4;
     bool ok[BK / 8];
     size_t row[BK / 8];
@@ -496,15 +626,9 @@ decode_attn_kernel(const Args<T> a) {
         if (ch < D / 16)
           cp16(raw_kq(st) + c * D + ch * 16, a.kq + row[i] * D + ch * 16, ok[i]);
         if (ch < Dv / 16)
-          cp16(raw_vq(st) + c * Dv + ch * 16, a.vq + row[i] * Dv + ch * 16, ok[i]);
+          cp16(raw_vq(st) + c * Dv + ch * 16, a.vq + row[i] * a.Dv + ch * 16, ok[i]);
       }
-      if (tid < BK * a.G) {
-        const int c = a.G == 1 ? tid : tid >> 1, gi = tid - c * a.G;
-        const bool on = pk_at(kt, c) >= 0;
-        const size_t sh = ((size_t)b * cap + (on ? k0 + c : 0)) * a.Hk + hk;
-        cp4(raw_ks(st) + 2 * c + gi, a.ks + sh * a.G + gi, on);
-        if (gi == 0) cp4(raw_vs(st) + c, a.vs + sh, on);
-      }
+      issue_scales(kt);
     } else {
       const bf16* k = reinterpret_cast<const bf16*>(a.k);
       const bf16* kn = reinterpret_cast<const bf16*>(a.kn);
@@ -514,12 +638,12 @@ decode_attn_kernel(const Args<T> a) {
         const int c = c0 + 8 * i;
         if (ch < D / 8) {
           if (any_plain)
-            cp16(k_pl(st, 0) + c * LD + ch * 8, k + row[i] * D + ch * 8, ok[i]);
+            cp16(k_pl(st, 0) + c * LDK + ch * 8, k + row[i] * D + ch * 8, ok[i]);
           if (NOPE && any_sum)
-            cp16(kn_pl(st, 0) + c * LD + ch * 8, kn + row[i] * D + ch * 8, ok[i]);
+            cp16(kn_pl(st, 0) + c * LDK + ch * 8, kn + row[i] * D + ch * 8, ok[i]);
         }
         if (ch < Dv / 8)
-          cp16(v_pl(st, 0) + c * LD + ch * 8, v + row[i] * Dv + ch * 8, ok[i]);
+          cp16(v_pl(st, 0) + c * LDV + ch * 8, v + row[i] * a.Dv + ch * 8, ok[i]);
       }
     }
   };
@@ -532,23 +656,23 @@ decode_attn_kernel(const Args<T> a) {
     for (int c = warp; c < BK; c += WARPS) {
       const int pk = pks[c];
       const size_t sh = ((size_t)b * cap + k0 + c) * a.Hk + hk;
-      bf16* kr = k_pl(st, 0) + c * LD;
-      bf16* kx = kn_pl(st, 0) + c * LD;
-      bf16* vr = v_pl(st, 0) + c * LD;
+      bf16* kr = k_pl(st, 0) + c * LDK;
+      bf16* kx = kn_pl(st, 0) + c * LDK;
+      bf16* vr = v_pl(st, 0) + c * LDV;
       const bool kn_on = NOPE && any_sum;
       if (pk < 0) {                       // nothing attends it: zeros
         for (int d = lane; d < DP; d += 32) {
-          split_store<NK>(0.f, kr + d, BK * LD);
-          if (kn_on) split_store<NK>(0.f, kx + d, BK * LD);
+          split_store<NK>(0.f, kr + d, BK * LDK);
+          if (kn_on) split_store<NK>(0.f, kx + d, BK * LDK);
         }
-        for (int d = lane; d < DVP; d += 32) split_store<NV>(0.f, vr + d, BK * LD);
+        for (int d = lane; d < DVP; d += 32) split_store<NV>(0.f, vr + d, BK * LDV);
         if (QUANT && lane == 0) vs_s[c] = 0.f;
         continue;
       }
       if (QUANT) {
         // int8 operands: from the copy stage, or from memory
         const signed char* kq = direct ? raw_kq(cs) + c * D : a.kq + sh * D;
-        const signed char* vq = direct ? raw_vq(cs) + c * Dv : a.vq + sh * Dv;
+        const signed char* vq = direct ? raw_vq(cs) + c * Dv : a.vq + sh * a.Dv + dv0;
         const float* ksc = direct ? raw_ks(cs) + 2 * c : a.ks + sh * a.G;
         const int rs = a.rope_start, half = (D - rs) / 2;
         const float s0 = ksc[0], s1 = ksc[a.G - 1];
@@ -556,8 +680,8 @@ decode_attn_kernel(const Args<T> a) {
         for (int d = lane; d < rs + DP - D; d += 32) {
           const int dd = d < rs ? d : D + d - rs;
           const float x = dd < D ? (float)kq[dd] * s0 : 0.f;
-          if (any_plain) split_store<NK>(x, kr + dd, BK * LD);
-          if (kn_on) split_store<NK>(x, kx + dd, BK * LD);
+          if (any_plain) split_store<NK>(x, kr + dd, BK * LDK);
+          if (kn_on) split_store<NK>(x, kx + dd, BK * LDK);
         }
         // the span [rope_start, D): one rotation per half pair
         for (int j = lane; j < half; j += 32) {
@@ -565,26 +689,26 @@ decode_attn_kernel(const Args<T> a) {
           if (any_plain) {          // the roped keys serve ordinary rows only
             float sn, cn;
             sincosf((float)pk * rinv_s[j], &sn, &cn);
-            split_store<NK>((x1 * cn - x2 * sn) * s1, kr + rs + j, BK * LD);
-            split_store<NK>((x1 * sn + x2 * cn) * s1, kr + rs + half + j, BK * LD);
+            split_store<NK>((x1 * cn - x2 * sn) * s1, kr + rs + j, BK * LDK);
+            split_store<NK>((x1 * sn + x2 * cn) * s1, kr + rs + half + j, BK * LDK);
           }
           if (kn_on) {
-            split_store<NK>(x1 * s1, kx + rs + j, BK * LD);
-            split_store<NK>(x2 * s1, kx + rs + half + j, BK * LD);
+            split_store<NK>(x1 * s1, kx + rs + j, BK * LDK);
+            split_store<NK>(x2 * s1, kx + rs + half + j, BK * LDK);
           }
         }
         for (int d = lane; d < DVP; d += 32)
-          split_store<NV>(d < Dv ? (float)vq[d] : 0.f, vr + d, BK * LD);
+          split_store<NV>(d < Dv ? (float)vq[d] : 0.f, vr + d, BK * LDV);
         if (lane == 0) vs_s[c] = direct ? raw_vs(cs)[c] : a.vs[sh];
       } else {
         for (int d = lane; d < DP; d += 32) {
           if (any_plain)
-            split_store<NK>(d < D ? to_f(a.k[sh * D + d]) : 0.f, kr + d, BK * LD);
+            split_store<NK>(d < D ? to_f(a.k[sh * D + d]) : 0.f, kr + d, BK * LDK);
           if (kn_on)
-            split_store<NK>(d < D ? to_f(a.kn[sh * D + d]) : 0.f, kx + d, BK * LD);
+            split_store<NK>(d < D ? to_f(a.kn[sh * D + d]) : 0.f, kx + d, BK * LDK);
         }
         for (int d = lane; d < DVP; d += 32)
-          split_store<NV>(d < Dv ? to_f(a.v[sh * Dv + d]) : 0.f, vr + d, BK * LD);
+          split_store<NV>(d < Dv ? to_f(a.v[sh * a.Dv + dv0 + d]) : 0.f, vr + d, BK * LDV);
       }
     }
   };
@@ -610,6 +734,14 @@ decode_attn_kernel(const Args<T> a) {
     sg[h] = seg_r[r];
     rsum[h] = NOPE && sum_r[r] != 0;
     al[h] = alibi_r[r];
+  }
+  // the MLA mode's fp32 instantiation: this thread's two query rows in
+  // memory, from which it builds its A fragments (no Q plane)
+  const float* qg[2] = {nullptr, nullptr};
+  if constexpr (!L::QPLANE) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (rin[h]) qg[h] = q_row(wr0 + g + 8 * h);
   }
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
   float acc[NT_V][4];
@@ -639,18 +771,22 @@ decode_attn_kernel(const Args<T> a) {
     // Q.K^T and Qn.Kn^T, as this warp's rows need them
     const int nkd = DP / 16;
     const bool w_n = NOPE && w_sum;
-    const bf16* qrow = q_p + (wr0 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + (lane >> 4) * 8;
-    const int koff = ((lane & 7) + (lane >> 4) * 8) * LD + ((lane >> 3) & 1) * 8;
+    const bf16* qrow = q_p + (wr0 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDK + (lane >> 4) * 8;
+    const int koff = ((lane & 7) + (lane >> 4) * 8) * LDK + ((lane >> 3) & 1) * 8;
     for (int kd = 0; kd < nkd; ++kd) {
       uint32_t fq[NQ][4], fk[NK][2][4], fn[NK][2][4];
+      if constexpr (L::QPLANE) {
 #pragma unroll
-      for (int t = 0; t < NQ; ++t) ldsm_x4(fq[t], qrow + t * RB * LD + kd * 16);
+        for (int t = 0; t < NQ; ++t) ldsm_x4(fq[t], qrow + t * RB * LDK + kd * 16);
+      } else {
+        a_frag_rows<NQ>(qg, kd * 16 + 2 * cq, D, fq);
+      }
 #pragma unroll
       for (int tk = 0; tk < NK; ++tk)
 #pragma unroll
         for (int jp = 0; jp < 2; ++jp) {
-          if (w_plain) ldsm_x4(fk[tk][jp], k_pl(st, tk) + jp * 16 * LD + koff + kd * 16);
-          if (w_n) ldsm_x4(fn[tk][jp], kn_pl(st, tk) + jp * 16 * LD + koff + kd * 16);
+          if (w_plain) ldsm_x4(fk[tk][jp], k_pl(st, tk) + jp * 16 * LDK + koff + kd * 16);
+          if (w_n) ldsm_x4(fn[tk][jp], kn_pl(st, tk) + jp * 16 * LDK + koff + kd * 16);
         }
 #pragma unroll
       for (int tk = 0; tk < NK; ++tk)
@@ -759,7 +895,7 @@ decode_attn_kernel(const Args<T> a) {
         }
       }
     // P.V: four 16-column pairs of V fragments loaded, then their mmas
-    const int voff = ((lane & 7) + ((lane >> 3) & 1) * 8) * LD + (lane >> 4) * 8;
+    const int voff = ((lane & 7) + ((lane >> 3) & 1) * 8) * LDV + (lane >> 4) * 8;
 #pragma unroll
     for (int kk = 0; kk < KK; ++kk)
 #pragma unroll
@@ -771,7 +907,7 @@ decode_attn_kernel(const Args<T> a) {
 #pragma unroll
             for (int u = 0; u < 4; ++u)
               if ((n4 * 4 + u) * 16 < DVP)
-                ldsm_x4_t(bv[tv][u], v_pl(st, tv) + kk * 16 * LD + voff + (n4 * 4 + u) * 16);
+                ldsm_x4_t(bv[tv][u], v_pl(st, tv) + kk * 16 * LDV + voff + (n4 * 4 + u) * 16);
 #pragma unroll
           for (int tv = 0; tv < NV; ++tv)
 #pragma unroll
@@ -819,23 +955,39 @@ decode_attn_kernel(const Args<T> a) {
       cp_commit();
     }
   }
-  if (qch * 8 < DP) {
+  // 8 Q values as bf16 terms at dst (one 16-byte store when one term)
+  auto q_store = [&](bf16* dst, const float (&x)[8]) {
+    if (NQ == 1) {
+      uint32_t w[4];
 #pragma unroll
-    for (int i = 0; i < RB / 8; ++i) {
-      bf16* dst = q_p + (qr + 8 * i) * LD + qch * 8;
-      if (NQ == 1) {        // one 16-byte store of 8 bf16
-        uint32_t w[4];
+      for (int e = 0; e < 4; ++e) {
+        const __nv_bfloat162 h2 = __floats2bfloat162_rn(x[2 * e], x[2 * e + 1]);
+        w[e] = *reinterpret_cast<const uint32_t*>(&h2);
+      }
+      *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
+    } else {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const __nv_bfloat162 h2 = __floats2bfloat162_rn(qx[i][2 * e], qx[i][2 * e + 1]);
-          w[e] = *reinterpret_cast<const uint32_t*>(&h2);
+      for (int e = 0; e < 8; ++e) split_store<NQ>(x[e], dst + e, RB * LDK);
+    }
+  };
+  if constexpr (WIDE) {
+    if constexpr (L::QPLANE) {   // (row, 8-value chunk) pairs over the block
+      const int nch = DP / 8;
+      for (int i = tid; i < RB * nch; i += THREADS) {
+        const int r = i / nch, ch = i - r * nch;
+        float x[8];
+        if (r < nr && ch * 8 < D) {
+          load8(q_row(r) + ch * 8, D - ch * 8, x);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 8; ++e) x[e] = 0.f;
         }
-        *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
-      } else {
-#pragma unroll
-        for (int e = 0; e < 8; ++e) split_store<NQ>(qx[i][e], dst + e, RB * LD);
+        q_store(q_p + r * LDK + ch * 8, x);
       }
     }
+  } else if (qch * 8 < DP) {
+#pragma unroll
+    for (int i = 0; i < RB / 8; ++i) q_store(q_p + (qr + 8 * i) * LDK + qch * 8, qx[i]);
   }
   // the Q planes are read after the loop's first barrier
   for (int kt = 0; kt < n_live; ++kt) {
@@ -878,11 +1030,11 @@ decode_attn_kernel(const Args<T> a) {
         const int col = j * 8 + 2 * cq + e;
         if (col >= Dv) continue;
         if (a.n_split == 1)
-          store(a.o + row * Dv + col, acc[j][2 * h + e] * inv);
+          store(a.o + row * a.Dv + dv0 + col, acc[j][2 * h + e] * inv);
         else
-          a.ws_acc[((size_t)split * rows + row) * Dv + col] = acc[j][2 * h + e];
+          a.ws_acc[((size_t)split * rows + row) * a.Dv + dv0 + col] = acc[j][2 * h + e];
       }
-    if (a.n_split > 1 && cq == 0) {
+    if (a.n_split > 1 && cq == 0 && dv0 == 0) {   // chunk 0's m and l
       a.ws_m[(size_t)split * rows + row] = m[h];
       a.ws_l[(size_t)split * rows + row] = l[h];
     }
@@ -912,14 +1064,14 @@ combine_kernel(const float* __restrict__ ws_acc, const float* __restrict__ ws_m,
   store(o + idx, lsum > 0.f ? acc * (1.f / lsum) : 0.f);
 }
 
-template <typename T, bool NOPE, bool QUANT>
+template <typename T, bool NOPE, bool QUANT, bool WIDE>
 int launch(const Args<T>& a, cudaStream_t stream) {
-  const size_t smem = Smem<T, NOPE, QUANT>::BYTES + (3 * (size_t)a.s + a.H / a.Hk) * 4;
-  auto kern = decode_attn_kernel<T, NOPE, QUANT>;
+  const size_t smem = Smem<T, NOPE, QUANT, WIDE>::BYTES + (3 * (size_t)a.s + a.H / a.Hk) * 4;
+  auto kern = decode_attn_kernel<T, NOPE, QUANT, WIDE>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid(a.n_rb * a.n_split, a.Hk, a.B);
+  const dim3 grid(a.n_rb * a.n_dv * a.n_split, a.Hk, a.B);
   kern<<<grid, THREADS, smem, stream>>>(a);
   e = cudaGetLastError();
   if (e != cudaSuccess || a.n_split == 1) return (int)e;
@@ -938,10 +1090,10 @@ struct Ptrs {
 };
 
 struct Plan {
-  int n_rb, n_split, span;
+  int n_rb, n_split, span, n_dv;
 };
 
-template <typename T>
+template <typename T, bool WIDE>
 int run(const Ptrs& p, const Plan& pl, int B, int s, int H, int Hk, int cap,
         int D, int Dv, int G, int rope_start, int window, int use_nope,
         int use_seg, int quant, float scale, cudaStream_t st) {
@@ -970,7 +1122,7 @@ int run(const Ptrs& p, const Plan& pl, int B, int s, int H, int Hk, int cap,
   a.B = B; a.s = s; a.H = H; a.Hk = Hk; a.cap = cap; a.D = D; a.Dv = Dv;
   a.window = window; a.use_seg = use_seg; a.scale = scale;
   a.G = G; a.rope_start = rope_start;
-  a.n_rb = pl.n_rb; a.n_split = pl.n_split; a.span = pl.span;
+  a.n_rb = pl.n_rb; a.n_split = pl.n_split; a.span = pl.span; a.n_dv = pl.n_dv;
   // 16-byte copies need 16-byte rows and bases
   const uintptr_t al = (uintptr_t)p.k | (uintptr_t)p.v |
                        (use_nope && !quant ? (uintptr_t)p.kn : 0);
@@ -978,15 +1130,18 @@ int run(const Ptrs& p, const Plan& pl, int B, int s, int H, int Hk, int cap,
   a.direct = (quant || sizeof(T) == 2) && D % row == 0 && Dv % row == 0 &&
              al % 16 == 0;
   if (quant)
-    return use_nope ? launch<T, true, true>(a, st) : launch<T, false, true>(a, st);
-  return use_nope ? launch<T, true, false>(a, st) : launch<T, false, false>(a, st);
+    return use_nope ? launch<T, true, true, WIDE>(a, st) : launch<T, false, true, WIDE>(a, st);
+  return use_nope ? launch<T, true, false, WIDE>(a, st) : launch<T, false, false, WIDE>(a, st);
 }
 
+// `wide`: the MLA mode (qk dims up to MLA_DQK, values up to MLA_DV in
+// n_dv chunks of DMAX columns); else the GQA mode (both up to DMAX)
 int dispatch(const Ptrs& p, const Plan& pl, int B, int s, int H, int Hk,
              int cap, int D, int Dv, int G, int rope_start, int window,
              int use_nope, int use_seg, int quant, int is_bf16, float scale,
-             void* stream) {
-  if (D > DMAX || Dv > DMAX || D <= 0 || Dv <= 0 || Hk <= 0 || H % Hk != 0 ||
+             int wide, void* stream) {
+  if (D > (wide ? MLA_DQK : DMAX) || Dv > (wide ? MLA_DV : DMAX) ||
+      D <= 0 || Dv <= 0 || Hk <= 0 || H % Hk != 0 ||
       (use_nope && (p.qn == nullptr || p.sum_q == nullptr ||
                     (!quant && p.kn == nullptr))) ||
       (use_seg && (p.seg_q == nullptr || p.seg_k == nullptr)))
@@ -997,6 +1152,7 @@ int dispatch(const Ptrs& p, const Plan& pl, int B, int s, int H, int Hk,
     return (int)cudaErrorInvalidValue;
   // the plan must tile the rows and the cache exactly (decode_split_plan)
   if (pl.n_rb != (H / Hk * s + RB - 1) / RB || pl.n_split < 1 ||
+      pl.n_dv != (Dv + DMAX - 1) / DMAX ||
       pl.span <= 0 || pl.span % BK != 0 || pl.span > MAX_TILES * BK ||
       (long long)pl.n_split * pl.span < cap ||
       (long long)(pl.n_split - 1) * pl.span >= (cap > 0 ? cap : 1) ||
@@ -1004,16 +1160,21 @@ int dispatch(const Ptrs& p, const Plan& pl, int B, int s, int H, int Hk,
     return (int)cudaErrorInvalidValue;
   if (B == 0 || s == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (wide)
+    return is_bf16 ? run<bf16, true>(p, pl, B, s, H, Hk, cap, D, Dv, G, rope_start, window,
+                                     use_nope, use_seg, quant, scale, st)
+                   : run<float, true>(p, pl, B, s, H, Hk, cap, D, Dv, G, rope_start, window,
+                                      use_nope, use_seg, quant, scale, st);
   if (is_bf16)
-    return run<bf16>(p, pl, B, s, H, Hk, cap, D, Dv, G, rope_start, window,
-                     use_nope, use_seg, quant, scale, st);
-  return run<float>(p, pl, B, s, H, Hk, cap, D, Dv, G, rope_start, window,
-                    use_nope, use_seg, quant, scale, st);
+    return run<bf16, false>(p, pl, B, s, H, Hk, cap, D, Dv, G, rope_start, window,
+                            use_nope, use_seg, quant, scale, st);
+  return run<float, false>(p, pl, B, s, H, Hk, cap, D, Dv, G, rope_start, window,
+                           use_nope, use_seg, quant, scale, st);
 }
 
 }  // namespace
 
-// Both entry points return the launch's cudaError_t (0 = launched).
+// Every entry point returns the launch's cudaError_t (0 = launched).
 // Pointers the flags switch off may be null. `is_bf16` is the type of q,
 // q_nope and o. The split plan (n_rb row blocks of 64 rows, n_split kv
 // ranges of `span` slots) comes from `decode_split_plan`; with n_split > 1
@@ -1028,8 +1189,8 @@ extern "C" int decode_attn_fwd(
     int n_split, int span, float scale, void* stream) {
   const Ptrs p{q, qn, k, kn, v, nullptr, nullptr, nullptr, alibi,
                pos_q, pos_k, sum_q, seg_q, seg_k, o, ws};
-  return dispatch(p, Plan{n_rb, n_split, span}, B, s, H, Hk, cap, D, Dv, 1,
-                  0, window, use_nope, use_seg, 0, is_bf16, scale, stream);
+  return dispatch(p, Plan{n_rb, n_split, span, 1}, B, s, H, Hk, cap, D, Dv, 1,
+                  0, window, use_nope, use_seg, 0, is_bf16, scale, 0, stream);
 }
 
 // The int8 mode: kq/vq int8 codes (B, cap, Hk, D|Dv), ks (B, cap, Hk, G)
@@ -1044,7 +1205,38 @@ extern "C" int decode_attn_q8_fwd(
     int n_split, int span, float scale, void* stream) {
   const Ptrs p{q, qn, kq, nullptr, vq, ks, vs, rinv, alibi,
                pos_q, pos_k, sum_q, seg_q, seg_k, o, ws};
-  return dispatch(p, Plan{n_rb, n_split, span}, B, s, H, Hk, cap, D, Dv, G,
-                  rope_start, window, use_nope, use_seg, 1, is_bf16, scale,
+  return dispatch(p, Plan{n_rb, n_split, span, 1}, B, s, H, Hk, cap, D, Dv, G,
+                  rope_start, window, use_nope, use_seg, 1, is_bf16, scale, 0,
                   stream);
+}
+
+// The MLA mode of both: the same arguments, qk dims up to 288 and value
+// dims up to 256, and the plan's n_dv value chunks of 128 columns.
+extern "C" int decode_attn_mla_fwd(
+    const void* q, const void* qn, const void* k, const void* kn,
+    const void* v, const void* alibi, const void* pos_q, const void* pos_k,
+    const void* sum_q, const void* seg_q, const void* seg_k, void* o,
+    void* ws, int B, int s, int H, int Hk, int cap, int D, int Dv,
+    int window, int use_nope, int use_seg, int is_bf16, int n_rb,
+    int n_split, int span, int n_dv, float scale, void* stream) {
+  const Ptrs p{q, qn, k, kn, v, nullptr, nullptr, nullptr, alibi,
+               pos_q, pos_k, sum_q, seg_q, seg_k, o, ws};
+  return dispatch(p, Plan{n_rb, n_split, span, n_dv}, B, s, H, Hk, cap, D,
+                  Dv, 1, 0, window, use_nope, use_seg, 0, is_bf16, scale, 1,
+                  stream);
+}
+
+extern "C" int decode_attn_mla_q8_fwd(
+    const void* q, const void* qn, const void* kq, const void* vq,
+    const void* ks, const void* vs, const void* rinv, const void* alibi,
+    const void* pos_q, const void* pos_k, const void* sum_q,
+    const void* seg_q, const void* seg_k, void* o, void* ws, int B, int s,
+    int H, int Hk, int cap, int D, int Dv, int G, int rope_start,
+    int window, int use_nope, int use_seg, int is_bf16, int n_rb,
+    int n_split, int span, int n_dv, float scale, void* stream) {
+  const Ptrs p{q, qn, kq, nullptr, vq, ks, vs, rinv, alibi,
+               pos_q, pos_k, sum_q, seg_q, seg_k, o, ws};
+  return dispatch(p, Plan{n_rb, n_split, span, n_dv}, B, s, H, Hk, cap, D,
+                  Dv, G, rope_start, window, use_nope, use_seg, 1, is_bf16,
+                  scale, 1, stream);
 }

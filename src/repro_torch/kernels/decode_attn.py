@@ -14,6 +14,14 @@ Attendable iff the slot is filled (``pos_k >= 0``), causal, within
 (``seg_k < 0`` shared, else ``seg_k == seg_q``). Rows flagged ``is_sum_q``
 score the NoPE stream minus ``alibi * distance``. Rows with no key give 0.
 
+Head dims up to ``MAX_HEAD_DIM`` (128) take the GQA mode (launch keys
+``"decode_attn"``, ``"decode_attn_q8"``). Wider ones, up to
+``MLA_MAX_QK`` / ``MLA_MAX_V`` (288 / 256: absorbed MLA at minicpm3-4b,
+Hk = 1, q = [q_abs | q_pe] against the latent cache), take the MLA mode
+(``"decode_attn_mla"``, ``"decode_attn_mla_q8"``), the same kernel with
+wider Q/K planes and the value columns split over CTAs in chunks of
+``VALUE_CHUNK``. deepseek-v2's 576 / 512 is refused (ROADMAP queue B).
+
 ``k_scale`` switches to the int8 mode (the quantized-KV contract of
 ``repro_torch.core.quant``): ``k``/``v`` are raw int8 cache codes, unroped;
 ``k_scale (B, cap, Hk, G)`` (G in {1, 2}: two scale groups split at
@@ -46,20 +54,27 @@ from repro_torch.models.layers import apply_rope, rope_freqs
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {"decode_attn_fwd": [_P] * 13 + [_I] * 14 + [_F, _P],
-             "decode_attn_q8_fwd": [_P] * 15 + [_I] * 16 + [_F, _P]}
-MAX_HEAD_DIM = 128
-ROW_BLOCK = 64      # query rows per CTA (RB in csrc/decode_attn.cu)
+             "decode_attn_q8_fwd": [_P] * 15 + [_I] * 16 + [_F, _P],
+             "decode_attn_mla_fwd": [_P] * 13 + [_I] * 15 + [_F, _P],
+             "decode_attn_mla_q8_fwd": [_P] * 15 + [_I] * 17 + [_F, _P]}
+MAX_HEAD_DIM = 128  # the GQA mode's head dims (DMAX in csrc/decode_attn.cu)
+MLA_MAX_QK = 288    # the MLA mode's qk and value head dims (MLA_DQK,
+MLA_MAX_V = 256     # MLA_DV there)
+VALUE_CHUNK = 128   # value columns per CTA (DMAX there)
+ROW_BLOCK = 64      # query rows per CTA (RB there)
 KV_TILE = 32        # cache slots per staged tile (BK there)
 MAX_TILES = 256     # tiles of one cache range (MAX_TILES there)
 
 
 class SplitPlan(NamedTuple):
     """How one call's work is cut: ``n_rb`` blocks of ``ROW_BLOCK`` rows
-    (n_rep heads x s queries of a kv head) times ``n_split`` cache ranges
-    of ``span`` slots, for each (kv head, batch row): ``grid`` CTAs.
-    ``workspace`` fp32 values hold the ranges' partial rows (acc, then m,
-    then l) when ``n_split > 1``, else 0."""
+    (n_rep heads x s queries of a kv head) times ``n_dv`` chunks of
+    ``VALUE_CHUNK`` value columns (more than one only in the MLA mode)
+    times ``n_split`` cache ranges of ``span`` slots, for each (kv head,
+    batch row): ``grid`` CTAs. ``workspace`` fp32 values hold the ranges'
+    partial rows (acc, then m, then l) when ``n_split > 1``, else 0."""
     n_rb: int
+    n_dv: int
     n_split: int
     span: int
     grid: int
@@ -68,21 +83,27 @@ class SplitPlan(NamedTuple):
 
 def decode_split_plan(b: int, s: int, h: int, hk: int, cap: int, n_sm: int,
                       dv: int = MAX_HEAD_DIM) -> SplitPlan:
-    """Row blocks first: they re-read K/V tiles from L2 and need no
-    workspace. Only when ``b * hk * n_rb`` CTAs leave SMs idle (or a
-    range would exceed ``MAX_TILES`` tiles, the kernel's list of live
-    tiles) is the cache cut into the fewest equal ranges of whole tiles
-    that cover ``n_sm``: each range costs ``b * s * h * (dv + 2)`` fp32 of
-    partials, written once and read once."""
+    """Row blocks (and value chunks) first: they re-read K/V tiles from
+    L2 and need no workspace. Only when ``b * hk * n_rb * n_dv`` CTAs
+    leave SMs idle (or a range would exceed ``MAX_TILES`` tiles, the
+    kernel's list of live tiles) is the cache cut into the fewest equal
+    ranges of whole tiles that cover ``n_sm``: each range costs
+    ``b * s * h * (dv + 2)`` fp32 of partials, written once and read
+    once. (Equal ranges of whole tiles can come out fewer than asked, 64
+    tiles in 9 ranges being 8 of 8: then one more is asked for.)"""
     n_rb = -(-(h // hk) * s // ROW_BLOCK)
-    base = b * hk * n_rb
+    n_dv = -(-dv // VALUE_CHUNK)
+    base = b * hk * n_rb * n_dv
     n_tiles = max(1, -(-cap // KV_TILE))
     want = min(n_tiles, max(1, -(-n_sm // max(base, 1)),
                             -(-n_tiles // MAX_TILES)))
     per = -(-n_tiles // want)
+    while per > 1 and base * -(-n_tiles // per) < n_sm:
+        want += 1
+        per = -(-n_tiles // want)
     n_split = -(-n_tiles // per)
     ws = n_split * b * s * h * (dv + 2) if n_split > 1 else 0
-    return SplitPlan(n_rb, n_split, per * KV_TILE, base * n_split, ws)
+    return SplitPlan(n_rb, n_dv, n_split, per * KV_TILE, base * n_split, ws)
 
 
 def split_workspace(plan: SplitPlan, device) -> Optional[torch.Tensor]:
@@ -163,6 +184,11 @@ def decode_attention_plain(q, k, v, pos_q, pos_k, *, window: int,
                         _repeat_kv(v, n_rep)).to(q.dtype)
 
 
+def is_mla_mode(d: int, dv: int) -> bool:
+    """Whether head dims ``d`` (qk) and ``dv`` take the MLA mode."""
+    return d > MAX_HEAD_DIM or dv > MAX_HEAD_DIM
+
+
 def _check(q, k, v, use_nope, q_nope, k_nope, kv_dtype):
     b, s, h, d = q.shape
     cap, hk, dv = k.shape[1], k.shape[2], v.shape[3]
@@ -171,8 +197,11 @@ def _check(q, k, v, use_nope, q_nope, k_nope, kv_dtype):
     if k.shape != (b, cap, hk, d) or v.shape[:3] != (b, cap, hk) or h % hk:
         raise ValueError(f"shapes q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)} do not fit")
-    if d > MAX_HEAD_DIM or dv > MAX_HEAD_DIM:
-        raise ValueError(f"head dims {d}/{dv} exceed {MAX_HEAD_DIM}")
+    if d > MLA_MAX_QK or dv > MLA_MAX_V:
+        raise ValueError(
+            f"head dims {d}/{dv} exceed the MLA mode's {MLA_MAX_QK}/"
+            f"{MLA_MAX_V} (deepseek-v2's 576/512 is not ported: ROADMAP "
+            "queue B)")
     for t in [q] + ([q_nope] if use_nope else []):
         if t.dtype != q.dtype or t.device != q.device or not t.is_contiguous():
             raise ValueError("q/q_nope must share q's dtype and device and "
@@ -233,18 +262,22 @@ def decode_attention(q, k, v, pos_q, pos_k, *, window: int, is_sum_q=None,
             on(seg_q, use_seg), on(seg_k, use_seg)]
     plan = decode_split_plan(b, s, h, hk, cap, sm_count(q.device), dv)
     ws = split_workspace(plan, q.device)
-    split = (plan.n_rb, plan.n_split, plan.span)
+    # the MLA mode's entry points take the plan's value chunks too
+    mla = is_mla_mode(d, dv)
+    split = ((plan.n_rb, plan.n_split, plan.span, plan.n_dv) if mla
+             else (plan.n_rb, plan.n_split, plan.span))
+    name = "decode_attn_mla" if mla else "decode_attn"
     stream = torch.cuda.current_stream(q.device).cuda_stream
     lib = load("decode_attn", _ARGTYPES)
     if not quant:
-        rc = lib.decode_attn_fwd(
+        rc = getattr(lib, f"{name}_fwd")(
             ptr(q), ptr(q_nope if use_nope else None), ptr(k),
             ptr(k_nope if use_nope else None), ptr(v), ptr(alibi_f),
             *map(ptr, ints), ptr(o), ptr(ws),
             b, s, h, hk, cap, d, dv, int(window), int(use_nope),
             int(use_seg), int(q.dtype == torch.bfloat16), *split,
             float(scale), stream)
-        check_launch("decode_attn", rc)
+        check_launch(name, rc)
         return o
 
     g = k_scale.shape[-1]
@@ -259,15 +292,15 @@ def decode_attention(q, k, v, pos_q, pos_k, *, window: int, is_sum_q=None,
     ks = k_scale.float().contiguous()
     vs = v_scale.float().contiguous()
     rinv = rope_freqs(d - rope_start, rope_theta, q.device)
-    rc = lib.decode_attn_q8_fwd(
+    rc = getattr(lib, f"{name}_q8_fwd")(
         ptr(q), ptr(q_nope if use_nope else None), ptr(k), ptr(v), ptr(ks),
         ptr(vs), ptr(rinv), ptr(alibi_f), *map(ptr, ints), ptr(o), ptr(ws),
         b, s, h, hk, cap, d, dv, g, int(rope_start), int(window),
         int(use_nope), int(use_seg), int(q.dtype == torch.bfloat16), *split,
         float(scale), stream)
-    check_launch("decode_attn_q8", rc)
+    check_launch(f"{name}_q8", rc)
     return o
 
 
 __all__ = ["SplitPlan", "decode_attention", "decode_attention_plain",
-           "decode_split_plan", "split_workspace"]
+           "decode_split_plan", "is_mla_mode", "split_workspace"]

@@ -5,8 +5,10 @@ The reference's ``lax.scan`` over stacked layers is a Python loop over
 ``params["layers"]`` here: PyTorch runs eagerly, so there is no HLO size to
 keep O(1) in depth. Remat wraps each layer in
 ``torch.utils.checkpoint`` instead of ``jax.checkpoint`` around the scan
-body. This covers the dense GQA model the paper trains and serves
-(dti-llama); MoE and MLA raise and arrive with their own slices.
+body. This covers the dense models: GQA (dti-llama, the model the paper
+trains and serves) and MLA (minicpm3-4b, served; its training path waits
+for kernels 2 and 3 at its head dims). MoE raises and arrives with its
+own slice.
 """
 from __future__ import annotations
 
@@ -20,7 +22,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.windowed import ResetConfig
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models.attention import DTIAttnOpts, gqa_attention, init_gqa
+from repro_torch.models.attention import (DTIAttnOpts, gqa_attention,
+                                          init_gqa, init_mla, mla_attention)
 from repro_torch.models.layers import (Params, init_linear, init_rmsnorm,
                                        init_swiglu, normal_init, rmsnorm,
                                        swiglu)
@@ -36,15 +39,22 @@ class ModelConfig:
     d_ff: int = 1024
     vocab_size: int = 32000
     head_dim: Optional[int] = None
-    attn_type: str = "gqa"              # "gqa" ("mla": later slice)
+    attn_type: str = "gqa"              # "gqa" | "mla"
     qkv_bias: bool = False
+    # MLA
+    q_lora_rank: int = 0
+    kv_lora_rank: int = 0
+    qk_nope_dim: int = 0
+    qk_rope_dim: int = 0
+    v_head_dim: int = 0
     # MoE (later slice; the bridge needs the dense-prefix split)
     moe: bool = False
     first_dense_layers: int = 0
     # positional / attention
     rope_theta: float = 10000.0
     window: int = 0                     # 0 = full causal
-    attn_impl: str = "dense"            # "dense" | "cuda"
+    attn_impl: str = "dense"            # "dense" | "blocked" | "cuda"
+    attn_q_chunk: int = 4               # q-block chunking (blocked impl)
     # DTI
     dti_sum_token: bool = False
     dti_sum_alibi: bool = True
@@ -86,10 +96,8 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             "MoE layers are not ported yet (ROADMAP queue A: other "
             "architectures slice)")
-    if cfg.attn_type != "gqa":
-        raise NotImplementedError(
-            f"attn_type={cfg.attn_type!r} is not ported yet (MLA comes with "
-            "the other-architectures slice, ROADMAP queue A)")
+    if cfg.attn_type not in ("gqa", "mla"):
+        raise ValueError(f"unknown attn_type {cfg.attn_type!r}")
     if cfg.remat_policy == "dots":
         raise NotImplementedError(
             "remat_policy='dots' (save the weight matmuls, recompute only "
@@ -101,8 +109,17 @@ def check_supported(cfg: ModelConfig) -> None:
 
 def _init_layer(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
     kw = dict(dtype=cfg.pdtype, device=device, lora_rank=cfg.lora_rank)
-    return {"attn": init_gqa(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-                             cfg.hd, qkv_bias=cfg.qkv_bias, **kw),
+    if cfg.attn_type == "mla":
+        attn = init_mla(gen, cfg.d_model, cfg.n_heads,
+                        q_lora_rank=cfg.q_lora_rank,
+                        kv_lora_rank=cfg.kv_lora_rank,
+                        qk_nope_dim=cfg.qk_nope_dim,
+                        qk_rope_dim=cfg.qk_rope_dim,
+                        v_head_dim=cfg.v_head_dim, **kw)
+    else:
+        attn = init_gqa(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                        cfg.hd, qkv_bias=cfg.qkv_bias, **kw)
+    return {"attn": attn,
             "ffn": init_swiglu(gen, cfg.d_model, cfg.d_ff, **kw),
             "ln_attn": init_rmsnorm(cfg.d_model, cfg.pdtype, device),
             "ln_ffn": init_rmsnorm(cfg.d_model, cfg.pdtype, device)}
@@ -135,11 +152,18 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
 def _layer_fwd(lp: Params, h: torch.Tensor, cfg: ModelConfig, *, positions,
                window: int, dti: Optional[DTIAttnOpts], valid) -> torch.Tensor:
     x = rmsnorm(lp["ln_attn"], h, cfg.norm_eps)
-    h = h + gqa_attention(lp["attn"], x, n_heads=cfg.n_heads,
-                          n_kv_heads=cfg.n_kv_heads, head_dim=cfg.hd,
-                          positions=positions, window=window,
-                          rope_theta=cfg.rope_theta, impl=cfg.attn_impl,
-                          dti=dti, valid=valid)
+    kw = dict(positions=positions, window=window, rope_theta=cfg.rope_theta,
+              impl=cfg.attn_impl, q_chunk=cfg.attn_q_chunk, dti=dti,
+              valid=valid)
+    if cfg.attn_type == "mla":
+        h = h + mla_attention(lp["attn"], x, n_heads=cfg.n_heads,
+                              qk_nope_dim=cfg.qk_nope_dim,
+                              qk_rope_dim=cfg.qk_rope_dim,
+                              v_head_dim=cfg.v_head_dim, **kw)
+    else:
+        h = h + gqa_attention(lp["attn"], x, n_heads=cfg.n_heads,
+                              n_kv_heads=cfg.n_kv_heads, head_dim=cfg.hd,
+                              **kw)
     x = rmsnorm(lp["ln_ffn"], h, cfg.norm_eps)
     return h + swiglu(lp["ffn"], x)
 

@@ -3,12 +3,17 @@ paged, bf16/fp32 or int8, with refcounted context blocks for cross-request
 prefix sharing.
 
 A cache is a flat dict. Per-layer KV tensors are stacked on a leading L
-dim and hold **unroped** keys:
+dim and hold **unroped** keys. A GQA model caches ``k``, ``v`` per kv
+head; an MLA model the latent per token, ``ckv`` (r_kv values) and
+``kpe`` (the shared rope head's d_rope values), with no head axis, which
+its decode step attends in absorbed form:
 
-* contiguous layout — ``k``, ``v`` ``(L, B, cap, Hk, hd)``: one row of
+* contiguous layout — ``k``, ``v`` ``(L, B, cap, Hk, hd)`` (MLA: ``ckv``
+  ``(L, B, cap, r_kv)``, ``kpe`` ``(L, B, cap, d_rope)``): one row of
   ``cap`` slots per batch row;
 * paged layout (``page_size`` set) — ``k``, ``v`` ``(L, n_pages *
-  page_size, Hk, hd)``: one global slot axis shared by every row, which
+  page_size, Hk, hd)`` (MLA: ``(L, n_pages * page_size, r_kv | d_rope)``):
+  one global slot axis shared by every row, which
   addresses it through ``page_table (B, cap // page_size) int32`` of pool
   page ids (-1 = unmapped). Logical slot ``j`` of a row lives at physical
   slot ``page_table[row, j // ps] * ps + j % ps`` (``physical_slots``).
@@ -17,7 +22,8 @@ dim and hold **unroped** keys:
 * int8 layout (``kv_dtype="int8"``) — ``k``/``v`` hold int8 codes and
   ``k_scale``/``v_scale`` ``(L, ..., cap, Hk)`` fp32 one symmetric absmax
   scale per (slot, kv head) on the same slot axis as the codes
-  (``repro_torch.core.quant``), so a page carries its own scales.
+  (``repro_torch.core.quant``), so a page carries its own scales; MLA's
+  ``ckv_scale``/``kpe_scale`` ``(L, ..., cap)``, one per slot and stream.
 
 Bookkeeping shared by every layer, logical per row in every layout:
 
@@ -74,12 +80,19 @@ def init_lm_cache(cfg: ModelConfig, batch: int, capacity: int, *,
         slots = (n_pages * page_size,)                 # global slot axis
     else:
         slots = (batch, capacity)
-    l, hk, hd = cfg.n_layers, cfg.n_kv_heads, cfg.hd
-    cache = {"k": torch.zeros((l, *slots, hk, hd), dtype=store, device=device),
-             "v": torch.zeros((l, *slots, hk, hd), dtype=store, device=device)}
+    l = cfg.n_layers
+    if cfg.attn_type == "mla":
+        widths = {"ckv": (cfg.kv_lora_rank,), "kpe": (cfg.qk_rope_dim,)}
+        scales = {"ckv_scale": (), "kpe_scale": ()}
+    else:
+        hk, hd = cfg.n_kv_heads, cfg.hd
+        widths = {"k": (hk, hd), "v": (hk, hd)}
+        scales = {"k_scale": (hk,), "v_scale": (hk,)}
+    cache = {key: torch.zeros((l, *slots, *w), dtype=store, device=device)
+             for key, w in widths.items()}
     if quant:
-        for key in ("k_scale", "v_scale"):
-            cache[key] = torch.zeros((l, *slots, hk), dtype=torch.float32,
+        for key, w in scales.items():
+            cache[key] = torch.zeros((l, *slots, *w), dtype=torch.float32,
                                      device=device)
     if page_size is not None:
         cache["page_table"] = torch.full((batch, capacity // page_size), -1,
@@ -98,13 +111,14 @@ def is_paged(cache: Cache) -> bool:
 
 def is_quantized(cache: Cache) -> bool:
     """True when KV is stored as int8 codes + fp32 scale sidecars."""
-    return "k_scale" in cache
+    return "k_scale" in cache or "ckv_scale" in cache
 
 
 def kv_keys(cache: Cache):
     """The per-layer KV tensor keys of ``cache`` (codes + scale sidecars),
-    in a fixed order."""
-    return tuple(k for k in ("k", "v", "k_scale", "v_scale") if k in cache)
+    in a fixed order, GQA's or MLA's."""
+    return tuple(k for k in ("k", "v", "k_scale", "v_scale", "ckv", "kpe",
+                             "ckv_scale", "kpe_scale") if k in cache)
 
 
 def kv_cache_bytes(cache: Cache) -> int:
@@ -116,7 +130,7 @@ def kv_cache_bytes(cache: Cache) -> int:
 
 def kv_token_bytes(cache: Cache) -> float:
     """KV bytes per token slot, summed over layers (codes + scales)."""
-    k = cache["k"]
+    k = cache["ckv"] if "ckv" in cache else cache["k"]
     n_slots = k.shape[1] if is_paged(cache) else k.shape[1] * k.shape[2]
     return kv_cache_bytes(cache) / n_slots
 

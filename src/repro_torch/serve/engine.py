@@ -8,7 +8,9 @@
   (contiguous or paged, bf16/fp32 or int8), with the scheduler's
   ``valid``/``commit``/``seg`` operands and ring caches. The cache holds
   unroped keys and their positions; RoPE is applied at read time, so a
-  [SUM] query scores the same cache with NoPE+ALiBi.
+  [SUM] query scores the same cache with NoPE+ALiBi. MLA models run in
+  absorbed form against the latent cache (W_UK folded into the query,
+  W_UV applied after aggregation), as MQA on the decode kernel.
 * ``CTRServer.score`` — batched scoring of sliding-window prompts.
 
 The cache is updated in place (see ``repro_torch.serve.cache``): the
@@ -27,6 +29,7 @@ from repro_torch.core.quant import quantize_q8
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.decode_attn import (decode_attention,
                                              decode_attention_plain)
+from repro_torch.models.attention import mla_query
 from repro_torch.models.layers import (alibi_slopes, apply_rope, dense,
                                        rmsnorm, swiglu)
 from repro_torch.models.transformer import (ModelConfig, check_supported,
@@ -168,6 +171,75 @@ def _gqa_decode_layer(lp: Params, h, kv: Dict[str, torch.Tensor], *,
     return _ffn(lp, h, cfg)
 
 
+def _mla_decode_layer(lp: Params, h, kv: Dict[str, torch.Tensor], *,
+                      cfg: ModelConfig, plan, read_idx, pos_buf, positions,
+                      is_sum, window: int, seg_q=None, seg_buf=None,
+                      impl="dense"):
+    """Absorbed-MLA decode: scores and values against the latent cache.
+
+    W_UK folds into the query (q_abs = q_nope W_UK, r_kv wide) and the
+    latent and rope streams concatenate, so one MQA product covers both
+    terms: q_eff . k_eff = q_abs . ckv + q_pe_rope . kpe_rope, with
+    q_eff = [q_abs | q_pe_rope], k_eff = [ckv | kpe_rope] and values the
+    latent itself (Dv = r_kv); W_UV folds after. [SUM] rows score the
+    unroped pair [q_abs | q_pe] . [ckv | kpe]. As in the reference, the
+    absorbed weights are ``kv_up``'s ``w`` alone (its LoRA adapter, if
+    any, takes no part). On int8 KV the kernel gets the codes
+    ``[ckv | kpe]`` with two scale groups split at r_kv and ropes the tail
+    itself; values are the ``ckv`` codes with their scale."""
+    b, s, _ = h.shape
+    hq, r = cfg.n_heads, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    quant = "ckv_scale" in kv
+    ap = lp["attn"]
+    x = rmsnorm(lp["ln_attn"], h, cfg.norm_eps)
+    q = mla_query(ap, x, hq, dn + dr)
+    q_nope, q_pe = q[..., :dn], q[..., dn:]
+    q_pe_rope = apply_rope(q_pe, positions, cfg.rope_theta)
+    c_new = rmsnorm(ap["kv_norm"], dense(ap["kv_down"], x))        # (B,s,r)
+    kpe_new = dense(ap["k_rope"], x)                               # (B,s,dr)
+    if quant:
+        # the latent and rope streams quantize separately: per-token
+        # scales, written on the same slots as their codes
+        c_new, c_sv = quantize_q8(c_new)
+        kpe_new, p_sv = quantize_q8(kpe_new)
+        _cache_write(kv["ckv_scale"], plan, c_sv)
+        _cache_write(kv["kpe_scale"], plan, p_sv)
+    _cache_write(kv["ckv"], plan, c_new)
+    _cache_write(kv["kpe"], plan, kpe_new)
+    ckv_v = _cache_view(kv["ckv"], read_idx)                       # (B,cap,r)
+    kpe_v = _cache_view(kv["kpe"], read_idx)
+
+    w_up = ap["kv_up"]["w"].reshape(r, hq, dn + dv)
+    w_uk, w_uv = w_up[..., :dn], w_up[..., dn:]
+    q_abs = torch.einsum("bshd,rhd->bshr", q_nope, w_uk)            # (B,s,H,r)
+    nope = cfg.dti_sum_alibi
+    attend = decode_attention if impl == "cuda" else decode_attention_plain
+    kw = dict(window=window, is_sum_q=is_sum if nope else None,
+              q_nope=torch.cat([q_abs, q_pe], dim=-1) if nope else None,
+              alibi=alibi_slopes(hq, h.device) if nope else None,
+              seg_q=seg_q, seg_k=seg_buf, scale=(dn + dr) ** -0.5)
+    q_eff = torch.cat([q_abs, q_pe_rope], dim=-1)
+    if quant:
+        c_sv = _cache_view(kv["ckv_scale"], read_idx)               # (B,cap)
+        p_sv = _cache_view(kv["kpe_scale"], read_idx)
+        o_lat = attend(q_eff, torch.cat([ckv_v, kpe_v], dim=-1)[:, :, None],
+                       ckv_v[:, :, None], positions, pos_buf,
+                       k_scale=torch.stack([c_sv, p_sv], dim=-1)[:, :, None],
+                       v_scale=c_sv[:, :, None], rope_start=r,
+                       rope_theta=cfg.rope_theta, **kw)
+    else:
+        kpe_rope = _rope_read(kpe_v[:, :, None], pos_buf, cfg.rope_theta)
+        o_lat = attend(q_eff,
+                       torch.cat([ckv_v[:, :, None], kpe_rope], dim=-1),
+                       ckv_v[:, :, None], positions, pos_buf,
+                       k_nope=(torch.cat([ckv_v, kpe_v], dim=-1)[:, :, None]
+                               if nope else None), **kw)
+    out = torch.einsum("bshr,rhd->bshd", o_lat.to(h.dtype), w_uv)
+    h = h + dense(ap["o"], out.reshape(b, s, hq * dv))
+    return _ffn(lp, h, cfg)
+
+
 def make_decode_fn(cfg: ModelConfig, *, window: int, ring: bool,
                    yes_id: int = 3, no_id: int = 4,
                    attn_impl: Optional[str] = None) -> Callable:
@@ -175,7 +247,10 @@ def make_decode_fn(cfg: ModelConfig, *, window: int, ring: bool,
     (B,s), commit (B,), seg (B,s)]) -> (p_click (B, s), cache).
 
     ``attn_impl`` picks the attention: ``"cuda"`` (the decode kernel),
-    ``"dense"`` (the plain oracle), or None to follow ``cfg.attn_impl``.
+    ``"dense"`` (the plain oracle), or None: ``"cuda"`` when
+    ``cfg.attn_impl`` is, else ``"dense"`` (a config that prefills on the
+    blocked path decodes densely, as in the reference). MLA models decode
+    in absorbed form (``_mla_decode_layer``).
 
     * ``valid``  — right-padded chunks: invalid tokens are written with
       position -1 (never attendable) and the cursor advances by the valid
@@ -201,13 +276,13 @@ def make_decode_fn(cfg: ModelConfig, *, window: int, ring: bool,
     """
     check_supported(cfg)
     if attn_impl is None:
-        attn_impl = cfg.attn_impl
-    if attn_impl == "blocked":
-        raise NotImplementedError(
-            "blocked attention comes with the training slice "
-            "(ROADMAP queue A); use 'dense' or 'cuda'")
+        if cfg.attn_impl not in ("dense", "blocked", "cuda"):
+            raise ValueError(f"unknown attention impl {cfg.attn_impl!r}")
+        attn_impl = "cuda" if cfg.attn_impl == "cuda" else "dense"
     if attn_impl not in ("dense", "cuda"):
-        raise ValueError(f"unknown attention impl {attn_impl!r}")
+        raise ValueError(f"unknown decode attention impl {attn_impl!r}")
+    layer_fn = _mla_decode_layer if cfg.attn_type == "mla" else \
+        _gqa_decode_layer
 
     @torch.no_grad()
     def decode(params: Params, cache: Cache, tokens, positions, is_sum,
@@ -247,11 +322,10 @@ def make_decode_fn(cfg: ModelConfig, *, window: int, ring: bool,
         h = params["embed"][tokens].to(cfg.cdtype)
         for li, lp in enumerate(params["layers"]):
             kv = {nm: cache[nm][li] for nm in kv_keys(cache)}
-            h = _gqa_decode_layer(lp, h, kv, cfg=cfg, plan=plan,
-                                  read_idx=read_idx, pos_buf=pos_buf,
-                                  positions=positions, is_sum=is_sum,
-                                  window=window, seg_q=seg, seg_buf=seg_buf,
-                                  impl=attn_impl)
+            h = layer_fn(lp, h, kv, cfg=cfg, plan=plan, read_idx=read_idx,
+                         pos_buf=pos_buf, positions=positions, is_sum=is_sum,
+                         window=window, seg_q=seg, seg_buf=seg_buf,
+                         impl=attn_impl)
 
         n_new = s if valid is None else valid.sum(dim=-1).to(torch.int32)
         if commit is None:

@@ -360,6 +360,90 @@ def test_decode_kernel_splits_match_plain(gen, case, nope, seg, quant,
     assert torch.all(got[0, 0] == 0)        # its query precedes every key
 
 
+# B, s, H, Hk, cap, fills, hole, window, D, Dv: kernel 4's MLA mode (head
+# dims past 128) at minicpm3-4b's absorbed geometry over the cuts of its
+# split plan (s=1: ten cache ranges), a partial value chunk and Dv < Dqk
+MLA_CASES = {
+    "mla_s1": (8, 1, 40, 1, 600, tuple(300 + 30 * b for b in range(8)), None,
+               0, 288, 256),
+    "mla_s16": (8, 16, 40, 1, 600, tuple(300 + 30 * b for b in range(8)),
+                None, 256, 288, 256),
+    "mla_s64": (8, 64, 40, 1, 600, tuple(300 + 30 * b for b in range(8)),
+                (40, 100), 0, 288, 256),
+    "mla_partial_chunk": (3, 12, 8, 2, 200, (150, 190, 0), None, 30, 160,
+                          144),
+    "mla_dv_below_dqk": (2, 16, 8, 1, 203, (150, 190), None, 0, 208, 80),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("nope,seg", [(False, False), (True, True)])
+@pytest.mark.parametrize("case", list(MLA_CASES))
+def test_decode_kernel_mla_mode_matches_plain(gen, case, nope, seg, quant,
+                                              dtype):
+    """Kernel 4's MLA mode (``decode_attn_mla``, and on int8 codes with
+    two scale groups split 32 dims before the end, ``decode_attn_mla_q8``)
+    against the plain version in fp32 on the same inputs, as the GQA mode
+    is held above; the GQA mode's counts do not move."""
+    from repro_torch.core.quant import quantize_q8
+    B, s, H, hk, cap, fills, hole, window, d, dv = MLA_CASES[case]
+    o = split_operands(gen, B=B, s=s, H=H, hk=hk, cap=cap, fills=fills,
+                       hole=hole, n_seg=3 if seg else 0, d=d, dv=dv)
+    q, qn = o["q"].to(dtype), o["qn"].to(dtype)
+    kw = dict(window=window)
+    if nope:
+        kw.update(is_sum_q=o["is_sum"], q_nope=qn, alibi=o["alibi"])
+    if seg:
+        kw.update(seg_q=o["seg_q"], seg_k=o["seg_k"])
+    if quant:
+        rs = d - 32
+        c_q, c_s = quantize_q8(o["k"][..., :rs])
+        p_q, p_s = quantize_q8(o["k"][..., rs:])
+        k, ks = torch.cat([c_q, p_q], -1), torch.stack([c_s, p_s], -1)
+        v, vs = quantize_q8(o["v"])
+        kw.update(k_scale=ks, v_scale=vs, rope_start=rs, rope_theta=10000.0)
+        name = "decode_attn_mla_q8"
+    else:
+        k, v = o["k"].to(dtype), o["v"].to(dtype)
+        if nope:
+            kw["k_nope"] = o["kn"].to(dtype)
+        name = "decode_attn_mla"
+    before = dict(kernels.LAUNCHES)
+    got = decode_attention(q, k, v, o["pos_q"], o["pos_k"], **kw)
+    again = decode_attention(q, k, v, o["pos_q"], o["pos_k"], **kw)
+    torch.cuda.synchronize()
+    moved = {n: c - before[n] for n, c in kernels.LAUNCHES.items()
+             if c != before[n]}
+    assert moved == {name: 2}
+    assert torch.equal(got, again)
+    f32 = lambda x: x.float() if torch.is_tensor(x) and x.is_floating_point() \
+        and x.dtype != torch.float32 else x
+    want = decode_attention_plain(f32(q), k if quant else f32(k),
+                                  v if quant else f32(v), o["pos_q"],
+                                  o["pos_k"],
+                                  **{n: f32(x) for n, x in kw.items()})
+    _hold(got, want)
+    for b, n in enumerate(fills):
+        if n == 0:
+            assert torch.all(got[b] == 0)
+    assert torch.all(got[0, 0] == 0)
+
+
+@pytest.mark.parametrize("d,dv", [(289, 256), (288, 264), (576, 512)])
+def test_decode_kernel_refuses_head_dims_past_the_mla_mode(gen, d, dv):
+    """The MLA mode stops at 288 / 256 (deepseek-v2's 576 / 512 is not
+    ported): a wider call raises, naming the limit, and launches nothing."""
+    z = lambda *sh: torch.zeros(sh, device="cuda")
+    pos_q = torch.full((1, 2), 40, dtype=torch.int32, device="cuda")
+    pos_k = torch.arange(32, dtype=torch.int32, device="cuda")[None]
+    before = dict(kernels.LAUNCHES)
+    with pytest.raises(ValueError, match="288/256"):
+        decode_attention(z(1, 2, 4, d), z(1, 32, 1, d), z(1, 32, 1, dv),
+                         pos_q, pos_k, window=0)
+    assert kernels.LAUNCHES == before
+
+
 def test_embedding_bag_kernel_propagates_nonfinite_rows(gen):
     """As the reference's kernel adds row * w for every slot, an inf row
     under a masked slot (its id clamped onto it) or under a zero-weight

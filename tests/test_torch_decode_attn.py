@@ -8,10 +8,12 @@ import torch
 
 from repro.kernels.decode_attn.ops import decode_attention as j_decode
 from repro_torch.kernels import LAUNCHES
-from repro_torch.kernels.decode_attn import (KV_TILE, MAX_TILES, ROW_BLOCK,
-                                             decode_attention,
+from repro_torch.kernels.decode_attn import (KV_TILE, MAX_HEAD_DIM,
+                                             MAX_TILES, MLA_MAX_QK,
+                                             MLA_MAX_V, ROW_BLOCK,
+                                             VALUE_CHUNK, decode_attention,
                                              decode_attention_plain,
-                                             decode_split_plan,
+                                             decode_split_plan, is_mla_mode,
                                              split_workspace)
 
 TOL = 1e-4
@@ -68,6 +70,14 @@ def test_decode_mqa_value_dim():
     np.testing.assert_allclose(got, want, atol=TOL)
 
 
+def test_decode_absorbed_mla_geometry():
+    """The MLA mode's geometry, Hk=1 with Dqk 288 and Dv 256 (minicpm3-4b's
+    absorbed operands), NoPE stream and segments on."""
+    base, opt = _operands(2, B=2, s=5, H=4, Hk=1, D=288, Dv=256, cap=22)
+    got, want = _both(base, opt, 6, block_size=8)
+    np.testing.assert_allclose(got, want, atol=TOL)
+
+
 def test_cpu_wrapper_uses_plain_version_and_counts_nothing():
     base, opt = _operands(1)
     T = lambda x: torch.from_numpy(x)
@@ -83,12 +93,19 @@ def test_cpu_wrapper_uses_plain_version_and_counts_nothing():
 # (B, s, H, Hk, cap, n_sm, Dv): the decode and scheduler shapes, MQA, a
 # cap below one tile, caps off the tile and off the split, an empty cache,
 # a cache longer than one range may hold
+# a cache longer than one range may hold; then the MLA mode's geometries
+# (minicpm3-4b's 40 heads on one latent key, Dv 256 in two value chunks, at
+# the decode burst and every scheduler bucket; a partial chunk; Dv < Dqk)
 PLAN_SHAPES = [(8, 64, 32, 8, 2048, 132, 128), (8, 32, 32, 8, 2048, 132, 128),
                (8, 16, 32, 8, 2048, 132, 128), (8, 1, 32, 8, 2048, 132, 128),
                (8, 64, 32, 4, 2048, 132, 128), (1, 16, 32, 1, 4000, 132, 128),
                (2, 16, 8, 2, 203, 132, 64), (2, 16, 8, 2, 20, 132, 64),
                (3, 9, 8, 1, 130, 132, 48), (1, 5, 4, 2, 0, 132, 8),
-               (3, 70, 8, 2, 300, 66, 64), (1, 64, 32, 8, 20000, 8, 128)]
+               (3, 70, 8, 2, 300, 66, 64), (1, 64, 32, 8, 20000, 8, 128),
+               (8, 64, 40, 1, 2048, 132, 256), (8, 32, 40, 1, 2048, 132, 256),
+               (8, 16, 40, 1, 2048, 132, 256), (8, 1, 40, 1, 2048, 132, 256),
+               (3, 12, 8, 2, 190, 132, 136), (3, 70, 8, 1, 300, 132, 72),
+               (1, 1, 40, 1, 9000, 132, 256)]
 
 
 @pytest.mark.parametrize("B,s,H,Hk,cap,n_sm,Dv", PLAN_SHAPES)
@@ -100,6 +117,12 @@ def test_split_plan_covers_every_row_and_slot_once(B, s, H, Hk, cap, n_sm,
     for rb in range(plan.n_rb):
         owner[rb * ROW_BLOCK:min(rows, (rb + 1) * ROW_BLOCK)] += 1
     assert (owner == 1).all()
+    cols = np.zeros(Dv, int)                # every value column once
+    for c in range(plan.n_dv):
+        lo, hi = c * VALUE_CHUNK, min(Dv, (c + 1) * VALUE_CHUNK)
+        assert hi > lo
+        cols[lo:hi] += 1
+    assert (cols == 1).all()
     assert plan.span % KV_TILE == 0 and 0 < plan.span <= MAX_TILES * KV_TILE
     slots = np.zeros(cap, int)
     for sp in range(plan.n_split):
@@ -107,7 +130,7 @@ def test_split_plan_covers_every_row_and_slot_once(B, s, H, Hk, cap, n_sm,
         assert hi > lo or cap == 0          # no split is left without slots
         slots[lo:hi] += 1
     assert (slots == 1).all()
-    assert plan.grid == B * Hk * plan.n_rb * plan.n_split
+    assert plan.grid == B * Hk * plan.n_rb * plan.n_dv * plan.n_split
 
 
 @pytest.mark.parametrize("s", [1, 16, 32, 64])
@@ -118,6 +141,29 @@ def test_split_plan_fills_the_card(s):
     plan = decode_split_plan(8, s, 32, 8, 2048, 132, 128)
     assert plan.grid >= 132
     assert (plan.n_split == 1) == (s == 64)
+    assert plan.n_dv == 1
+
+
+@pytest.mark.parametrize("s", [1, 16, 32, 64])
+def test_split_plan_fills_the_card_in_the_mla_mode(s):
+    """minicpm3-4b's absorbed decode (B=8, 40 heads on one latent key,
+    cap=2048, Dv 256): two value chunks, and a grid of at least 132 CTAs
+    at every bucket; at s=1 (ring steps) one row block per batch row, so
+    the ranges must make up the rest (64 tiles in 10 ranges of 7, where
+    the fewest equal ranges asked for, 9, would come out 8 of 8)."""
+    plan = decode_split_plan(8, s, 40, 1, 2048, 132, 256)
+    assert plan.n_dv == 2 and plan.grid >= 132
+    assert (plan.n_split == 1) == (s > 1)     # 10 row blocks from s=16
+    if s == 1:
+        assert (plan.n_rb, plan.n_split, plan.span) == (1, 10, 7 * KV_TILE)
+
+
+def test_mla_mode_takes_the_wide_head_dims():
+    """Head dims above the GQA mode's 128 take the MLA mode, up to its
+    288 / 256."""
+    assert not is_mla_mode(MAX_HEAD_DIM, MAX_HEAD_DIM)
+    assert is_mla_mode(MAX_HEAD_DIM + 8, 64) and is_mla_mode(96, 256)
+    assert (MLA_MAX_QK, MLA_MAX_V, VALUE_CHUNK) == (288, 256, MAX_HEAD_DIM)
 
 
 @pytest.mark.parametrize("B,s,H,Hk,cap,n_sm,Dv", PLAN_SHAPES)

@@ -191,22 +191,92 @@ def test_ctr_server_matches_reference(weights):
     assert all(0.0 < p < 1.0 for p in got)
 
 
+def _decode_scores(decode, params, init, T_, toks, pos, is_sum):
+    """p_click of every step of a token-by-token run of ``decode``."""
+    cache, out = init, []
+    for t in range(toks.shape[1]):
+        p, cache = decode(params, cache, *(T_(a[:, t:t + 1])
+                                           for a in (toks, pos, is_sum)))
+        out.append(np.asarray(p))
+    return np.concatenate(out, axis=1)
+
+
 @pytest.mark.parametrize("what", ["moe", "mla", "blocked", "decode-blocked"])
-def test_later_slices_raise(what):
+def test_later_slices_raise(weights, what):
+    """MoE still raises: its slice comes later. The other three cases
+    raised until the MLA serving slice brought what they refused, and now
+    pin it: an MLA config initialises the reference's tree of leaves and
+    shapes; the blocked path equals the reference's (2e-5, the tolerance
+    of tests/test_attention.py); a config that prefills on the blocked
+    path decodes on the dense path, with the reference's scores (1e-4)."""
+    from repro.core.windowed import attention_blocked as j_blocked
+    from repro_torch.bridge import to_numpy_tree
     from repro_torch.core.windowed import attention
     from repro_torch.models.transformer import init_params
-    with pytest.raises(NotImplementedError):
-        if what in ("moe", "mla"):
-            init_params(dataclasses.replace(CFG, moe=True) if what == "moe"
-                        else dataclasses.replace(CFG, attn_type="mla"),
-                        device="cpu")
-        elif what == "decode-blocked":
-            make_decode_fn(dataclasses.replace(CFG, attn_impl="blocked"),
-                           window=W, ring=False)
-        else:
-            x = torch.zeros(1, 4, 2, 4)
-            pos = torch.arange(4)[None]
-            attention("blocked", x, x, x, pos_q=pos, pos_k=pos, window=2)
+    if what == "moe":
+        with pytest.raises(NotImplementedError):
+            init_params(dataclasses.replace(CFG, moe=True), device="cpu")
+    elif what == "mla":
+        mla = dict(attn_type="mla", n_kv_heads=4, q_lora_rank=24,
+                   kv_lora_rank=16, qk_nope_dim=8, qk_rope_dim=8,
+                   v_head_dim=16)
+        jcfg = dataclasses.replace(JCFG, **mla)
+        want = jax.tree_util.tree_map(
+            lambda x: x.shape, j_init(jax.random.PRNGKey(0), jcfg))
+        cfg = config_from_jax(dataclasses.asdict(jcfg))
+        got = jax.tree_util.tree_map(
+            lambda x: x.shape, to_numpy_tree(init_params(cfg, device="cpu"),
+                                             cfg))
+        assert got == want
+    elif what == "blocked":
+        r = np.random.default_rng(0)
+        q, k, v = (r.normal(size=(1, 8, 2, 4)).astype(np.float32)
+                   for _ in range(3))
+        pos = np.arange(8, dtype=np.int32)[None]
+        got = attention("blocked", T(q), T(k), T(v), pos_q=T(pos),
+                        pos_k=T(pos), window=2)
+        want = j_blocked(q, k, v, pos_q=pos, pos_k=pos, window=2)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5)
+    else:
+        jp, tp = weights
+        jcfg = dataclasses.replace(JCFG, attn_impl="blocked")
+        cfg = dataclasses.replace(CFG, attn_impl="blocked")
+        toks, pos, is_sum = (_prefill_batch(3, 2, 10)[k] for k in
+                             ("tokens", "positions", "is_sum"))
+        want = _decode_scores(jax.jit(j_decode_fn(jcfg, window=W, ring=False)),
+                              jp, j_cache(jcfg, 2, 10,
+                                                dtype=jnp.float32),
+                              jnp.asarray, toks, pos, is_sum)
+        got = _decode_scores(make_decode_fn(cfg, window=W, ring=False), tp,
+                             init_lm_cache(cfg, 2, 10,
+                                                 dtype=torch.float32,
+                                                 device="cpu"),
+                             T, toks, pos, is_sum)
+        np.testing.assert_allclose(got, want, atol=TOL)
+
+
+def test_blocked_config_decodes_on_the_dense_path(weights):
+    """``attn_impl=None`` on a blocked config means the dense decode, as in
+    the reference (``make_decode_fn``'s default): the same scores as the
+    reference's dense decode, and the port's explicit dense decode bit for
+    bit."""
+    jp, tp = weights
+    toks, pos, is_sum = (_prefill_batch(4, 2, 12)[k] for k in
+                         ("tokens", "positions", "is_sum"))
+    cfg = dataclasses.replace(CFG, attn_impl="blocked")
+    runs = {}
+    for name, kw in (("default", {}), ("dense", dict(attn_impl="dense"))):
+        runs[name] = _decode_scores(
+            make_decode_fn(cfg, window=W, ring=True, **kw), tp,
+            init_lm_cache(cfg, 2, W + 2, dtype=torch.float32, device="cpu"),
+            T, toks, pos, is_sum)
+    np.testing.assert_array_equal(runs["default"], runs["dense"])
+    jcfg = dataclasses.replace(JCFG, attn_impl="dense")
+    want = _decode_scores(jax.jit(j_decode_fn(jcfg, window=W, ring=True)),
+                          jp, j_cache(jcfg, 2, W + 2,
+                                            dtype=jnp.float32),
+                          jnp.asarray, toks, pos, is_sum)
+    np.testing.assert_allclose(runs["default"], want, atol=TOL)
 
 
 def test_decode_rejects_unknown_impl():
