@@ -36,14 +36,16 @@ Phases, each fatal on failure:
    slots and MIND's (2^24 x 64) with 512, sum and mean, each held to the
    plain version within 1e-5; then two calls at DIN's shape in each of
    fp32, bf16 and int8 must give the same bits. 2g: decode attention's
-   absorbed-MLA mode (``decode_attn_mla``, ``decode_attn_mla_q8``: head
-   dims past 128) in fp32 over every flag (window, segments of a
-   commit=False burst, NoPE + ALiBi, Dqk != Dv, a partial value chunk,
-   int8 with two scale groups) within 1e-4, on bf16 inputs per row, then at
-   minicpm3-4b's decode shape (B=8, cap=2048, s=64, 40 heads on one latent
-   key, Dqk 288, Dv 256) in bf16 and on int8 codes with keys up to
-   position 2047 at phase 2c's per-row tolerance, each twice (the same
-   bits).
+   absorbed-MLA mode (``decode_attention_mla``: ``decode_attn_mla``,
+   ``decode_attn_mla_q8``) on latent operands, the cache's own tensors
+   (ckv, the values too; the roped and raw rope spans; int8: their codes
+   and a scale each per slot), in fp32 over every flag (window, segments
+   of a commit=False burst, NoPE + ALiBi, latents and rope spans off the
+   16-value k-step and off 16-byte rows, int8) within 1e-4, on bf16 inputs
+   (and int8 codes) per row, then at minicpm3-4b's decode shape (B=8,
+   cap=2048, s=64, 40 heads on one latent key, r 256, dr 32) in bf16 and
+   on int8 codes with keys up to position 2047 at phase 2c's per-row
+   tolerance, each twice (the same bits).
 11. recsys — DIN, MIND, SASRec and xDeepFM in fp32 before the dti-llama
    weights are loaded: (a) FULL widths with tables cut to 2^20 rows
    (xDeepFM: each field to min(v, 2^16)), the card against the CPU on the
@@ -127,7 +129,10 @@ Phases, each fatal on failure:
    its split plan cuts the cache into ranges, kernel 5 (timed in phase
    2f) also on DIN's bf16 table and at MIND's shape in both modes (queued
    behind a sleep, so that host launch time does not count), beside its
-   32-byte sector floor; ``torch.profiler``
+   32-byte sector floor; kernel 4's MLA mode in both modes also at s=16,
+   beside its yardsticks, and its instantiations' registers and spills
+   (``-Xptxas -v``) and resident CTAs per SM on a line of their own, and
+   at s=64 in three cache ranges, the cut its plan does not make; ``torch.profiler``
    breakdowns of one decode burst step, one prefill call, one train step
    and the 9a and 9b scheduler runs.
 
@@ -139,6 +144,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -1271,15 +1277,76 @@ def check_kernels_q8():
 # phase 2g: kernel 4's absorbed-MLA mode against its plain version
 # ---------------------------------------------------------------------------
 
-def real_mla(gen, *, dtype=torch.bfloat16):
+def latent_operands(gen, *, B, s, H, r, dr, cap, dtype, fills,
+                    skip_block=False, n_seg=0, theta=10000.0):
+    """``decode_operands`` at Hk=1, D = r + dr, Dv = r, as the latent cache
+    holds them: ``ckv`` (B, cap, r) the latent and the values, ``kpe``
+    (B, cap, dr) the raw rope span and ``kpe_rope`` its roped view (the
+    engine's ``_rope_read``): K = [ckv | kpe_rope], V = ckv and K_nope =
+    [ckv | kpe] differ only where they must."""
+    o = decode_operands(gen, B=B, s=s, H=H, Hk=1, D=r + dr, Dv=r, cap=cap,
+                        dtype=dtype, fills=fills, skip_block=skip_block,
+                        n_seg=n_seg)
+    lat = o.pop("k")[:, :, 0]
+    del o["v"], o["kn"]
+    o["ckv"] = lat[..., :r].contiguous()
+    o["kpe"] = lat[..., r:].contiguous()
+    o["theta"] = theta
+    rope_latent(o)
+    return o
+
+
+def rope_latent(o):
+    """``o``'s roped rope span from its positions (after they change)."""
+    from repro_torch.models.layers import apply_rope
+    o["kpe_rope"] = apply_rope(o["kpe"][:, :, None], o["pos_k"].clamp(min=0),
+                               o["theta"])[:, :, 0].contiguous()
+
+
+def quantize_latent(o, gen):
+    """int8 codes of ``o``'s latent and rope span, a scale each per slot
+    (``repro_torch.core.quant``, as the engine writes them); empty slots
+    get arbitrary scales (a paged gather reads arbitrary pool slots)."""
+    from repro_torch.core.quant import quantize_q8
+    c8, cs = quantize_q8(o["ckv"].float())
+    p8, ps = quantize_q8(o["kpe"].float())
+    empty = o["pos_k"] < 0
+    for sc in (cs, ps):
+        sc[empty] = 1e3 * torch.rand(sc[empty].shape, generator=gen,
+                                     device=sc.device)
+    return dict(ckv=c8, kpe=p8, ckv_scale=cs, kpe_scale=ps)
+
+
+def mla_kwargs(o, *, window, nope, seg, q8=None):
+    """``decode_attention_mla``'s keyword operands: the roped span (bf16 /
+    fp32) or the scales (``q8``, from ``quantize_latent``)."""
+    kw = dict(window=window)
+    if q8 is None:
+        kw["kpe_rope"] = o["kpe_rope"]
+    else:
+        kw.update(ckv_scale=q8["ckv_scale"], kpe_scale=q8["kpe_scale"],
+                  rope_theta=o["theta"])
+    if nope:
+        kw.update(is_sum_q=o["is_sum"], q_nope=o["qn"], alibi=o["alibi"])
+    if seg:
+        kw.update(seg_q=o["seg_q"], seg_k=o["seg_k"])
+    return kw
+
+
+def mla_args(o, q8=None):
+    src = o if q8 is None else q8
+    return (o["q"], src["ckv"], src["kpe"], o["pos_q"], o["pos_k"])
+
+
+def real_mla(gen, *, s=64, dtype=torch.bfloat16):
     """Kernel 4's MLA mode at minicpm3-4b's decode shape: B=8, cap=2048,
-    s=64, 40 heads on one latent key (Hk=1), Dqk 288 (kv_lora 256 + rope
-    32), Dv 256, window 1024, a 6-candidate burst over contexts of
-    1.4k-1.9k, NoPE stream on."""
+    s=64 (or a scheduler bucket), 40 heads on one latent key, r 256, dr 32
+    (Dqk 288, Dv 256), window 1024, a burst of 6 candidates (4 at a
+    smaller bucket) over contexts of 1.4k-1.9k, NoPE stream on."""
     fills = [1400 + 70 * b for b in range(8)]
-    o = decode_operands(gen, B=8, s=64, H=40, Hk=1, D=288, Dv=256, cap=2048,
-                        dtype=dtype, fills=fills, n_seg=6)
-    return o, decode_kwargs(o, window=1024, nope=True, seg=True)
+    o = latent_operands(gen, B=8, s=s, H=40, r=256, dr=32, cap=2048,
+                        dtype=dtype, fills=fills, n_seg=6 if s == 64 else 4)
+    return o, mla_kwargs(o, window=1024, nope=True, seg=True)
 
 
 def keys_to_cap(o):
@@ -1302,115 +1369,117 @@ def check_same_bits(name, fn):
     log(f"  {name}: two calls give the same bits")
 
 
+def real_mla_q8(gen, *, s=64):
+    """``real_mla``'s shape on int8 codes, row 7's keys at every position
+    up to 2047."""
+    o, _ = real_mla(gen, s=s)
+    keys_to_cap(o)
+    rope_latent(o)
+    q8 = quantize_latent(o, gen)
+    return o, q8, mla_kwargs(o, window=1024, nope=True, seg=True, q8=q8)
+
+
 def check_kernels_mla():
-    """Kernel 4's MLA mode (``decode_attn_mla``, ``decode_attn_mla_q8``):
-    small fp32 shapes over every flag (window, segments of a commit=False
-    burst, NoPE + ALiBi, Dqk != Dv, a partial value chunk, int8 with two
-    scale groups) within SMALL_TOL, small bf16 shapes per row, then the
-    MLA decode shape in bf16 and on int8 codes (keys up to position 2047)
-    against the plain version in fp32 at phase 2c's per-row tolerance, each
-    twice (the same bits). Returns what phase 6 times."""
+    """Kernel 4's MLA mode (``decode_attn_mla``, ``decode_attn_mla_q8``) on
+    latent operands (V is the latent, K_nope differs from K only in the
+    rope span): small fp32 shapes over every flag (window, segments of a
+    commit=False burst, NoPE + ALiBi, latents and rope spans off the
+    16-value k-step and off 16-byte rows, int8) within SMALL_TOL, small
+    bf16 shapes (bf16 and int8) per row, then the MLA decode shape in bf16
+    and on int8 codes (keys up to position 2047) against the plain version
+    in fp32 at phase 2c's per-row tolerance, each twice (the same bits).
+    Returns what phase 6 times."""
     from repro_torch import kernels
-    from repro_torch.kernels.decode_attn import (decode_attention,
-                                                 decode_attention_plain)
+    from repro_torch.kernels.decode_attn import (decode_attention_mla,
+                                                 decode_attention_mla_plain)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(12)
-    log("phase 2g: decode_attn_mla (kernel 4's MLA mode) vs plain, fp32, "
-        "small shapes")
-    # window, nope, seg, Hk, D, Dv, s, cap, skip, n_seg, (rope_start, base)
+    log("phase 2g: decode_attn_mla (kernel 4's MLA mode, the latent cache "
+        "in place) vs plain, fp32, small shapes")
+    # window, nope, seg, r, dr, s, cap, skip, n_seg, int8 position base
     cases = [
-        (0, False, False, 1, 288, 256, 5, 200, False, 0, None),
-        (40, True, False, 1, 288, 256, 5, 200, True, 0, None),
-        (0, True, True, 1, 288, 256, 12, 200, False, 3, None),
-        (40, True, True, 2, 160, 136, 12, 190, True, 4, None),
-        (0, True, True, 1, 200, 72, 70, 300, False, 5, None),   # 9 row blocks
-        (0, True, True, 1, 136, 256, 5, 130, False, 0, None),
-        (0, True, True, 1, 288, 256, 12, 200, False, 3, (256, 1800)),
-        (20, False, False, 1, 288, 256, 5, 100, True, 0, (256, 0)),
-        (0, True, True, 2, 160, 144, 12, 200, False, 4, (128, 900)),
-        (30, True, False, 1, 200, 136, 5, 190, False, 0, (168, 1500)),
+        (0, False, False, 256, 32, 5, 200, False, 0, None),
+        (40, True, False, 256, 32, 5, 200, True, 0, None),
+        (0, True, True, 256, 32, 12, 200, False, 3, None),
+        (40, True, True, 136, 24, 12, 190, True, 4, None),
+        (0, True, True, 72, 16, 70, 300, False, 5, None),   # 9 row blocks
+        (0, True, True, 200, 30, 5, 130, False, 0, None),
+        (0, True, True, 256, 32, 12, 200, False, 3, 1800),
+        (20, False, False, 256, 32, 5, 100, True, 0, 0),
+        (0, True, True, 128, 16, 12, 200, False, 4, 900),
+        (30, True, False, 168, 32, 5, 190, False, 0, 1500),  # codes from memory
     ]
     before = dict(kernels.LAUNCHES)
-    for (window, nope, seg, hk, d, dv, s, cap, skip, n_seg, q8) in cases:
-        o = decode_operands(gen, B=3, s=s, H=8, Hk=hk, D=d, Dv=dv, cap=cap,
+    for (window, nope, seg, r, dr, s, cap, skip, n_seg, base) in cases:
+        o = latent_operands(gen, B=3, s=s, H=8, r=r, dr=dr, cap=cap,
                             dtype=torch.float32, fills=(120, 150, 0),
                             skip_block=skip, n_seg=n_seg)
-        k, v = o["k"], o["v"]
-        if q8 is None:
-            kw = decode_kwargs(o, window=window, nope=nope, seg=seg)
-        else:
-            rs, base = q8
+        q8 = None
+        if base is not None:
             o["pos_k"] = torch.where(o["pos_k"] >= 0, o["pos_k"] + base, -1)
             o["pos_q"] = o["pos_q"] + base
-            codes = quantize_kv(o, rope_start=rs, G=2, gen=gen)
-            k, v = codes["k"], codes["v"]
-            kw = q8_kwargs(o, codes, window=window, nope=nope, seg=seg,
-                           rope_start=rs, theta=10000.0)
-        got = decode_attention(o["q"], k, v, o["pos_q"], o["pos_k"], **kw)
+            q8 = quantize_latent(o, gen)
+        kw = mla_kwargs(o, window=window, nope=nope, seg=seg, q8=q8)
+        got = decode_attention_mla(*mla_args(o, q8), **kw)
         torch.cuda.synchronize()
-        want = decode_attention_plain(o["q"], k, v, o["pos_q"], o["pos_k"],
-                                      **kw)
-        tag = (f"w={window} nope={nope} seg={seg} n_rep={8 // hk} D={d} "
-               f"Dv={dv} s={s} cap={cap} skip={skip}"
-               + ("" if q8 is None else f" int8 G=2 rope_start={q8[0]} "
-                  f"pos<{int(o['pos_k'].max()) + 1}"))
+        want = decode_attention_mla_plain(*mla_args(o, q8), **kw)
+        tag = (f"w={window} nope={nope} seg={seg} r={r} dr={dr} s={s} "
+               f"cap={cap} skip={skip}"
+               + ("" if q8 is None else f" int8 pos<{int(o['pos_k'].max()) + 1}"))
         check_close(f"o [{tag}]", got, want, SMALL_TOL)
         if not (got[2] == 0).all():
             fail("empty cache row did not give 0 (MLA mode)")
     n_q8 = sum(c[-1] is not None for c in cases)
-    launched = {k: n - before[k] for k, n in kernels.LAUNCHES.items()
-                if n != before[k]}
-    if launched != {"decode_attn_mla": len(cases) - n_q8,
-                    "decode_attn_mla_q8": n_q8}:
-        fail(f"phase 2g small shapes launched {launched}")
 
     log("phase 2g: bf16 inputs, small shapes (aligned rows by cp.async, "
-        "D=196 through the conversion pass), per row")
-    for d, dv, hk in ((288, 256, 1), (196, 100, 1), (160, 136, 2)):
-        o = decode_operands(gen, B=3, s=12, H=8, Hk=hk, D=d, Dv=dv, cap=200,
+        "r=196 and dr=20 through the conversion pass, int8), per row")
+    for r, dr, quant in ((256, 32, False), (196, 20, False), (136, 24, False),
+                         (256, 32, True), (128, 16, True)):
+        o = latent_operands(gen, B=3, s=12, H=8, r=r, dr=dr, cap=200,
                             dtype=torch.bfloat16, fills=(120, 150, 0),
                             n_seg=3)
-        kw = decode_kwargs(o, window=40, nope=True, seg=True)
-        got = decode_attention(o["q"], o["k"], o["v"], o["pos_q"],
-                               o["pos_k"], **kw)
+        q8 = quantize_latent(o, gen) if quant else None
+        kw = mla_kwargs(o, window=40, nope=True, seg=True, q8=q8)
+        got = decode_attention_mla(*mla_args(o, q8), **kw)
         torch.cuda.synchronize()
-        args, kw32 = _f32(o["q"], o["k"], o["v"], o["pos_q"], o["pos_k"],
-                          **kw)
-        check_rows(f"o [bf16 D={d} Dv={dv} n_rep={8 // hk}]", got,
-                   decode_attention_plain(*args, **kw32))
+        args, kw32 = _f32(*mla_args(o, q8), **kw)
+        check_rows(f"o [bf16 r={r} dr={dr}{' int8' if quant else ''}]", got,
+                   decode_attention_mla_plain(*args, **kw32))
+        n_q8 += quant
+    launched = {k: n - before[k] for k, n in kernels.LAUNCHES.items()
+                if n != before[k]}
+    if launched != {"decode_attn_mla": len(cases) + 5 - n_q8,
+                    "decode_attn_mla_q8": n_q8}:
+        fail(f"phase 2g small shapes launched {launched}")
 
     log("phase 2g: the MLA decode shape, bf16 kernel vs the fp32 plain "
         "version")
     res = {}
     o, kw = real_mla(gen)
-    args = (o["q"], o["k"], o["v"], o["pos_q"], o["pos_k"])
-    got = decode_attention(*args, **kw)
+    args = mla_args(o)
+    got = decode_attention_mla(*args, **kw)
     torch.cuda.synchronize()
     a32, kw32 = _f32(*args, **kw)
-    err = check_rows("decode_attn_mla o B8 cap2048 s64 H40 Hk1 D288 Dv256 "
-                     "w1024", got, decode_attention_plain(*a32, **kw32))
+    err = check_rows("decode_attn_mla o B8 cap2048 s64 H40 r256 dr32 w1024",
+                     got, decode_attention_mla_plain(*a32, **kw32))
     del a32, kw32, got
     check_same_bits("decode_attn_mla at the MLA decode shape",
-                    lambda: decode_attention(*args, **kw))
-    res["decode_attn_mla"] = dict(err=err, ops=(o, kw))
+                    lambda: decode_attention_mla(*args, **kw))
+    res["decode_attn_mla"] = dict(err=err, ops=(o, None, kw))
 
-    o, _ = real_mla(gen)
-    keys_to_cap(o)
-    codes = quantize_kv(o, rope_start=256, G=2, gen=gen)
-    kw = q8_kwargs(o, codes, window=1024, nope=True, seg=True,
-                   rope_start=256, theta=10000.0)
-    args = (o["q"], codes["k"], codes["v"], o["pos_q"], o["pos_k"])
-    got = decode_attention(*args, **kw)
+    o, q8, kw = real_mla_q8(gen)
+    args = mla_args(o, q8)
+    got = decode_attention_mla(*args, **kw)
     torch.cuda.synchronize()
     a32, kw32 = _f32(*args, **kw)
-    err = check_rows("decode_attn_mla_q8 o B8 cap2048 s64 H40 Hk1 D288 "
-                     "Dv256 w1024, two scale groups, keys at positions up "
-                     f"to {int(o['pos_k'].max())}", got,
-                     decode_attention_plain(*a32, **kw32))
+    err = check_rows("decode_attn_mla_q8 o B8 cap2048 s64 H40 r256 dr32 "
+                     "w1024, int8 latent and rope codes, keys at positions "
+                     f"up to {int(o['pos_k'].max())}", got,
+                     decode_attention_mla_plain(*a32, **kw32))
     del a32, kw32, got
     check_same_bits("decode_attn_mla_q8 at the MLA decode shape",
-                    lambda: decode_attention(*args, **kw))
-    res["decode_attn_mla_q8"] = dict(err=err, ops=(o, codes, kw))
+                    lambda: decode_attention_mla(*args, **kw))
+    res["decode_attn_mla_q8"] = dict(err=err, ops=(o, q8, kw))
     return res
 
 
@@ -1475,7 +1544,8 @@ def run_sched(cfg, params, reqs, kernels, *, kv_dtype, paged, n_pages=None,
         return out
     sched._decode = counted
     rids = [sched.submit(r["context"], r["candidates"]) for r in reqs]
-    plain = _PlainCalls([(engine, "decode_attention_plain")])
+    plain = _PlainCalls([(engine, "decode_attention_plain"),
+                         (engine, "decode_attention_mla_plain")])
     sync = (torch.cuda.synchronize if dev == "cuda" else lambda: None)
     try:
         sync()
@@ -2391,19 +2461,22 @@ def sdpa_backend(q, k, v, mask):
         return f"unknown ({type(e).__name__}: {e})"
 
 
-def time_decode(o, kw):
-    """Kernel 4's bf16 mode (GQA or MLA) on ``o``'s operands beside its
-    plain version and SDPA; the bound as ``time_kernels`` counts it."""
+def time_decode(o, kw, calls=None):
+    """Kernel 4's bf16 mode (GQA, or MLA with ``calls``: the kernel and
+    its plain version on the latent operands, ``o`` holding the
+    concatenated ones) beside its plain version and SDPA; the bound as
+    ``time_kernels`` counts it."""
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attn import (_decode_mask,
                                                  decode_attention,
                                                  decode_attention_plain)
     B, s, H, D = o["q"].shape
     Hk, Dv, e = o["k"].shape[2], o["v"].shape[3], o["q"].element_size()
-    ms = cuda_ms(lambda: decode_attention(o["q"], o["k"], o["v"], o["pos_q"],
-                                          o["pos_k"], **kw))
-    plain = cuda_ms(lambda: decode_attention_plain(
-        o["q"], o["k"], o["v"], o["pos_q"], o["pos_k"], **kw))
+    args = (o["q"], o["k"], o["v"], o["pos_q"], o["pos_k"])
+    run, run_plain = calls or (lambda: decode_attention(*args, **kw),
+                               lambda: decode_attention_plain(*args, **kw))
+    ms = cuda_ms(run)
+    plain = cuda_ms(run_plain)
     mask = _decode_mask(o["pos_k"], o["pos_q"], kw["window"], o["seg_q"],
                         o["seg_k"])
     # K is the roped cache view, K_nope the raw cache the [SUM] rows read
@@ -2550,7 +2623,86 @@ def time_bwd_kernels(bwd):
     return res
 
 
-def time_q8(q8res):
+def time_mla(res, quant):
+    """Kernel 4's MLA mode on ``res``'s latent operands, its plain version
+    and its library yardstick, with PR 23's bounds: the yardstick and the
+    bound take the concatenated operands the engine built before (K =
+    [ckv | kpe_rope], V = ckv, K_nope = [ckv | kpe]; int8: the codes
+    [ckv | kpe] with two scale groups split at r)."""
+    from repro_torch.kernels.decode_attn import (decode_attention_mla,
+                                                 decode_attention_mla_plain)
+    o, q8, kw = res["ops"]
+    args = mla_args(o, q8)
+    calls = (lambda: decode_attention_mla(*args, **kw),
+             lambda: decode_attention_mla_plain(*args, **kw))
+    r = o["ckv"].shape[-1]
+    if not quant:
+        cat = dict(o, k=torch.cat([o["ckv"], o["kpe_rope"]], -1)[:, :, None],
+                   v=o["ckv"][:, :, None],
+                   kn=torch.cat([o["ckv"], o["kpe"]], -1)[:, :, None])
+        return time_decode(cat, decode_kwargs(cat, window=1024, nope=True,
+                                              seg=True), calls)
+    codes = dict(k=torch.cat([q8["ckv"], q8["kpe"]], -1)[:, :, None],
+                 v=q8["ckv"][:, :, None],
+                 k_scale=torch.stack([q8["ckv_scale"], q8["kpe_scale"]],
+                                     -1)[:, :, None],
+                 v_scale=q8["ckv_scale"][:, :, None])
+    return time_q8(dict(ops=(o, codes, q8_kwargs(
+        o, codes, window=1024, nope=True, seg=True, rope_start=r,
+        theta=o["theta"]))), calls)
+
+
+def time_mla_s16():
+    """Kernel 4's MLA mode, both modes, at the scheduler's smallest bucket
+    (s=16: four 4-token candidates over the MLA decode shape's contexts),
+    where its plan cuts the cache into five ranges, beside the library
+    yardsticks."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    o, kw = real_mla(gen, s=16)
+    res = {"decode_attn_mla": time_mla(dict(ops=(o, None, kw)), False)}
+    del o, kw
+    res["decode_attn_mla_q8"] = time_mla(dict(ops=real_mla_q8(gen, s=16)),
+                                         True)
+    for name, r in res.items():
+        log(f"  {name} at s=16 (B=8 cap=2048 H40 r256 dr32 w1024): "
+            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+            f"{r['library_ms']:.4f} ms, bound "
+            f"{max(r['bytes'] / HBM_BYTES_PER_S, r['flops'] / BF16_FLOPS) * 1e3:.4f}"
+            f" ms ({r['flops'] / 1e9:.2f} GFLOP, {r['bytes'] / 1e6:.1f} MB)")
+    return res
+
+
+def time_mla_ranges(mla_k, n_split=3):
+    """Kernel 4's MLA mode at the decode shape (s=64) with its cache cut
+    into ``n_split`` equal ranges (960 CTAs, a last wave 64 % full on an
+    H100) instead of the plan's one (320 CTAs), the cut ``mla_split_plan``
+    does not make: what the extra waves' balance costs and gains."""
+    from repro_torch.kernels import decode_attn as da
+    plan = da.mla_split_plan
+
+    def cut(b, s, h, cap, n_sm, dv=da.MLA_MAX_V):
+        n_rb = -(-h * s // da.ROW_BLOCK)
+        per, ns = da._ranges(-(-cap // da.KV_TILE), n_split)
+        return da.SplitPlan(n_rb, ns, per * da.KV_TILE, b * n_rb * ns,
+                            ns * b * s * h * (dv + 2))
+    out = {}
+    for name, res in mla_k.items():
+        o, q8, kw = res["ops"]
+        args = mla_args(o, q8)
+        one = cuda_ms(lambda: da.decode_attention_mla(*args, **kw))
+        da.mla_split_plan = cut
+        try:
+            out[name] = (one, cuda_ms(lambda: da.decode_attention_mla(
+                *args, **kw)))
+        finally:
+            da.mla_split_plan = plan
+        log(f"  {name} at s=64 in {n_split} cache ranges: {out[name][1]:.4f} "
+            f"ms; the plan's one range: {one:.4f} ms")
+    return out
+
+
+def time_q8(q8res, calls=None):
     """Kernel 4's int8 mode at the decode shape beside its plain version
     and a library yardstick: dequantize, rope and repeat the kv heads, then
     ``scaled_dot_product_attention`` with the same boolean mask (no NoPE
@@ -2571,8 +2723,10 @@ def time_q8(q8res):
     B, s, H, D = q.shape
     Hk, Dv, G = q8["k"].shape[2], q8["v"].shape[3], q8["k_scale"].shape[-1]
     args = (q, q8["k"], q8["v"], o["pos_q"], o["pos_k"])
-    ms = cuda_ms(lambda: decode_attention(*args, **kw))
-    plain = cuda_ms(lambda: decode_attention_plain(*args, **kw))
+    run, run_plain = calls or (lambda: decode_attention(*args, **kw),
+                               lambda: decode_attention_plain(*args, **kw))
+    ms = cuda_ms(run)
+    plain = cuda_ms(run_plain)
     mask = _decode_mask(o["pos_k"], o["pos_q"], kw["window"], o["seg_q"],
                         o["seg_k"])
     n_any = int(mask.any(1).sum())
@@ -2676,6 +2830,34 @@ def profile_call(fn, label):
         + "; ".join(f"{e.key[:60]} {dev(e) / 1e3:.2f} ms ({e.count} calls)"
                     for e in top))
     return busy
+
+
+def mla_ptxas(logs) -> str:
+    """``-Xptxas -v``'s report for the MLA mode's instantiations
+    (``mla_kernel<T, NOPE, QUANT>`` in ``csrc/decode_attn.cu``): registers
+    and spill bytes of each, on one line."""
+    text = logs.get("decode_attn")
+    if text is None:
+        return "not built in this run (the library was already built)"
+    out, name, spill = [], None, "?"
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name, spill = m.group(1), "?"
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = f"{m.group(1)}/{m.group(2)} B spill stores/loads"
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        t = re.search(r"mla_kernelI(f|13__nv_bfloat16)Lb([01])ELb([01])E",
+                      name or "")
+        if m and t:
+            out.append(f"mla_kernel<{'fp32' if t.group(1) == 'f' else 'bf16'}"
+                       f", nope={t.group(2)}, int8={t.group(3)}>: "
+                       f"{m.group(1)} registers, {spill}")
+    return "; ".join(out) or "no MLA instantiation in the report"
 
 
 def card_line() -> str:
@@ -2782,12 +2964,14 @@ def main() -> int:
     times = time_kernels(real)
     times.update(time_bwd_kernels(bwd))
     times["decode_attn_q8"] = time_q8(q8res)
-    times["decode_attn_mla"] = time_decode(*mla_k["decode_attn_mla"]["ops"])
-    times["decode_attn_mla_q8"] = time_q8(mla_k["decode_attn_mla_q8"])
+    times["decode_attn_mla"] = time_mla(mla_k["decode_attn_mla"], False)
+    times["decode_attn_mla_q8"] = time_mla(mla_k["decode_attn_mla_q8"], True)
     for name in ("decode_attn_mla", "decode_attn_mla_q8"):
         log(f"  {name}: SDPA picks {times[name]['backend']} for these "
             f"operands (MQA, Dqk 288, Dv 256, a boolean mask)")
     time_decode_s16()
+    time_mla_s16()
+    time_mla_ranges(mla_k)
     times.update(bag["times"])
     prof = {kv: profile_sched(cfg, params, kv) for kv in (None, "int8")}
     errs = {name: r["err"] for name, r in {**real, **bwd}.items()}
@@ -2870,6 +3054,13 @@ def main() -> int:
                     f"{r['train_batch']} {r['train_ms']:.2f} ms, retrieval "
                     f"{r['retrieval_ms']:.2f} ms, peak {r['peak_gib']:.2f} GiB"
                     for a, r in recsys["full"].items()) + f" ({card})")
+    from repro_torch.kernels.decode_attn import mla_ctas_per_sm
+    occ = {f"{'bf16' if bf else 'fp32'}{' int8' if q8 else ''}"
+           f"{' nope' if nope else ''}": mla_ctas_per_sm(bf, q8, nope, 64, 40)
+           for bf in (True, False) for q8 in (False, True)
+           for nope in (False, True)}
+    log(f"  MLA instantiations (-Xptxas -v): {mla_ptxas(logs)}; resident "
+        f"CTAs per SM at s=64, H=40: {occ}")
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

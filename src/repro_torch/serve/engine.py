@@ -28,6 +28,8 @@ from repro_torch.core.losses import ctr_logits
 from repro_torch.core.quant import quantize_q8
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.decode_attn import (decode_attention,
+                                             decode_attention_mla,
+                                             decode_attention_mla_plain,
                                              decode_attention_plain)
 from repro_torch.models.attention import mla_query
 from repro_torch.models.layers import (alibi_slopes, apply_rope, dense,
@@ -184,9 +186,12 @@ def _mla_decode_layer(lp: Params, h, kv: Dict[str, torch.Tensor], *,
     latent itself (Dv = r_kv); W_UV folds after. [SUM] rows score the
     unroped pair [q_abs | q_pe] . [ckv | kpe]. As in the reference, the
     absorbed weights are ``kv_up``'s ``w`` alone (its LoRA adapter, if
-    any, takes no part). On int8 KV the kernel gets the codes
-    ``[ckv | kpe]`` with two scale groups split at r_kv and ropes the tail
-    itself; values are the ``ckv`` codes with their scale."""
+    any, takes no part). The MLA mode (``decode_attention_mla``) reads
+    the cache's tensors in place: ``ckv``, the roped ``kpe`` view (bf16
+    KV) and the raw ``kpe`` ([SUM] rows); on int8 KV the ``ckv`` and
+    ``kpe`` codes with their scales (two groups split at r_kv), and it
+    ropes the tail itself; values are the ``ckv`` codes with their
+    scale."""
     b, s, _ = h.shape
     hq, r = cfg.n_heads, cfg.kv_lora_rank
     dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
@@ -214,27 +219,22 @@ def _mla_decode_layer(lp: Params, h, kv: Dict[str, torch.Tensor], *,
     w_uk, w_uv = w_up[..., :dn], w_up[..., dn:]
     q_abs = torch.einsum("bshd,rhd->bshr", q_nope, w_uk)            # (B,s,H,r)
     nope = cfg.dti_sum_alibi
-    attend = decode_attention if impl == "cuda" else decode_attention_plain
+    attend = (decode_attention_mla if impl == "cuda"
+              else decode_attention_mla_plain)
     kw = dict(window=window, is_sum_q=is_sum if nope else None,
               q_nope=torch.cat([q_abs, q_pe], dim=-1) if nope else None,
               alibi=alibi_slopes(hq, h.device) if nope else None,
               seg_q=seg_q, seg_k=seg_buf, scale=(dn + dr) ** -0.5)
     q_eff = torch.cat([q_abs, q_pe_rope], dim=-1)
     if quant:
-        c_sv = _cache_view(kv["ckv_scale"], read_idx)               # (B,cap)
-        p_sv = _cache_view(kv["kpe_scale"], read_idx)
-        o_lat = attend(q_eff, torch.cat([ckv_v, kpe_v], dim=-1)[:, :, None],
-                       ckv_v[:, :, None], positions, pos_buf,
-                       k_scale=torch.stack([c_sv, p_sv], dim=-1)[:, :, None],
-                       v_scale=c_sv[:, :, None], rope_start=r,
+        o_lat = attend(q_eff, ckv_v, kpe_v, positions, pos_buf,
+                       ckv_scale=_cache_view(kv["ckv_scale"], read_idx),
+                       kpe_scale=_cache_view(kv["kpe_scale"], read_idx),
                        rope_theta=cfg.rope_theta, **kw)
     else:
         kpe_rope = _rope_read(kpe_v[:, :, None], pos_buf, cfg.rope_theta)
-        o_lat = attend(q_eff,
-                       torch.cat([ckv_v[:, :, None], kpe_rope], dim=-1),
-                       ckv_v[:, :, None], positions, pos_buf,
-                       k_nope=(torch.cat([ckv_v, kpe_v], dim=-1)[:, :, None]
-                               if nope else None), **kw)
+        o_lat = attend(q_eff, ckv_v, kpe_v, positions, pos_buf,
+                       kpe_rope=kpe_rope[:, :, 0], **kw)
     out = torch.einsum("bshr,rhd->bshd", o_lat.to(h.dtype), w_uv)
     h = h + dense(ap["o"], out.reshape(b, s, hq * dv))
     return _ffn(lp, h, cfg)

@@ -360,20 +360,40 @@ def test_decode_kernel_splits_match_plain(gen, case, nope, seg, quant,
     assert torch.all(got[0, 0] == 0)        # its query precedes every key
 
 
-# B, s, H, Hk, cap, fills, hole, window, D, Dv: kernel 4's MLA mode (head
-# dims past 128) at minicpm3-4b's absorbed geometry over the cuts of its
-# split plan (s=1: ten cache ranges), a partial value chunk and Dv < Dqk
+# B, s, H, cap, fills, hole, window, r, dr: kernel 4's MLA mode on latent
+# operands (one latent key) at minicpm3-4b's geometry (r 256, dr 32) over
+# the cuts of its split plan (s=1: ranges of one tile), a latent and rope
+# span off the 16-value k-step, and a narrow latent
 MLA_CASES = {
-    "mla_s1": (8, 1, 40, 1, 600, tuple(300 + 30 * b for b in range(8)), None,
-               0, 288, 256),
-    "mla_s16": (8, 16, 40, 1, 600, tuple(300 + 30 * b for b in range(8)),
-                None, 256, 288, 256),
-    "mla_s64": (8, 64, 40, 1, 600, tuple(300 + 30 * b for b in range(8)),
-                (40, 100), 0, 288, 256),
-    "mla_partial_chunk": (3, 12, 8, 2, 200, (150, 190, 0), None, 30, 160,
-                          144),
-    "mla_dv_below_dqk": (2, 16, 8, 1, 203, (150, 190), None, 0, 208, 80),
+    "mla_s1": (8, 1, 40, 600, tuple(300 + 30 * b for b in range(8)), None,
+               0, 256, 32),
+    "mla_s16": (8, 16, 40, 600, tuple(300 + 30 * b for b in range(8)),
+                None, 256, 256, 32),
+    "mla_s64": (8, 64, 40, 600, tuple(300 + 30 * b for b in range(8)),
+                (40, 100), 0, 256, 32),
+    "mla_partial_chunk": (3, 12, 8, 200, (150, 190, 0), None, 30, 136, 24),
+    "mla_dv_below_dqk": (2, 16, 8, 203, (150, 190), None, 0, 80, 16),
 }
+
+
+def mla_operands(gen, *, B, s, H, cap, fills, hole, r, dr, n_seg, quant):
+    """``split_operands`` as the latent cache holds them: ckv (the latent
+    and the values), the raw rope span kpe and its roped view (bf16/fp32),
+    or their int8 codes with a scale each per slot; K_nope = [ckv | kpe]
+    differs from K = [ckv | kpe_rope] only in the rope span. Returns the
+    operands and the keyword arguments of ``decode_attention_mla``."""
+    from repro_torch.core.quant import quantize_q8
+    from repro_torch.models.layers import apply_rope
+    o = split_operands(gen, B=B, s=s, H=H, hk=1, cap=cap, fills=fills,
+                       hole=hole, n_seg=n_seg, d=r + dr, dv=r)
+    lat = o["k"][:, :, 0]
+    o["ckv"], o["kpe"] = lat[..., :r].contiguous(), lat[..., r:].contiguous()
+    if quant:
+        (o["ckv"], cs), (o["kpe"], ps) = quantize_q8(o["ckv"]), quantize_q8(o["kpe"])
+        return o, dict(ckv_scale=cs, kpe_scale=ps, rope_theta=10000.0)
+    kpe_rope = apply_rope(o["kpe"][:, :, None], o["pos_k"].clamp(min=0),
+                          10000.0)[:, :, 0].contiguous()
+    return o, dict(kpe_rope=kpe_rope)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -382,36 +402,30 @@ MLA_CASES = {
 @pytest.mark.parametrize("case", list(MLA_CASES))
 def test_decode_kernel_mla_mode_matches_plain(gen, case, nope, seg, quant,
                                               dtype):
-    """Kernel 4's MLA mode (``decode_attn_mla``, and on int8 codes with
-    two scale groups split 32 dims before the end, ``decode_attn_mla_q8``)
-    against the plain version in fp32 on the same inputs, as the GQA mode
+    """Kernel 4's MLA mode (``decode_attn_mla``, and on int8 latent and
+    rope codes, ``decode_attn_mla_q8``) on the latent cache's tensors
+    against its plain version in fp32 on the same inputs, as the GQA mode
     is held above; the GQA mode's counts do not move."""
-    from repro_torch.core.quant import quantize_q8
-    B, s, H, hk, cap, fills, hole, window, d, dv = MLA_CASES[case]
-    o = split_operands(gen, B=B, s=s, H=H, hk=hk, cap=cap, fills=fills,
-                       hole=hole, n_seg=3 if seg else 0, d=d, dv=dv)
+    from repro_torch.kernels.decode_attn import (decode_attention_mla,
+                                                 decode_attention_mla_plain)
+    B, s, H, cap, fills, hole, window, r, dr = MLA_CASES[case]
+    o, lat_kw = mla_operands(gen, B=B, s=s, H=H, cap=cap, fills=fills,
+                             hole=hole, r=r, dr=dr, n_seg=3 if seg else 0,
+                             quant=quant)
     q, qn = o["q"].to(dtype), o["qn"].to(dtype)
-    kw = dict(window=window)
+    ckv, kpe = o["ckv"], o["kpe"]
+    if not quant:
+        ckv, kpe = ckv.to(dtype), kpe.to(dtype)
+        lat_kw = dict(kpe_rope=lat_kw["kpe_rope"].to(dtype))
+    kw = dict(window=window, **lat_kw)
     if nope:
         kw.update(is_sum_q=o["is_sum"], q_nope=qn, alibi=o["alibi"])
     if seg:
         kw.update(seg_q=o["seg_q"], seg_k=o["seg_k"])
-    if quant:
-        rs = d - 32
-        c_q, c_s = quantize_q8(o["k"][..., :rs])
-        p_q, p_s = quantize_q8(o["k"][..., rs:])
-        k, ks = torch.cat([c_q, p_q], -1), torch.stack([c_s, p_s], -1)
-        v, vs = quantize_q8(o["v"])
-        kw.update(k_scale=ks, v_scale=vs, rope_start=rs, rope_theta=10000.0)
-        name = "decode_attn_mla_q8"
-    else:
-        k, v = o["k"].to(dtype), o["v"].to(dtype)
-        if nope:
-            kw["k_nope"] = o["kn"].to(dtype)
-        name = "decode_attn_mla"
+    name = "decode_attn_mla_q8" if quant else "decode_attn_mla"
     before = dict(kernels.LAUNCHES)
-    got = decode_attention(q, k, v, o["pos_q"], o["pos_k"], **kw)
-    again = decode_attention(q, k, v, o["pos_q"], o["pos_k"], **kw)
+    got = decode_attention_mla(q, ckv, kpe, o["pos_q"], o["pos_k"], **kw)
+    again = decode_attention_mla(q, ckv, kpe, o["pos_q"], o["pos_k"], **kw)
     torch.cuda.synchronize()
     moved = {n: c - before[n] for n, c in kernels.LAUNCHES.items()
              if c != before[n]}
@@ -419,10 +433,9 @@ def test_decode_kernel_mla_mode_matches_plain(gen, case, nope, seg, quant,
     assert torch.equal(got, again)
     f32 = lambda x: x.float() if torch.is_tensor(x) and x.is_floating_point() \
         and x.dtype != torch.float32 else x
-    want = decode_attention_plain(f32(q), k if quant else f32(k),
-                                  v if quant else f32(v), o["pos_q"],
-                                  o["pos_k"],
-                                  **{n: f32(x) for n, x in kw.items()})
+    want = decode_attention_mla_plain(f32(q), f32(ckv), f32(kpe), o["pos_q"],
+                                      o["pos_k"],
+                                      **{n: f32(x) for n, x in kw.items()})
     _hold(got, want)
     for b, n in enumerate(fills):
         if n == 0:
@@ -432,16 +445,46 @@ def test_decode_kernel_mla_mode_matches_plain(gen, case, nope, seg, quant,
 
 @pytest.mark.parametrize("d,dv", [(289, 256), (288, 264), (576, 512)])
 def test_decode_kernel_refuses_head_dims_past_the_mla_mode(gen, d, dv):
-    """The MLA mode stops at 288 / 256 (deepseek-v2's 576 / 512 is not
-    ported): a wider call raises, naming the limit, and launches nothing."""
+    """The MLA mode stops at a latent of 256 and a rope span of 32 (288 /
+    256; deepseek-v2's 576 / 512 is not ported): a wider call raises,
+    naming the limit, and launches nothing."""
+    from repro_torch.kernels.decode_attn import decode_attention_mla
     z = lambda *sh: torch.zeros(sh, device="cuda")
     pos_q = torch.full((1, 2), 40, dtype=torch.int32, device="cuda")
     pos_k = torch.arange(32, dtype=torch.int32, device="cuda")[None]
     before = dict(kernels.LAUNCHES)
     with pytest.raises(ValueError, match="288/256"):
+        decode_attention_mla(z(1, 2, 4, d), z(1, 32, dv), z(1, 32, d - dv),
+                             pos_q, pos_k, window=0,
+                             kpe_rope=z(1, 32, d - dv))
+    assert kernels.LAUNCHES == before
+
+
+@pytest.mark.parametrize("d,dv", [(136, 64), (288, 256)])
+def test_decode_kernel_gqa_mode_refuses_wide_head_dims(gen, d, dv):
+    """``decode_attention`` is the GQA mode on the card: head dims past 128
+    raise and name ``decode_attention_mla``, before any launch."""
+    z = lambda *sh: torch.zeros(sh, device="cuda")
+    pos_q = torch.full((1, 2), 40, dtype=torch.int32, device="cuda")
+    pos_k = torch.arange(32, dtype=torch.int32, device="cuda")[None]
+    before = dict(kernels.LAUNCHES)
+    with pytest.raises(ValueError, match="decode_attention_mla"):
         decode_attention(z(1, 2, 4, d), z(1, 32, 1, d), z(1, 32, 1, dv),
                          pos_q, pos_k, window=0)
     assert kernels.LAUNCHES == before
+
+
+@pytest.mark.parametrize("bf16", [True, False])
+@pytest.mark.parametrize("quant", [False, True])
+def test_decode_kernel_mla_mode_fits_two_ctas_per_sm(gen, bf16, quant):
+    """The CUDA runtime's occupancy calculator gives the MLA kernel
+    ``MLA_CTAS_PER_SM`` resident CTAs per SM at minicpm3-4b's decode
+    shape, with and without the NoPE stream (registers and shared memory
+    both allow it)."""
+    from repro_torch.kernels.decode_attn import (MLA_CTAS_PER_SM,
+                                                 mla_ctas_per_sm)
+    for nope in (False, True):
+        assert mla_ctas_per_sm(bf16, quant, nope, 64, 40) == MLA_CTAS_PER_SM
 
 
 def test_embedding_bag_kernel_propagates_nonfinite_rows(gen):

@@ -8,15 +8,16 @@ import torch
 
 from repro.kernels.decode_attn.ops import decode_attention as j_decode
 from repro_torch.kernels import LAUNCHES
-from repro_torch.kernels.decode_attn import (KV_TILE, MAX_HEAD_DIM,
-                                             MAX_TILES, MLA_MAX_QK,
-                                             MLA_MAX_V, ROW_BLOCK,
-                                             VALUE_CHUNK, decode_attention,
-                                             decode_attention_plain,
-                                             decode_split_plan, is_mla_mode,
-                                             split_workspace)
+from repro_torch.kernels.decode_attn import (
+    KV_TILE, MAX_HEAD_DIM, MAX_TILES, MLA_CTAS_PER_SM, MLA_MAX_QK,
+    MLA_MAX_ROPE, MLA_MAX_V, ROW_BLOCK, _check, _check_mla,
+    decode_attention, decode_attention_plain, decode_split_plan,
+    mla_smem_bytes, mla_split_plan, split_workspace)
+from repro_torch.kernels.windowed_attn import SMEM_LIMIT
 
 TOL = 1e-4
+SM_SMEM = 233472         # bytes of shared memory an H100 SM holds (228 KB)
+CTA_RESERVED = 1024      # bytes the card reserves for each resident CTA
 
 
 def _operands(seed=0, B=3, s=5, H=4, Hk=2, D=8, Dv=8, cap=22):
@@ -90,39 +91,45 @@ def test_cpu_wrapper_uses_plain_version_and_counts_nothing():
     assert torch.equal(got, want) and LAUNCHES == before
 
 
-# (B, s, H, Hk, cap, n_sm, Dv): the decode and scheduler shapes, MQA, a
-# cap below one tile, caps off the tile and off the split, an empty cache,
-# a cache longer than one range may hold
-# a cache longer than one range may hold; then the MLA mode's geometries
-# (minicpm3-4b's 40 heads on one latent key, Dv 256 in two value chunks, at
-# the decode burst and every scheduler bucket; a partial chunk; Dv < Dqk)
-PLAN_SHAPES = [(8, 64, 32, 8, 2048, 132, 128), (8, 32, 32, 8, 2048, 132, 128),
-               (8, 16, 32, 8, 2048, 132, 128), (8, 1, 32, 8, 2048, 132, 128),
-               (8, 64, 32, 4, 2048, 132, 128), (1, 16, 32, 1, 4000, 132, 128),
-               (2, 16, 8, 2, 203, 132, 64), (2, 16, 8, 2, 20, 132, 64),
-               (3, 9, 8, 1, 130, 132, 48), (1, 5, 4, 2, 0, 132, 8),
-               (3, 70, 8, 2, 300, 66, 64), (1, 64, 32, 8, 20000, 8, 128),
-               (8, 64, 40, 1, 2048, 132, 256), (8, 32, 40, 1, 2048, 132, 256),
-               (8, 16, 40, 1, 2048, 132, 256), (8, 1, 40, 1, 2048, 132, 256),
-               (3, 12, 8, 2, 190, 132, 136), (3, 70, 8, 1, 300, 132, 72),
-               (1, 1, 40, 1, 9000, 132, 256)]
+# (B, s, H, Hk, cap, n_sm, Dv): the GQA mode's decode and scheduler
+# shapes, MQA, a cap below one tile, caps off the tile and off the split,
+# an empty cache, a cache longer than one range may hold
+GQA_PLAN_SHAPES = [
+    (8, 64, 32, 8, 2048, 132, 128), (8, 32, 32, 8, 2048, 132, 128),
+    (8, 16, 32, 8, 2048, 132, 128), (8, 1, 32, 8, 2048, 132, 128),
+    (8, 64, 32, 4, 2048, 132, 128), (1, 16, 32, 1, 4000, 132, 128),
+    (2, 16, 8, 2, 203, 132, 64), (2, 16, 8, 2, 20, 132, 64),
+    (3, 9, 8, 1, 130, 132, 48), (1, 5, 4, 2, 0, 132, 8),
+    (3, 70, 8, 2, 300, 66, 64), (1, 64, 32, 8, 20000, 8, 128)]
+# then the MLA mode's (one latent key, Dv = r): minicpm3-4b's 40 heads at
+# the decode burst and every scheduler bucket, latents of 136 and 72, a
+# cache longer than one range may hold
+MLA_PLAN_SHAPES = [
+    (8, 64, 40, 1, 2048, 132, 256), (8, 32, 40, 1, 2048, 132, 256),
+    (8, 16, 40, 1, 2048, 132, 256), (8, 1, 40, 1, 2048, 132, 256),
+    (3, 12, 8, 1, 190, 132, 136), (3, 70, 8, 1, 300, 132, 72),
+    (1, 1, 40, 1, 9000, 132, 256)]
+PLAN_SHAPES = GQA_PLAN_SHAPES + MLA_PLAN_SHAPES
+MLA_SLOTS = 132 * MLA_CTAS_PER_SM        # resident MLA CTAs on an H100
+
+
+def _plan(B, s, H, Hk, cap, n_sm, Dv):
+    if (B, s, H, Hk, cap, n_sm, Dv) in MLA_PLAN_SHAPES:
+        return mla_split_plan(B, s, H, cap, n_sm, Dv)
+    return decode_split_plan(B, s, H, Hk, cap, n_sm, Dv)
 
 
 @pytest.mark.parametrize("B,s,H,Hk,cap,n_sm,Dv", PLAN_SHAPES)
 def test_split_plan_covers_every_row_and_slot_once(B, s, H, Hk, cap, n_sm,
                                                    Dv):
-    plan = decode_split_plan(B, s, H, Hk, cap, n_sm, Dv)
+    """Each row block's rows and each range's slots once; in both modes a
+    CTA owns every value column of its rows (no value axis)."""
+    plan = _plan(B, s, H, Hk, cap, n_sm, Dv)
     rows = (H // Hk) * s
     owner = np.zeros(rows, int)
     for rb in range(plan.n_rb):
         owner[rb * ROW_BLOCK:min(rows, (rb + 1) * ROW_BLOCK)] += 1
     assert (owner == 1).all()
-    cols = np.zeros(Dv, int)                # every value column once
-    for c in range(plan.n_dv):
-        lo, hi = c * VALUE_CHUNK, min(Dv, (c + 1) * VALUE_CHUNK)
-        assert hi > lo
-        cols[lo:hi] += 1
-    assert (cols == 1).all()
     assert plan.span % KV_TILE == 0 and 0 < plan.span <= MAX_TILES * KV_TILE
     slots = np.zeros(cap, int)
     for sp in range(plan.n_split):
@@ -130,7 +137,7 @@ def test_split_plan_covers_every_row_and_slot_once(B, s, H, Hk, cap, n_sm,
         assert hi > lo or cap == 0          # no split is left without slots
         slots[lo:hi] += 1
     assert (slots == 1).all()
-    assert plan.grid == B * Hk * plan.n_rb * plan.n_dv * plan.n_split
+    assert plan.grid == B * Hk * plan.n_rb * plan.n_split
 
 
 @pytest.mark.parametrize("s", [1, 16, 32, 64])
@@ -141,29 +148,61 @@ def test_split_plan_fills_the_card(s):
     plan = decode_split_plan(8, s, 32, 8, 2048, 132, 128)
     assert plan.grid >= 132
     assert (plan.n_split == 1) == (s == 64)
-    assert plan.n_dv == 1
 
 
 @pytest.mark.parametrize("s", [1, 16, 32, 64])
 def test_split_plan_fills_the_card_in_the_mla_mode(s):
     """minicpm3-4b's absorbed decode (B=8, 40 heads on one latent key,
-    cap=2048, Dv 256): two value chunks, and a grid of at least 132 CTAs
-    at every bucket; at s=1 (ring steps) one row block per batch row, so
-    the ranges must make up the rest (64 tiles in 10 ranges of 7, where
-    the fewest equal ranges asked for, 9, would come out 8 of 8)."""
-    plan = decode_split_plan(8, s, 40, 1, 2048, 132, 256)
-    assert plan.n_dv == 2 and plan.grid >= 132
-    assert (plan.n_split == 1) == (s > 1)     # 10 row blocks from s=16
-    if s == 1:
-        assert (plan.n_rb, plan.n_split, plan.span) == (1, 10, 7 * KV_TILE)
+    cap=2048, Dv 256) on an H100, two MLA CTAs per SM: at every bucket the
+    grid fills at least one wave of resident CTAs (264), with the fewest
+    cache ranges that do: none at s=64 (320 row blocks), 2 at s=32, 4 at
+    s=16; at s=1 (ring steps, one row block per batch row) ranges of one
+    tile."""
+    plan = mla_split_plan(8, s, 40, 2048, 132, 256)
+    assert plan.grid >= MLA_SLOTS
+    assert plan.n_rb == -(-40 * s // ROW_BLOCK)
+    want = {1: (64, KV_TILE), 16: (4, 16 * KV_TILE), 32: (2, 32 * KV_TILE),
+            64: (1, 64 * KV_TILE)}[s]
+    assert (plan.n_split, plan.span) == want
+    # the next coarser equal cut (3, 1 and 32 ranges) would leave part of
+    # the wave empty
+    coarser = {1: 32, 16: 3, 32: 1, 64: 1}[s]
+    assert s == 64 or plan.grid // plan.n_split * coarser < MLA_SLOTS
 
 
 def test_mla_mode_takes_the_wide_head_dims():
-    """Head dims above the GQA mode's 128 take the MLA mode, up to its
-    288 / 256."""
-    assert not is_mla_mode(MAX_HEAD_DIM, MAX_HEAD_DIM)
-    assert is_mla_mode(MAX_HEAD_DIM + 8, 64) and is_mla_mode(96, 256)
-    assert (MLA_MAX_QK, MLA_MAX_V, VALUE_CHUNK) == (288, 256, MAX_HEAD_DIM)
+    """The MLA mode takes a latent of up to 256 values and an even rope
+    span of up to 32 (288 / 256 at minicpm3-4b); wider ones, deepseek-v2's
+    576 / 512 among them, are refused naming the limit, and the GQA mode
+    refuses head dims past 128 on the card, naming the MLA entry point.
+    Shapes only: the checks run before any launch."""
+    assert (MLA_MAX_QK, MLA_MAX_V, MLA_MAX_ROPE) == (288, 256, 32)
+    z = lambda *sh: torch.zeros(sh)
+    for d, r in ((289, 256), (288, 264), (576, 512), (290, 256)):
+        with pytest.raises(ValueError, match="288/256"):
+            _check_mla(z(1, 2, 4, d), z(1, 32, r), z(1, 32, d - r),
+                       z(1, 32, d - r), False, True, None, None)
+    _check_mla(z(1, 2, 4, 288), z(1, 32, 256), z(1, 32, 32), z(1, 32, 32),
+               False, True, None, None)
+    with pytest.raises(ValueError, match="decode_attention_mla"):
+        _check(z(1, 2, 4, MAX_HEAD_DIM + 8), z(1, 32, 1, MAX_HEAD_DIM + 8),
+               z(1, 32, 1, 64), False, None, None, torch.float32)
+
+
+@pytest.mark.parametrize("bf16", [True, False])
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("nope", [False, True])
+@pytest.mark.parametrize("s", [1, 16, 64])
+def test_mla_smem_allows_the_stated_ctas_per_sm(bf16, quant, nope, s):
+    """The shared memory an MLA CTA asks for (minicpm3-4b's 40 heads) fits
+    a CTA's 227 KB and lets ``MLA_CTAS_PER_SM`` CTAs share an SM's 228 KB,
+    1 KB of it reserved per CTA; bf16 at s=64 with the NoPE stream, the
+    largest, stays near 104 KB."""
+    smem = mla_smem_bytes(bf16, quant, nope, s, 40)
+    assert smem <= SMEM_LIMIT
+    assert MLA_CTAS_PER_SM * (smem + CTA_RESERVED) <= SM_SMEM
+    if bf16 and nope and not quant and s == 64:
+        assert smem <= 104 * 1024
 
 
 @pytest.mark.parametrize("B,s,H,Hk,cap,n_sm,Dv", PLAN_SHAPES)
@@ -171,7 +210,7 @@ def test_split_workspace_matches_the_plan(B, s, H, Hk, cap, n_sm, Dv):
     """What the wrapper allocates: the kernel's partial acc (n_split, B,
     s, H, Dv), then m and l (n_split, B, s, H), in fp32; nothing with one
     range."""
-    plan = decode_split_plan(B, s, H, Hk, cap, n_sm, Dv)
+    plan = _plan(B, s, H, Hk, cap, n_sm, Dv)
     ws = split_workspace(plan, torch.device("cpu"))
     if plan.n_split == 1:
         assert ws is None and plan.workspace == 0
