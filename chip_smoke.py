@@ -72,6 +72,37 @@ Phases, each fatal on failure:
    path within 1e-4 (prefill, every decode step, the first 6 scheduler
    requests), and one paged int8 step bit for bit equal to the same step
    on a contiguous latent cache.
+13. minicpm3-4b training — first kernels 2 and 3 at its training shape
+   (B=8, S=2048, H = Hk = 40, Dqk 96, Dv 64, NoPE + reset, [SUM] rows in
+   each row's tail) in bf16 against the fp32 plain version per row, each
+   case twice (the same bits), and cross-segment gradients at these head
+   dims exactly 0; then its ``FULL`` config (62 layers, MLA, random
+   seeded bf16 weights) with ``attn_impl="cuda"``, LoRA rank 8,
+   ``trainable="lora"``, remat, reset and ALiBi on, through phase 7's
+   path with the counts set to 0 before it and read after it: per step
+   kernel 1 124 times, kernels 2 and 3 62 times each, no plain version;
+   losses finite, frozen leaves bit for bit unchanged, every LoRA leaf
+   moved; its step timed and profiled. 13b: FULL widths, 2 layers, fp32,
+   the loss and every LoRA gradient, kernel path against dense path, at
+   phase 8's tolerances.
+14. qwen2-moe-a2.7b serving — its ``FULL`` config (24 layers, 60 experts
+   top-4 and 4 shared, random seeded bf16 weights, count_params printed)
+   with ``attn_impl="cuda"``, the counts set to 0 before it: phases 3 and
+   4 on it at capacity factor n_experts / top_k, where no choice can be
+   dropped (kernel 1 24 times a prefill call, kernel 4's GQA mode 24
+   times a step, no plain call, 0 dropped choices); then at the config's
+   1.25 a timed, profiled prefill call and decode burst step, with their
+   dropped choices and peak memory printed. 14b: FULL widths, 2 layers,
+   fp32, the kernel path against the dense path for prefill and every
+   decode step within 1e-3, on a run where no token's top-k set differs
+   between the paths (the count printed; it fails if every seed of the
+   serving material gives a nonzero count).
+15. minicpm-2b and qwen2-1.5b — each ``FULL`` with ``attn_impl="cuda"``:
+   phases 3 and 4 on it (kernel 1 once per layer per prefill call, kernel
+   4's GQA mode at head dim 64 with n_rep 1, and at 128 with n_rep 6, once
+   per layer per step, no plain call), one prefill call and one decode
+   burst step timed; at 2 layers in fp32 the kernel path against the dense
+   path within 1e-4, prefill and every decode step.
 3. prefill — the serving path begins: dti-llama ``FULL`` (32 layers,
    Llama-3.1-8B widths, random seeded weights, bf16) scores 8
    sliding-window prompts of ~1,570 tokens through ``CTRServer.score``;
@@ -134,7 +165,9 @@ Phases, each fatal on failure:
    (``-Xptxas -v``) and resident CTAs per SM on a line of their own, and
    at s=64 in three cache ranges, the cut its plan does not make; ``torch.profiler``
    breakdowns of one decode burst step, one prefill call, one train step
-   and the 9a and 9b scheduler runs.
+   and the 9a and 9b scheduler runs; kernels 2 and 3 also at minicpm3-4b's
+   training shape (phase 13's operands) beside their bound and SDPA
+   backward on the same mask.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. With no card, or run
@@ -500,14 +533,20 @@ def kernel_grads(q, k, v, do, **kw):
         got.get(n) for n in ("q_nope", "k_nope", "v0"))
 
 
-def train_windowed(gen, spread=False):
-    """Kernels 2 and 3 at the training shape of phase 7: B=8, S=2048,
-    H=32, Hk=8, D=128, window 1024, NoPE + reset + [SUM] isolation, padded
-    tails of 8-60 slots, and [SUM] rows as streaming prompts place them, 20
-    in each row's tail; with ``spread``, every 7th slot of the whole row
-    (the dk/dv pass's phase B then revisits every q tile)."""
-    o = windowed_operands(gen, B=8, S=2048, H=32, Hk=8, D=128, Dv=128,
-                          dtype=torch.bfloat16)
+# the head geometries kernels 2 and 3 train at: dti-llama (phase 7) and
+# minicpm3-4b's MLA (phase 13: q/k of qk_nope + qk_rope, v of v_head_dim)
+LLAMA_HEADS = dict(H=32, Hk=8, D=128, Dv=128)
+MLA_HEADS = dict(H=40, Hk=40, D=96, Dv=64)
+
+
+def train_windowed(gen, spread=False, heads=LLAMA_HEADS):
+    """Kernels 2 and 3 at a training shape: B=8, S=2048, ``heads`` (phase
+    7's by default: H=32, Hk=8, D=128), window 1024, NoPE + reset + [SUM]
+    isolation, padded tails of 8-60 slots, and [SUM] rows as streaming
+    prompts place them, 20 in each row's tail; with ``spread``, every 7th
+    slot of the whole row (the dk/dv pass's phase B then revisits every q
+    tile)."""
+    o = windowed_operands(gen, B=8, S=2048, dtype=torch.bfloat16, **heads)
     B, S = o["valid"].shape
     o["is_sum"] = torch.zeros(B, S, dtype=torch.bool, device="cuda")
     o["valid"] = torch.ones(B, S, dtype=torch.bool, device="cuda")
@@ -518,8 +557,8 @@ def train_windowed(gen, spread=False):
             o["is_sum"][b, 6:n:7] = True
         else:
             o["is_sum"][b, n - 1 - 7 * torch.arange(20, device="cuda")] = True
-    o["do"] = (torch.randn(B, S, 32, 128, generator=gen, device="cuda")
-               .to(torch.bfloat16))
+    o["do"] = (torch.randn(B, S, heads["H"], heads["Dv"], generator=gen,
+                           device="cuda").to(torch.bfloat16))
     kw = windowed_kwargs(o, window=1024, nope=True, reset=True,
                          packed=False, sum_iso=True)
     return o, kw
@@ -568,13 +607,14 @@ def hold_train_grads(o, kw, label):
     return errs
 
 
-def card_leakage(lens, *, window, seed, with_sum, target_seg):
+def card_leakage(lens, *, window, seed, with_sum, target_seg, D=8, Dv=8):
     """Largest |gradient| through kernels 2 and 3 of segment
     ``target_seg``'s summed output with respect to q, k and v at every
     other segment's positions (the layouts of the reference's
-    ``tests/test_kernel_grads.py::_leakage_case``)."""
+    ``tests/test_kernel_grads.py::_leakage_case``; 2 heads, head dims
+    ``D`` for q and k, ``Dv`` for v)."""
     from repro_torch.core.windowed import ResetConfig
-    H, D, S = 2, 8, ((sum(lens) + 7) // 8) * 8
+    H, S = 2, ((sum(lens) + 7) // 8) * 8
     n_pad = S - sum(lens)
     seg = np.concatenate([np.repeat(np.arange(len(lens)), lens),
                           np.full(n_pad, -1)]).astype(np.int32)
@@ -583,8 +623,8 @@ def card_leakage(lens, *, window, seed, with_sum, target_seg):
     valid = seg >= 0
     r = np.random.default_rng(seed)
     is_sum = (r.random(S) < 0.25) & valid if with_sum else np.zeros(S, bool)
-    x = _cuda(*[r.normal(size=(1, S, H, D)).astype(np.float32)
-                for _ in range(6)])
+    x = _cuda(*[r.normal(size=(1, S, H, dim)).astype(np.float32)
+                for dim in (D, D, Dv, D, D, Dv)])
     seg_t, pos_t, valid_t, sum_t = _cuda(seg[None], pos[None], valid[None],
                                          is_sum[None])
     kw = dict(pos_q=pos_t, pos_k=pos_t, window=window, seg_q=seg_t,
@@ -594,7 +634,7 @@ def card_leakage(lens, *, window, seed, with_sum, target_seg):
                   alibi=torch.tensor([0.3, 0.1], device="cuda"), v0=x[5],
                   reset=ResetConfig(0.05, 0.3, window / 2))
     sel = torch.from_numpy(seg == target_seg).cuda()[None, :, None, None]
-    do = sel.float().expand(1, S, H, D).contiguous()
+    do = sel.float().expand(1, S, H, Dv).contiguous()
     g = kernel_grads(x[0], x[1], x[2], do, **kw)[:3]
     torch.cuda.synchronize()
     others = torch.from_numpy((seg != target_seg) & valid).cuda()
@@ -671,9 +711,19 @@ def build_model():
     from repro_torch.models.transformer import init_params
     t0 = time.perf_counter()
     params = init_params(FULL, seed=0)
-    # nonzero LoRA B (zero at init) so the adapters take part
+    nonzero_lora(params, seed=3)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for lp in params["layers"] for p in _leaves(lp))
+    log(f"  FULL params on card: {n / 1e9:.2f}B per-layer weights + embed/"
+        f"head, {torch.cuda.memory_allocated() / 2**30:.1f} GiB, "
+        f"{time.perf_counter() - t0:.1f}s")
+    return FULL, params
+
+
+def nonzero_lora(params, seed):
+    """Nonzero LoRA B (zero at init), so that the adapters take part."""
     gen = torch.Generator(device="cuda")
-    gen.manual_seed(3)
+    gen.manual_seed(seed)
 
     def lora(t):
         for k, v in t.items():
@@ -683,12 +733,6 @@ def build_model():
                 lora(v)
     for lp in params["layers"]:
         lora(lp)
-    torch.cuda.synchronize()
-    n = sum(p.numel() for lp in params["layers"] for p in _leaves(lp))
-    log(f"  FULL params on card: {n / 1e9:.2f}B per-layer weights + embed/"
-        f"head, {torch.cuda.memory_allocated() / 2**30:.1f} GiB, "
-        f"{time.perf_counter() - t0:.1f}s")
-    return FULL, params
 
 
 def _leaves(t):
@@ -702,11 +746,11 @@ def _leaves(t):
 N_CTX, MAX_LEN, N_CAND = 260, 2048, 6
 
 
-def serving_material(cfg):
+def serving_material(cfg, seed=0):
     from repro_torch.core.dti import build_sliding_prompts
     from repro_torch.data.synthetic import make_ctr_dataset
     ds = make_ctr_dataset(n_users=8, n_items=400, seq_len=N_CTX + N_CAND + 1,
-                          vocab_size=cfg.vocab_size, seed=0)
+                          vocab_size=cfg.vocab_size, seed=seed)
     users = []
     for u in range(8):
         toks, labels = ds.user_prompt_material(u)
@@ -1028,18 +1072,19 @@ class _PlainCalls:
             setattr(m, a, fn)
 
 
-def phase_train(cfg, params, mat, kernels):
+def phase_train(cfg, params, mat, kernels, phase="7"):
     """The training path: ``make_train_step`` + ``Trainer`` with LoRA rank
-    8, ``trainable="lora"``, remat, reset and ALiBi, on the serving
-    phases' bf16 weights. Per step: kernel 1 once per layer in the forward
-    and once in the remat recompute, kernels 2 and 3 once per layer."""
+    8, ``trainable="lora"``, remat, reset and ALiBi, on ``params`` (bf16).
+    Per step: kernel 1 once per layer in the forward and once in the remat
+    recompute, kernels 2 and 3 once per layer, no plain attention."""
     from repro_torch.launch.train import evaluate_lm, make_lm_loss_fn
     from repro_torch.models.transformer import named_leaves
     from repro_torch.train.optimizer import OptimizerConfig, is_trainable
     from repro_torch.train.trainer import (Trainer, init_train_state,
                                            make_train_step)
     b0 = mat["batches"][0]
-    log(f"phase 7: training, {TRAIN_STEPS} steps of {TRAIN_ROWS} DTI "
+    log(f"phase {phase}: {cfg.name} training, {TRAIN_STEPS} steps of "
+        f"{TRAIN_ROWS} DTI "
         f"streaming rows (n_ctx {mat['n_ctx']}, k {TRAIN_K}, max_len "
         f"{b0['tokens'].shape[1]}, window {mat['window']}, "
         f"{int(b0['valid'].sum())} tokens and {int(b0['is_sum'].sum())} "
@@ -1074,12 +1119,10 @@ def phase_train(cfg, params, mat, kernels):
     peak = torch.cuda.max_memory_allocated()
     log(f"  launches per step {per_step}; plain attention calls {plain.n}; "
         f"peak memory {peak / 2**30:.2f} GiB")
-    want = {"windowed_attn": 2 * cfg.n_layers,
-            "windowed_attn_dq": cfg.n_layers,
-            "windowed_attn_dkv": cfg.n_layers, "decode_attn": 0,
-            "decode_attn_q8": 0, "decode_attn_mla": 0,
-            "decode_attn_mla_q8": 0, "embedding_bag": 0,
-            "embedding_bag_q8": 0}
+    want = {k: 0 for k in kernels.KERNELS}
+    want.update(windowed_attn=2 * cfg.n_layers,
+                windowed_attn_dq=cfg.n_layers,
+                windowed_attn_dkv=cfg.n_layers)
     if any(d != want for d in per_step) or len(per_step) != TRAIN_STEPS:
         fail(f"launches per step {per_step}, want {want} x {TRAIN_STEPS}")
     if plain.n:
@@ -1134,12 +1177,12 @@ def _lora_grads(cfg, params, batch, window):
     return float(loss.detach()), {p: g for (p, _), g in zip(leaves, grads)}
 
 
-def phase_fp32_train_check(cfg, params, mat):
+def phase_fp32_train_check(cfg, params, mat, phase="8"):
     """Off the main path. Two layers at FULL widths in fp32 (so the dense
     path's score tensors fit), on half of batch 1: the kernel path and the
     dense path must give the same loss and LoRA gradients."""
-    log("phase 8: fp32 at 2 layers, kernel path vs dense path: loss and "
-        "every LoRA gradient")
+    log(f"phase {phase}: {cfg.name} fp32 at 2 layers, kernel path vs dense "
+        "path: loss and every LoRA gradient")
     cfg2 = dataclasses.replace(cfg, n_layers=2, param_dtype="float32",
                                compute_dtype="float32")
     p32 = {k: _map_tensors(v, lambda t: t.float()) for k, v in params.items()
@@ -1962,6 +2005,372 @@ def phase_mla32(cfg, params, users, prompts, kernels):
 
 
 # ---------------------------------------------------------------------------
+# phases 13 and 13b: minicpm3-4b (MLA) training at full width
+# ---------------------------------------------------------------------------
+
+def check_mla_train_kernels():
+    """Phase 13's first part, off the main path: kernels 2 and 3 at
+    minicpm3-4b's training shape (B=8, S=2048, H = Hk = 40, Dqk 96, Dv 64,
+    NoPE + reset, [SUM] rows in each row's tail) in bf16, twice (the same
+    bits), held to the fp32 plain version row by row as phase 2d holds
+    them (``hold_train_grads``); then cross-segment gradients at these
+    head dims, which must be exactly 0. Returns what phase 6 times."""
+    from repro_torch.kernels.windowed_attn import windowed_attention_bwd_plain
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(13)
+    log("phase 13: windowed_attn_dq / windowed_attn_dkv at minicpm3-4b's "
+        "training shape (B=8 S=2048 H=Hk=40 Dqk 96 Dv 64 window 1024, NoPE "
+        "+ reset, 20 [SUM] rows in each row's tail), bf16 kernels vs the "
+        "fp32 plain version")
+    o, kw = train_windowed(gen, heads=MLA_HEADS)
+    errs = hold_train_grads(o, kw, "MLA tail")
+    plain_ms = cuda_ms(lambda: windowed_attention_bwd_plain(
+        o["q"], o["k"], o["v"], o["do"], **kw), iters=1, warmup=1)
+    for lens, window, seed, with_sum, target in (([12, 9, 7], 8, 0, True, 1),
+                                                 ([5, 17], 4, 1, False, 0)):
+        leak = card_leakage(lens, window=window, seed=seed,
+                            with_sum=with_sum, target_seg=target,
+                            D=MLA_HEADS["D"], Dv=MLA_HEADS["Dv"])
+        log(f"  segments {lens} window {window} [SUM] {with_sum}, Dqk 96 Dv "
+            f"64: largest cross-segment |grad| {leak}")
+        if leak != 0.0:
+            fail(f"gradient leaks across segments at Dqk 96, Dv 64: {leak}")
+    return dict(ops=(o, kw), plain_ms=plain_ms, errs=errs)
+
+
+def phase_mla_train(kernels):
+    """Phases 13 and 13b: minicpm3-4b ``FULL`` (62 layers, MLA, random
+    seeded bf16 weights with LoRA rank 8, nonzero ``lora_b``) trains on
+    kernels 1-3 at Dqk 96, Dv 64 through phase 7's path (remat, reset and
+    ALiBi on, ``trainable="lora"``); then 13b, at 2 layers in fp32, the
+    kernel path against the dense path. Returns the training path's
+    launches, its times, 13b's diffs and what phase 6 times; frees its
+    weights."""
+    from repro_torch.configs.minicpm3_4b import FULL
+    from repro_torch.models.transformer import count_params, init_params
+    bwd = check_mla_train_kernels()
+    cfg = dataclasses.replace(FULL, attn_impl="cuda", lora_rank=8)
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=1)
+    nonzero_lora(params, seed=4)
+    torch.cuda.synchronize()
+    log(f"  {cfg.name} FULL with LoRA rank {cfg.lora_rank}: "
+        f"{count_params(params) / 1e9:.3f}B parameters, "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on card, "
+        f"{time.perf_counter() - t0:.1f}s")
+    mat = training_material(cfg)
+    train = phase_train(cfg, params, mat, kernels, phase="13")
+    times = time_train(cfg, params, mat, train)
+    state = {"s": train["state"]}
+
+    def one_step():   # two more LoRA steps; every check ran before
+        state["s"] = train["step_fn"](state["s"], mat["batches"][0])[0]
+    profile_call(one_step, f"{cfg.name} train step B={TRAIN_ROWS} "
+                 f"S={TRAIN_LEN} {cfg.n_layers} layers")
+    launches = train["launches"]
+    del train, state
+    torch.cuda.empty_cache()
+    check = phase_fp32_train_check(cfg, params, mat, phase="13b")
+    del params
+    torch.cuda.empty_cache()
+    return dict(launches=launches, times=times, check=check, bwd=bwd)
+
+
+# ---------------------------------------------------------------------------
+# phases 14 and 14b: qwen2-moe-a2.7b (MoE) serving at full width
+# ---------------------------------------------------------------------------
+
+class _MoeRouting:
+    """While installed over the MoE FFN the model calls
+    (``repro_torch.models.transformer.moe_ffn``, through which prefill and
+    decode reach it), records per call the number of dropped (token,
+    expert) choices and each token's top-k set (sorted expert ids, (B, S,
+    k) on the host). The routing is computed once more for the record."""
+
+    def __init__(self):
+        import repro_torch.models.transformer as tr
+        from repro_torch.models.moe import route
+        self.calls = []
+        self._tr, self._orig = tr, tr.moe_ffn
+
+        def recorded(p, x, **kw):
+            b, s, d = x.shape
+            _, _, ids, _, keep, _ = route(p, x.reshape(-1, d), **{
+                k: kw[k] for k in ("n_experts", "top_k", "capacity_factor",
+                                   "norm_topk")})
+            self.calls.append((int((~keep).sum()), int(keep.numel()),
+                               torch.sort(ids, -1).values.reshape(b, s, -1)
+                               .cpu()))
+            return self._orig(p, x, **kw)
+        tr.moe_ffn = recorded
+
+    def dropped(self):
+        """(dropped choices, all choices) over the recorded calls."""
+        return (sum(c[0] for c in self.calls), sum(c[1] for c in self.calls))
+
+    def close(self):
+        self._tr.moe_ffn = self._orig
+
+
+def no_drop(cfg):
+    """``cfg`` at the capacity factor n_experts / top_k, where an expert's
+    capacity is every token of a call: no choice can be dropped, and a
+    token's route does not depend on the other tokens of its call (the
+    reference's own decode-equals-prefill test raises the factor for the
+    same reason, ``tests/test_serve.py:17-18``)."""
+    return dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+
+
+def build_moe_model():
+    """qwen2-moe-a2.7b ``FULL`` with random seeded bf16 weights, on the
+    kernels (``attn_impl="cuda"``; its config's own default is the blocked
+    path)."""
+    from repro_torch.configs.qwen2_moe_a2_7b import FULL
+    from repro_torch.models.transformer import count_params, init_params
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(FULL, attn_impl="cuda")
+    params = init_params(cfg, seed=0)
+    torch.cuda.synchronize()
+    lp = params["layers"][0]
+    part = lambda t: sum(x.numel() for x in _leaves(t))
+    log(f"  qwen2-moe-a2.7b FULL params on card: count_params "
+        f"{count_params(params)} ({count_params(params) / 1e9:.2f}B; per "
+        f"layer experts {part({k: lp['ffn'][k] for k in ('w_gate', 'w_up', 'w_down')}) / 1e6:.1f}M, "
+        f"shared {part(lp['ffn']['shared']) / 1e6:.1f}M, attention "
+        f"{part(lp['attn']) / 1e6:.1f}M; embed and lm_head "
+        f"{params['embed'].numel() / 1e6:.1f}M each), "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB, "
+        f"{time.perf_counter() - t0:.1f}s")
+    return cfg, params
+
+
+def serve_plain_calls():
+    """A counter of the serving path's attention plain versions (prefill's
+    and decode's)."""
+    import repro_torch.core.windowed as cw
+    import repro_torch.kernels.windowed_attn as wa
+    from repro_torch.serve import engine
+    return _PlainCalls([(wa, "windowed_attention_plain"),
+                        (wa, "attention_dense"), (cw, "attention_dense"),
+                        (engine, "decode_attention_plain"),
+                        (engine, "decode_attention_mla_plain")])
+
+
+def phase_moe(kernels):
+    """Phase 14: qwen2-moe-a2.7b FULL on the kernels, bf16, the counts set
+    to 0 before it and read after it: phases 3 and 4 on it at ``no_drop``
+    capacity (``CTRServer.score`` with kernel 1 once per layer, the
+    chunked context, the 6-candidate burst held to per-candidate prefill,
+    ring steps, kernel 4's GQA mode once per layer per step, no plain
+    call, no dropped choice); then at the config's capacity factor 1.25
+    the timed prefill call and decode burst step, their profiles and
+    drops, and peak memory; then 14b. Returns the launches, times and
+    checks; frees its weights."""
+    from repro_torch.serve.engine import CTRServer, make_decode_fn
+    log("phase 14: qwen2-moe-a2.7b (MoE) FULL, bf16, attn_impl cuda")
+    cfg, params = build_moe_model()
+    users, prompts = serving_material(cfg)
+    nd = no_drop(cfg)
+    log(f"  serving logic checks at capacity factor {nd.capacity_factor:g} "
+        f"(n_experts / top_k: no choice can drop)")
+    torch.cuda.reset_peak_memory_stats()
+    routing, plain = _MoeRouting(), serve_plain_calls()
+    kernels.reset_launches()
+    try:
+        server, p_prefill = phase_prefill(nd, params, prompts, kernels)
+        run = phase_decode(nd, params, users, server, p_prefill, kernels)
+    finally:
+        plain.close()
+        routing.close()
+    launches = dict(kernels.LAUNCHES)
+    want = {k: 0 for k in kernels.KERNELS}
+    want.update(windowed_attn=cfg.n_layers * (1 + run["n_prefill_calls"]),
+                decode_attn=cfg.n_layers * run["n_steps"])
+    dropped, choices = routing.dropped()
+    log(f"  MoE serving path launches {launches}: kernel 1 in "
+        f"{1 + run['n_prefill_calls']} prefill calls, kernel 4 in "
+        f"{run['n_steps']} decode steps; plain attention calls {plain.n}; "
+        f"dropped choices {dropped} of {choices}")
+    if launches != want:
+        fail(f"MoE serving path launches {launches}, want {want}")
+    if plain.n:
+        fail(f"the plain attention ran {plain.n} times on the MoE path")
+    if dropped:
+        fail(f"{dropped} choices dropped at capacity factor "
+             f"{nd.capacity_factor}")
+    del server, routing
+
+    server = CTRServer(params, cfg, max_len=MAX_LEN)
+    decode = make_decode_fn(cfg, window=cfg.window, ring=False)
+    burst = lambda: decode(params, run["cache"], *run["burst_args"])
+    times = dict(prefill_ms=cuda_ms(lambda: server.score(prompts), iters=3,
+                                    warmup=1),
+                 decode_ms=cuda_ms(burst, iters=5, warmup=1))
+    times["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    card = card_line()
+    log(f"  qwen2-moe-a2.7b at capacity factor {cfg.capacity_factor}: "
+        f"prefill call B=8 S=2048 24 layers {times['prefill_ms']:.2f} ms; "
+        f"decode burst step B=8 s=64 cap=2048 {times['decode_ms']:.2f} ms; "
+        f"peak memory {times['peak_gib']:.2f} GiB ({card})")
+    routing = _MoeRouting()
+    try:
+        server.score(prompts)
+        n_pre = routing.dropped()
+        burst()
+    finally:
+        routing.close()
+    d_all = routing.dropped()
+    times["drops"] = dict(prefill=n_pre, burst=(d_all[0] - n_pre[0],
+                                                d_all[1] - n_pre[1]))
+    log(f"  dropped (token, expert) choices at capacity factor "
+        f"{cfg.capacity_factor}: prefill call {n_pre[0]} of {n_pre[1]}, "
+        f"burst step {times['drops']['burst'][0]} of "
+        f"{times['drops']['burst'][1]}")
+    profile_call(burst, "qwen2-moe-a2.7b decode burst step B=8 s=64 "
+                 "cap=2048")
+    profile_call(lambda: server.score(prompts),
+                 "qwen2-moe-a2.7b prefill call B=8 S=2048 24 layers")
+    del run, server
+    torch.cuda.empty_cache()
+    checks = phase_moe32(cfg, params, kernels)
+    del params
+    torch.cuda.empty_cache()
+    return dict(launches=launches, times=times, checks=checks)
+
+
+def phase_moe32(cfg, params, kernels, seeds=(0, 1, 2)):
+    """14b: qwen2-moe-a2.7b at FULL widths, 2 layers, fp32, ``no_drop``
+    capacity: the kernel path against the dense path, prefill and every
+    decode step of phase 4's path, within P32_TOL. A token whose top-k set
+    differs between the two paths (a router near-tie broken the other way
+    by a rounding) changes its FFN output by far more than summation
+    order, so the scores are held only on a run where no token's set
+    differs; each run prints the count, and the phase fails when every
+    seed of the serving material gives a nonzero count."""
+    log("phase 14b: qwen2-moe-a2.7b FULL widths, 2 layers, fp32: kernel "
+        "path vs dense path")
+    c32 = no_drop(dataclasses.replace(cfg, n_layers=2, param_dtype="float32",
+                                      compute_dtype="float32"))
+    p32 = _layers(params, 2, torch.float32)
+    for seed in seeds:
+        users, prompts = serving_material(c32, seed=seed)
+        got = {}
+        for impl in ("cuda", "dense"):
+            routing = _MoeRouting()
+            try:
+                pre = _score(c32, p32, prompts, impl)
+                dec = drive_decode(dataclasses.replace(c32, attn_impl=impl),
+                                   p32, users, kernels)["valid_p"]
+            finally:
+                routing.close()
+            got[impl] = (pre, dec, routing.calls)
+        calls = list(zip(got["cuda"][2], got["dense"][2]))
+        if len(got["cuda"][2]) != len(got["dense"][2]) or any(
+                a[2].shape != b[2].shape for a, b in calls):
+            fail("phase 14b: the two paths made different MoE calls")
+        flips = sum(int((a[2] != b[2]).any(-1).sum()) for a, b in calls)
+        tokens = sum(a[2].shape[0] * a[2].shape[1] for a, _ in calls)
+        out = {"prefill": float(np.abs(got["cuda"][0] - got["dense"][0]).max()),
+               "decode": float(np.abs(got["cuda"][1] - got["dense"][1]).max())}
+        log(f"  seed {seed}: tokens whose top-k set differs between the "
+            f"paths {flips} of {tokens} routed; max|p_cuda - p_dense| "
+            f"prefill {out['prefill']:.3e}, decode over "
+            f"{got['cuda'][1].size} tokens {out['decode']:.3e} (tol "
+            f"{P32_TOL}{'' if flips == 0 else ', not held: a route differs'})")
+        if flips == 0:
+            for name, err in out.items():
+                if not err <= P32_TOL:
+                    fail(f"phase 14b {name}: kernel path differs from dense "
+                         f"by {err}")
+            del p32
+            torch.cuda.empty_cache()
+            return dict(out, seed=seed)
+    fail(f"phase 14b: a token's top-k set differs between the paths on "
+         f"every seed {seeds}")
+
+
+# ---------------------------------------------------------------------------
+# phase 15: minicpm-2b and qwen2-1.5b (GQA) serving at full width
+# ---------------------------------------------------------------------------
+
+def phase_gqa_archs(kernels):
+    """Phase 15: minicpm-2b (36/36 heads, head dim 64) and qwen2-1.5b
+    (12/2 heads, head dim 128) FULL on the kernels, bf16: phases 3 and 4
+    on each (kernel 1 once per layer per prefill call, kernel 4's GQA mode
+    once per layer per step, no plain call), one prefill call and one
+    decode burst step timed; then at 2 layers in fp32 the kernel path
+    against the dense path, prefill and every decode step, within
+    SCHED32_TOL. Returns the launches, times and diffs; frees the
+    weights."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.transformer import count_params, init_params
+    out = dict(launches={k: 0 for k in kernels.KERNELS}, times={},
+               checks={})
+    for name in ("minicpm-2b", "qwen2-1.5b"):
+        log(f"phase 15: {name} FULL, bf16, attn_impl cuda")
+        cfg = dataclasses.replace(get_arch(name).config, attn_impl="cuda")
+        t0 = time.perf_counter()
+        params = init_params(cfg, seed=0)
+        torch.cuda.synchronize()
+        log(f"  {name} FULL params on card: {count_params(params) / 1e9:.3f}B"
+            f", {torch.cuda.memory_allocated() / 2**30:.1f} GiB, "
+            f"{time.perf_counter() - t0:.1f}s")
+        users, prompts = serving_material(cfg)
+        plain = serve_plain_calls()
+        kernels.reset_launches()
+        try:
+            server, p_prefill = phase_prefill(cfg, params, prompts, kernels)
+            run = phase_decode(cfg, params, users, server, p_prefill,
+                               kernels)
+        finally:
+            plain.close()
+        launches = dict(kernels.LAUNCHES)
+        want = {k: 0 for k in kernels.KERNELS}
+        want.update(windowed_attn=cfg.n_layers * (1 + run["n_prefill_calls"]),
+                    decode_attn=cfg.n_layers * run["n_steps"])
+        log(f"  {name} serving path launches {launches}; plain attention "
+            f"calls {plain.n}")
+        if launches != want:
+            fail(f"{name} serving path launches {launches}, want {want}")
+        if plain.n:
+            fail(f"the plain attention ran {plain.n} times on {name}")
+        for k, n in launches.items():
+            out["launches"][k] += n
+        t = dict(prefill_ms=cuda_ms(lambda: server.score(prompts), iters=3,
+                                    warmup=1),
+                 decode_ms=cuda_ms(lambda: run["decode"](
+                     params, run["cache"], *run["burst_args"]), iters=5,
+                     warmup=1))
+        log(f"  {name} prefill call B=8 S=2048 {cfg.n_layers} layers: "
+            f"{t['prefill_ms']:.2f} ms; decode burst step B=8 s=64 cap=2048: "
+            f"{t['decode_ms']:.2f} ms ({card_line()})")
+        out["times"][name] = t
+        del run, server
+        c32 = dataclasses.replace(cfg, n_layers=2, param_dtype="float32",
+                                  compute_dtype="float32")
+        p32 = _layers(params, 2, torch.float32)
+        del params
+        torch.cuda.empty_cache()
+        diffs = {"prefill": float(np.abs(
+            _score(c32, p32, prompts, "cuda")
+            - _score(c32, p32, prompts, "dense", batch=4)).max())}
+        dec = drive_decode(c32, p32, users, kernels)["valid_p"]
+        dec_dense = drive_decode(dataclasses.replace(c32, attn_impl="dense"),
+                                 p32, users, kernels)["valid_p"]
+        diffs["decode"] = float(np.abs(dec - dec_dense).max())
+        del p32
+        torch.cuda.empty_cache()
+        for part, err in diffs.items():
+            log(f"  {name} fp32, 2 layers, {part}: max|p_cuda - p_dense| "
+                f"{err:.3e} (tol {SCHED32_TOL:g})")
+            if not err <= SCHED32_TOL:
+                fail(f"phase 15 {name} {part}: kernel path differs from "
+                     f"dense by {err}")
+        out["checks"][name] = diffs
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 2f: the embedding bag (kernel 5) against its plain version
 # ---------------------------------------------------------------------------
 
@@ -2539,7 +2948,8 @@ def time_train(cfg, params, mat, run):
                targets_per_s=targets / step_s, tokens_per_s=tokens / step_s,
                peak_gib=run["peak"] / 2**30, fwd_bwd_lora_ms=t_lora)
     frozen_ms = out["step_ms"] - t_lora
-    log(f"  train step B={TRAIN_ROWS} S={TRAIN_LEN} 32 layers: median "
+    log(f"  {cfg.name} train step B={TRAIN_ROWS} S={TRAIN_LEN} "
+        f"{cfg.n_layers} layers: median "
         f"{out['step_ms']:.2f} ms over {len(hist) - 1} steady steps (first "
         f"step {out['first_s']:.2f} s); {out['targets_per_s']:.2f} targets/s, "
         f"{out['tokens_per_s']:.1f} non-pad tokens/s; peak memory "
@@ -2551,8 +2961,30 @@ def time_train(cfg, params, mat, run):
     return out
 
 
-def time_bwd_kernels(bwd):
-    """Kernels 2 and 3 at the training shape, each on its own, beside the
+def _bwd_launches(o, kw):
+    """Kernels 2 and 3 each on its own, on ``o``'s operands (kernel 1's
+    output and lse computed once), and the buffers they write."""
+    from repro_torch.kernels import windowed_attn as wa
+    q, k, v = o["q"], o["k"], o["v"]
+    fwd_kw = dict(is_sum_q=None, is_sum_k=None, valid_k=None, seg_q=None,
+                  seg_k=None, q_nope=None, k_nope=None, alibi=None, v0=None,
+                  reset=None, sum_isolated=True, scale=None)
+    fwd_kw.update(kw)
+    st, live, alibi_f, ints = wa._prepare(q, k, v, **fwd_kw)
+    out, lse = wa._fwd(st, q, k, v, live, alibi_f, ints)
+    args = (st, q, k, v, live, alibi_f, ints, lse, wa._delta(out, o["do"]),
+            o["do"])
+    bufs = {"windowed_attn_dq": (torch.empty_like(q), torch.empty_like(q)),
+            "windowed_attn_dkv": (torch.empty_like(k), torch.empty_like(v),
+                                  torch.empty_like(k), torch.empty_like(v))}
+    calls = {name: (lambda name=name, outs=outs:
+                    wa._bwd_pass(name, *args, outs))
+             for name, outs in bufs.items()}
+    return calls, (st, live, alibi_f, ints, out, lse, bufs)
+
+
+def time_bwd_at(o, kw, plain_ms, label):
+    """Kernels 2 and 3 at one training shape, each on its own, beside the
     backward of ``scaled_dot_product_attention`` (the library yardstick:
     the same boolean mask, repeated kv heads, no NoPE or reset stream).
     The bound counts the attended pairs of these inputs: 2 (2D + Dv) FLOPs
@@ -2561,36 +2993,14 @@ def time_bwd_kernels(bwd):
     import torch.nn.functional as F
     from repro_torch.core.windowed import dti_mask
     from repro_torch.kernels import windowed_attn as wa
-
-    def launches(o, kw):
-        """Each pass on its own, on ``o``'s operands, and its buffers."""
-        q, k, v = o["q"], o["k"], o["v"]
-        fwd_kw = dict(is_sum_q=None, is_sum_k=None, valid_k=None,
-                      seg_q=None, seg_k=None, q_nope=None, k_nope=None,
-                      alibi=None, v0=None, reset=None, sum_isolated=True,
-                      scale=None)
-        fwd_kw.update(kw)
-        st, live, alibi_f, ints = wa._prepare(q, k, v, **fwd_kw)
-        out, lse = wa._fwd(st, q, k, v, live, alibi_f, ints)
-        args = (st, q, k, v, live, alibi_f, ints, lse, wa._delta(out, o["do"]),
-                o["do"])
-        bufs = {"windowed_attn_dq": (torch.empty_like(q), torch.empty_like(q)),
-                "windowed_attn_dkv": (torch.empty_like(k), torch.empty_like(v),
-                                      torch.empty_like(k), torch.empty_like(v))}
-        return {name: (lambda name=name, outs=outs:
-                       wa._bwd_pass(name, *args, outs))
-                for name, outs in bufs.items()}, (st, live, alibi_f, ints, out,
-                                                  lse, bufs)
-
-    o, kw = bwd["windowed_attn_dq"]["ops"]
     q, k, v, do = o["q"], o["k"], o["v"], o["do"]
     B, S, H, D = q.shape
     Hk, Dv = k.shape[2], v.shape[3]
-    calls, (st, live, alibi_f, ints, out, lse, bufs) = launches(o, kw)
+    calls, (st, live, alibi_f, ints, out, lse, bufs) = _bwd_launches(o, kw)
     fwd_ms = cuda_ms(lambda: wa._fwd(st, q, k, v, live, alibi_f, ints),
                      iters=10, warmup=2)
-    log(f"  windowed_attn at the training shape (NoPE + reset, bf16, "
-        f"two launches per layer a step): {fwd_ms:.4f} ms")
+    log(f"  [{label}] windowed_attn at the training shape (NoPE + reset, "
+        f"bf16, two launches per layer a step): {fwd_ms:.4f} ms")
     mask = dti_mask(o["pos"], o["pos"], window=1024, is_sum_k=o["is_sum"],
                     valid_k=o["valid"])
     pairs = int(mask.sum())
@@ -2602,12 +3012,7 @@ def time_bwd_kernels(bwd):
     for name, outs in bufs.items():
         ms = cuda_ms(calls[name], iters=5, warmup=1)
         res[name] = dict(ms=ms, bytes=ins + _bytes(*outs), flops=flops[name],
-                         plain_ms=bwd[name]["plain_ms"])
-    spread, _ = launches(*bwd["windowed_attn_dq"]["spread"])
-    log("  [SUM] rows every 7th slot (phase B revisits every q tile): "
-        + ", ".join(f"{name} {cuda_ms(fn, iters=5, warmup=1):.4f} ms"
-                    for name, fn in spread.items()))
-    del spread
+                         plain_ms=plain_ms)
     rep = H // Hk
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in
                   (q, k.repeat_interleave(rep, 2), v.repeat_interleave(rep, 2)))
@@ -2618,8 +3023,29 @@ def time_bwd_kernels(bwd):
                   warmup=1)
     for r in res.values():
         r["library_ms"] = lib
-    log(f"  attended pairs at the training shape {pairs} (of {B * S * S}); "
-        f"SDPA backward {lib:.4f} ms")
+    log(f"  [{label}] attended pairs {pairs} (of {B * S * S}); SDPA backward "
+        f"{lib:.4f} ms ({sdpa_backend(qt, kt, vt, mask[:, None])})")
+    for name, r in res.items():
+        t_ops = r["flops"] / BF16_FLOPS * 1e3
+        t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
+        log(f"  [{label}] {name}: {r['ms']:.4f} ms, bound "
+            f"{max(t_ops, t_bytes):.4f} ms "
+            f"({'operations' if t_ops >= t_bytes else 'bytes'}: "
+            f"{r['flops'] / 1e12:.4f} TFLOP, {r['bytes'] / 1e6:.1f} MB), "
+            f"plain backward {plain_ms:.2f} ms")
+    return res
+
+
+def time_bwd_kernels(bwd):
+    """Kernels 2 and 3 at phase 7's training shape (``time_bwd_at``), and
+    with [SUM] rows every 7th slot."""
+    o, kw = bwd["windowed_attn_dq"]["ops"]
+    res = time_bwd_at(o, kw, bwd["windowed_attn_dq"]["plain_ms"],
+                      "dti-llama B=8 S=2048 H32 Hk8 D128")
+    spread, _ = _bwd_launches(*bwd["windowed_attn_dq"]["spread"])
+    log("  [SUM] rows every 7th slot (phase B revisits every q tile): "
+        + ", ".join(f"{name} {cuda_ms(fn, iters=5, warmup=1):.4f} ms"
+                    for name, fn in spread.items()))
     return res
 
 
@@ -2906,6 +3332,9 @@ def main() -> int:
     recsys = phase_recsys(kernels)
     torch.cuda.empty_cache()
     mla = phase_mla(kernels)
+    mla_train = phase_mla_train(kernels)
+    moe = phase_moe(kernels)
+    gqa = phase_gqa_archs(kernels)
 
     cfg, params = build_model()
     users, prompts = serving_material(cfg)
@@ -2937,8 +3366,9 @@ def main() -> int:
     for res in sched_runs.values():
         for name, n in res["launches"].items():
             launches[name] += n
-    for name, n in (*bag["launches"].items(), *mla["launches"].items()):
-        launches[name] += n
+    for res in (bag, mla, mla_train, moe, gqa):
+        for name, n in res["launches"].items():
+            launches[name] += n
     sched32 = phase_sched32(cfg, params, kernels)
 
     log("phase 6: times (CUDA events after warm-up)")
@@ -2963,6 +3393,10 @@ def main() -> int:
     del train, state
     times = time_kernels(real)
     times.update(time_bwd_kernels(bwd))
+    mla_bwd = time_bwd_at(*mla_train["bwd"]["ops"],
+                          mla_train["bwd"]["plain_ms"],
+                          "minicpm3-4b B=8 S=2048 H=Hk=40 Dqk96 Dv64")
+    del mla_train["bwd"]["ops"]
     times["decode_attn_q8"] = time_q8(q8res)
     times["decode_attn_mla"] = time_mla(mla_k["decode_attn_mla"], False)
     times["decode_attn_mla_q8"] = time_mla(mla_k["decode_attn_mla_q8"], True)
@@ -3049,6 +3483,25 @@ def main() -> int:
         f"candidates/s, int8 KV {mt['sched_int8'][0]:.2f} ms/step "
         f"{mt['sched_int8'][1]:.1f} candidates/s; score diffs {mla['errs']}; "
         f"fp32 checks {mla['checks']} ({card})")
+    tt = mla_train["times"]
+    log(f"  minicpm3-4b training (LoRA rank 8): train step "
+        f"{tt['step_ms']:.2f} ms, {tt['targets_per_s']:.2f} targets/s, "
+        f"{tt['tokens_per_s']:.1f} non-pad tokens/s, peak "
+        f"{tt['peak_gib']:.2f} GiB; kernels 2/3 at its shape: dq "
+        f"{mla_bwd['windowed_attn_dq']['ms']:.4f} ms, dk/dv "
+        f"{mla_bwd['windowed_attn_dkv']['ms']:.4f} ms, SDPA backward "
+        f"{mla_bwd['windowed_attn_dq']['library_ms']:.4f} ms; bf16 grads "
+        f"max|err| {mla_train['bwd']['errs']}; 13b {mla_train['check']} "
+        f"({card})")
+    mo = moe["times"]
+    log(f"  qwen2-moe-a2.7b (MoE): prefill {mo['prefill_ms']:.2f} ms, decode "
+        f"burst step {mo['decode_ms']:.2f} ms, peak {mo['peak_gib']:.2f} "
+        f"GiB, drops at capacity factor 1.25 {mo['drops']}; 14b "
+        f"{moe['checks']} ({card})")
+    log("  GQA archs: " + "; ".join(
+        f"{name} prefill {t['prefill_ms']:.2f} ms, decode burst step "
+        f"{t['decode_ms']:.2f} ms, fp32 diffs {gqa['checks'][name]}"
+        for name, t in gqa["times"].items()) + f" ({card})")
     log(f"  recsys: card vs CPU AdamW loss diffs {recsys['cut']}; FULL "
         + "; ".join(f"{a} serve {r['serve_ms']:.3f} ms, train B"
                     f"{r['train_batch']} {r['train_ms']:.2f} ms, retrieval "

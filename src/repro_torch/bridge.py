@@ -10,7 +10,9 @@ Layouts: the reference stacks per-layer params on a leading axis
 dense layers); the port keeps a list ``params["layers"]`` in layer order.
 Every leaf (GQA's ``q``/``k``/``v``/``o``, MLA's ``kv_down``, ``kv_norm``,
 ``kv_up``, ``k_rope``, ``q_down``, ``q_norm``, ``q_up`` or ``q``, ``o``,
-their LoRA leaves) keeps its shape otherwise: a linear ``w`` is ``(d_in, d_out)``,
+MoE's fp32 ``router``, expert stacks ``w_gate``/``w_up`` ``(E, d, f)`` and
+``w_down`` ``(E, f, d)`` and ``shared`` SwiGLU, their LoRA leaves) keeps
+its shape otherwise: a linear ``w`` is ``(d_in, d_out)``,
 LoRA ``lora_a``/``lora_b``/``lora_scale`` and rmsnorm ``scale`` as they
 are, ``embed (V, d)`` and ``lm_head.w (d, V)``.
 
@@ -42,9 +44,10 @@ ATTN_IMPL = {"pallas": "cuda", "dense": "dense", "blocked": "blocked"}
 def config_from_jax(fields: Mapping[str, Any], **overrides) -> ModelConfig:
     """Port config from a reference ``ModelConfig``'s fields
     (``dataclasses.asdict(cfg)``). ``remat``, ``remat_policy``, the MLA
-    widths and the blocked path's q chunk carry over; fields the port has
-    no use for (kernel tile sizes, chunked LM loss, MoE widths) are
-    dropped; ``"pallas"`` maps to ``"cuda"``."""
+    and MoE widths (experts, top-k, capacity factor, ``norm_topk``, the
+    dense prefix) and the blocked path's q chunk carry over; fields the
+    port has no use for (kernel tile sizes, chunked LM loss) are dropped;
+    ``"pallas"`` maps to ``"cuda"``."""
     names = {f.name for f in dataclasses.fields(ModelConfig)}
     kw = {k: v for k, v in fields.items() if k in names}
     kw["attn_impl"] = ATTN_IMPL[kw.get("attn_impl", "dense")]
@@ -105,7 +108,7 @@ def to_numpy_tree(params: Tree, cfg: ModelConfig) -> Tree:
     """Port params -> the reference's tree layout, numpy leaves."""
     out = {k: _map(v, _to_numpy) for k, v in params.items() if k != "layers"}
     layers = [_map(lp, _to_numpy) for lp in params["layers"]]
-    n_pre = cfg.first_dense_layers if cfg.moe else 0
+    n_pre = _n_prefix(cfg)
     if n_pre:
         out["prefix"] = _stack(layers[:n_pre])
     out["stack"] = _stack(layers[n_pre:])
@@ -119,25 +122,37 @@ def _stack(layers: List[Tree]) -> Tree:
     return np.stack(layers)
 
 
-def _reference_leaf(tree: Tree, path):
+def _n_prefix(cfg: Optional[ModelConfig]) -> int:
+    return cfg.first_dense_layers if cfg is not None and cfg.moe else 0
+
+
+def _reference_leaf(tree: Tree, path, n_prefix: int = 0):
     """The reference tree's leaf for a port path, and the layer index to
-    take from it (None outside the layers)."""
+    take from it (None outside the layers): port layer i is the
+    ``prefix`` group's i-th below ``n_prefix``, else the ``stack``'s
+    (i - n_prefix)-th."""
     node, layer = tree, None
     if path[0] == "layers":
-        node, layer, path = tree["stack"], path[1], path[2:]
+        i, path = path[1], path[2:]
+        node, layer = ((tree["prefix"], i) if i < n_prefix
+                       else (tree["stack"], i - n_prefix))
     for k in path:
         node = node[k]
     return np.asarray(node), layer
 
 
 def opt_state_from_jax(state: Mapping[str, Any], params: Tree,
-                       opt_cfg: OptimizerConfig, device) -> OptState:
+                       opt_cfg: OptimizerConfig, device,
+                       cfg: Optional[ModelConfig] = None) -> OptState:
     """Reference ``OptState`` (as a mapping of numpy leaves:
     ``state._asdict()`` after ``tree_map(np.asarray, ...)``) -> the port's,
-    laid out like the port ``params``."""
+    laid out like the port ``params``. ``cfg`` places an MoE model's
+    dense prefix layers (the reference's ``prefix`` group)."""
+    n_pre = _n_prefix(cfg)
+
     def conv(sub):
         def leaf(path, _):
-            a, layer = _reference_leaf(sub, path)
+            a, layer = _reference_leaf(sub, path, n_pre)
             if layer is not None and is_trainable(opt_cfg, path):
                 a = a[layer]
             return _to_tensor(a, device)
@@ -149,23 +164,28 @@ def opt_state_from_jax(state: Mapping[str, Any], params: Tree,
                     None if master is None else conv(master))
 
 
-def opt_state_to_numpy(state: OptState,
-                       opt_cfg: OptimizerConfig) -> Dict[str, Any]:
+def opt_state_to_numpy(state: OptState, opt_cfg: OptimizerConfig,
+                       cfg: Optional[ModelConfig] = None) -> Dict[str, Any]:
     """Port ``OptState`` -> the reference's layout (a dict of ``step``,
-    ``mu``, ``nu``, ``master``), numpy leaves."""
+    ``mu``, ``nu``, ``master``), numpy leaves; ``cfg`` as in
+    ``opt_state_from_jax``."""
+    n_pre = _n_prefix(cfg)
+
     def conv(sub):
         out = {k: _map(v, _to_numpy) for k, v in sub.items()
                if k != "layers"}
-        layers = sub["layers"]
-
-        def stacked(path, first):
-            if not is_trainable(opt_cfg, ("layers", 0) + path):
-                return _to_numpy(first)
-            node = list(layers)
-            for k in path:
-                node = [n[k] for n in node]
-            return np.stack([_to_numpy(t) for t in node])
-        out["stack"] = map_leaves(stacked, layers[0])
+        groups = {"prefix": sub["layers"][:n_pre],
+                  "stack": sub["layers"][n_pre:]}
+        for group, layers in groups.items():
+            def stacked(path, first, layers=layers):
+                if not is_trainable(opt_cfg, ("layers", 0) + path):
+                    return _to_numpy(first)
+                node = list(layers)
+                for k in path:
+                    node = [n[k] for n in node]
+                return np.stack([_to_numpy(t) for t in node])
+            if layers:
+                out[group] = map_leaves(stacked, layers[0])
         return out
     return {"step": np.asarray(int(state.step), np.int32),
             "mu": conv(state.mu), "nu": conv(state.nu),

@@ -1,9 +1,10 @@
 """repro_torch.configs — one module per ported architecture.
 
-``get_arch(name)`` returns the ArchSpec of ``dti-llama``, ``minicpm3-4b``
-or one of the four recsys architectures (``din``, ``mind``, ``sasrec``,
-``xdeepfm``).
-The reference's other architectures are not ported yet and raise
+``get_arch(name)`` returns the ArchSpec of one of the LM architectures
+(``dti-llama``, ``minicpm-2b``, ``qwen2-1.5b``, ``minicpm3-4b``,
+``qwen2-moe-a2.7b``) or one of the four recsys architectures (``din``,
+``mind``, ``sasrec``, ``xdeepfm``). The reference's other two
+(``deepseek-v2-236b``, ``gin-tu``) are not ported yet and raise
 ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
@@ -12,19 +13,20 @@ from typing import List
 
 from repro_torch.configs.base import ArchSpec, ShapeSpec
 
-from repro_torch.configs import (din, dti_llama, mind, minicpm3_4b, sasrec,
-                                 xdeepfm)
+from repro_torch.configs import (din, dti_llama, mind, minicpm3_4b,
+                                 minicpm_2b, qwen2_1_5b, qwen2_moe_a2_7b,
+                                 sasrec, xdeepfm)
 
-_MODULES = {"mind": mind, "xdeepfm": xdeepfm, "din": din, "sasrec": sasrec,
-            "dti-llama": dti_llama, "minicpm3-4b": minicpm3_4b}
+_MODULES = {"minicpm-2b": minicpm_2b, "qwen2-1.5b": qwen2_1_5b,
+            "minicpm3-4b": minicpm3_4b, "qwen2-moe-a2.7b": qwen2_moe_a2_7b,
+            "mind": mind, "xdeepfm": xdeepfm, "din": din, "sasrec": sasrec,
+            "dti-llama": dti_llama}
 
 #: the reference's architectures that the port does not have yet
 NOT_PORTED = {
-    "minicpm-2b": "ROADMAP A9 (the rest of configs/)",
-    "qwen2-1.5b": "ROADMAP A9 (the rest of configs/)",
-    "qwen2-moe-a2.7b": "ROADMAP A5 (MoE) and A9",
-    "deepseek-v2-236b": "ROADMAP A5 (MLA and MoE) and A9",
-    "gin-tu": "ROADMAP A9 (models/gnn.py)",
+    "deepseek-v2-236b": "ROADMAP A5 (MLA + MoE at Dqk 192 / Dv 128 and the "
+                        "576 / 512 latent decode: queue B items 1-2)",
+    "gin-tu": "ROADMAP A9b (models/gnn.py)",
 }
 
 ALL: List[str] = list(_MODULES)

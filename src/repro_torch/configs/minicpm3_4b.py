@@ -7,8 +7,8 @@ v_head_dim=64). ``FULL`` prefills on the blocked path at its defaults
 (``attn_impl="blocked"``, as the reference sets it) and decodes on the
 dense path; with ``attn_impl="cuda"`` it prefills on the windowed kernel
 (Dqk 96, Dv 64) and decodes on the decode kernel's absorbed-MLA mode
-(Dqk 288, Dv 256). Its training path waits for kernels 2 and 3 at those
-head dims (ROADMAP queue A5).
+(Dqk 288, Dv 256); it trains on kernels 1-3 at Dqk 96, Dv 64
+(``repro_torch.launch.train --arch minicpm3-4b``).
 """
 from repro_torch.configs.base import ArchSpec, lm_shapes
 from repro_torch.models.transformer import ModelConfig

@@ -3,9 +3,8 @@
 ``train_smoke(arch)`` instantiates the arch's SMOKE config, generates
 matching synthetic data, runs real AdamW steps and returns the loss
 trajectory. ``repro_torch.launch.train`` calls it for the recsys archs.
-Only the recsys branch is ported: the reference's ``lm`` branch waits for
-ROADMAP A9 (the LM configs) and its ``gnn`` branch for A9
-(``models/gnn.py``).
+The ``lm`` and ``recsys`` branches are ported; the reference's ``gnn``
+branch waits for ROADMAP A9b (``models/gnn.py``).
 """
 from __future__ import annotations
 
@@ -14,11 +13,19 @@ from typing import Dict
 import numpy as np
 
 from repro_torch.configs import get_arch
+from repro_torch.core.dti import (SpecialTokens, batch_prompts,
+                                  build_streaming_prompts)
+from repro_torch.core.losses import ctr_loss
 from repro_torch.data.recsys_gen import RecsysGenerator
+from repro_torch.data.synthetic import make_ctr_dataset
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.recsys import bce_loss, init_recsys, recsys_logits
+from repro_torch.models.transformer import forward, init_params
 from repro_torch.train.optimizer import OptimizerConfig
 from repro_torch.train.trainer import init_train_state, make_train_step
+
+
+SP = SpecialTokens()
 
 
 def _run(loss_fn, params, batches, steps, lr) -> Dict:
@@ -40,20 +47,15 @@ def train_smoke(arch: str, *, steps: int = 20, batch: int = 8,
                 seed: int = 0, lr: float = 1e-2,
                 device: DeviceLike = None) -> Dict:
     spec = get_arch(arch)
-    if arch == "minicpm3-4b":
-        raise NotImplementedError(
-            "smoke training of minicpm3-4b waits for the MLA training slice "
-            "(ROADMAP A5); it serves through repro_torch.serve")
-    if spec.family == "lm":
-        raise NotImplementedError(
-            "smoke training of the LM archs waits for ROADMAP A9 (the LM "
-            "configs); dti-llama trains through repro_torch.launch.train")
-    if spec.family != "recsys":
+    if spec.family not in ("lm", "recsys"):
         raise NotImplementedError(f"the {spec.family} family waits for "
-                                  "ROADMAP A9 (models/gnn.py)")
+                                  "ROADMAP A9b (models/gnn.py)")
     device = resolve_device(device)
     rng = np.random.default_rng(seed)
     cfg = spec.smoke
+    if spec.family == "lm":
+        return {"arch": arch, "device": str(device),
+                **_train_lm(cfg, rng, steps, batch, seed, lr, device)}
     gen = RecsysGenerator(cfg.n_items, seed=seed)
 
     def batches():
@@ -70,6 +72,34 @@ def train_smoke(arch: str, *, steps: int = 20, batch: int = 8,
 
     return {"arch": arch, "device": str(device),
             **_run(loss_fn, params, batches(), steps, lr)}
+
+
+def _train_lm(cfg, rng, steps, batch, seed, lr, device) -> Dict:
+    """The reference's ``lm`` branch: streaming DTI prompts of 8 users
+    (n_ctx 4, k 4), the [SUM] loss plus the MoE balance loss."""
+    ds = make_ctr_dataset(n_users=8, n_items=64, seq_len=30,
+                          vocab_size=cfg.vocab_size, seed=seed)
+    prompts = []
+    for u in range(8):
+        toks, labels = ds.user_prompt_material(u)
+        prompts += build_streaming_prompts(toks, labels, n_ctx=4, k=4,
+                                           max_len=4 * max(cfg.window, 32))
+    params = init_params(cfg, seed=seed, device=device)
+    win = cfg.window or 0
+
+    def loss_fn(p, b, _gen):
+        out = forward(p, cfg, b["tokens"], positions=b["positions"],
+                      is_sum=b["is_sum"], valid=b["valid"],
+                      dti_enabled=True, window=win)
+        loss, _ = ctr_loss(p, cfg, out["hidden"], b["is_sum"], b["labels"],
+                           yes_id=SP.yes, no_id=SP.no)
+        return loss + out["aux_loss"], {}
+
+    def batches():
+        while True:
+            yield from batch_prompts(prompts, batch, rng=rng)
+
+    return _run(loss_fn, params, batches(), steps, lr)
 
 
 __all__ = ["train_smoke"]

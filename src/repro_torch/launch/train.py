@@ -15,10 +15,12 @@ card unless ``--device cpu`` is given (the CPU takes the kernels' plain
 versions). ``--trainable lora`` trains only the LoRA leaves, as the paper
 does; the reference's CLI trains every leaf, which stays the default.
 
-``--arch din|mind|sasrec|xdeepfm`` trains that recsys model's SMOKE
-config on synthetic batches (``run_other``, through
-``repro_torch.launch.smoke.train_smoke``), as the reference's CLI does;
-the LM archs other than dti-llama and the GNN raise (ROADMAP A9).
+``--arch`` picks any LM arch the port has (``dti-llama``, ``minicpm-2b``,
+``qwen2-1.5b``, ``minicpm3-4b``, ``qwen2-moe-a2.7b``) at ``--size smoke``
+(its SMOKE config) or ``full`` (its FULL config), as the reference's
+``run_lm`` does; ``--arch din|mind|sasrec|xdeepfm`` trains that recsys
+model's SMOKE config on synthetic batches (``run_other``, through
+``repro_torch.launch.smoke.train_smoke``); the GNN raises (ROADMAP A9b).
 Checkpointing (atomic, keep-k, resumable), straggler monitoring and the
 evaluation (AUC / LogLoss / F1) are always on.
 """
@@ -31,7 +33,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from repro_torch.configs import dti_llama, get_arch
+from repro_torch.configs import get_arch
 from repro_torch.core.dti import (PromptStats, SpecialTokens, batch_prompts,
                                   build_sliding_prompts,
                                   build_streaming_prompts, effective_window,
@@ -114,16 +116,8 @@ def evaluate_lm(params, cfg: ModelConfig, window: int, test_prompts,
 
 
 def run_lm(args) -> Dict:
-    if args.arch == "minicpm3-4b":
-        raise NotImplementedError(
-            "--arch minicpm3-4b serves on the port; its training waits for "
-            "the MLA training slice (ROADMAP A5: kernels 2 and 3 at its "
-            "head dims)")
-    if args.arch != "dti-llama":
-        raise NotImplementedError(
-            f"--arch {args.arch}: of the LM archs only dti-llama trains on "
-            "the port; the others wait for ROADMAP queue A9")
-    cfg = dti_llama.REPRO if args.size == "smoke" else dti_llama.FULL
+    arch = get_arch(args.arch)
+    cfg = arch.smoke if args.size == "smoke" else arch.config
     if args.paradigm in ("sw", "dti-"):
         cfg = dataclasses.replace(cfg, dti_reset=False, dti_sum_alibi=False)
     if args.attn_impl:

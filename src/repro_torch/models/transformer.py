@@ -5,10 +5,11 @@ The reference's ``lax.scan`` over stacked layers is a Python loop over
 ``params["layers"]`` here: PyTorch runs eagerly, so there is no HLO size to
 keep O(1) in depth. Remat wraps each layer in
 ``torch.utils.checkpoint`` instead of ``jax.checkpoint`` around the scan
-body. This covers the dense models: GQA (dti-llama, the model the paper
-trains and serves) and MLA (minicpm3-4b, served; its training path waits
-for kernels 2 and 3 at its head dims). MoE raises and arrives with its
-own slice.
+body. One model covers the LM archs the port has: GQA (dti-llama, the
+model the paper trains and serves; minicpm-2b, qwen2-1.5b), MLA
+(minicpm3-4b) and MoE FFN layers (qwen2-moe-a2.7b), whose leading
+``first_dense_layers`` keep a dense SwiGLU (the reference's ``prefix``
+group).
 """
 from __future__ import annotations
 
@@ -27,6 +28,7 @@ from repro_torch.models.attention import (DTIAttnOpts, gqa_attention,
 from repro_torch.models.layers import (Params, init_linear, init_rmsnorm,
                                        init_swiglu, normal_init, rmsnorm,
                                        swiglu)
+from repro_torch.models.moe import init_moe, moe_ffn
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,9 +49,16 @@ class ModelConfig:
     qk_nope_dim: int = 0
     qk_rope_dim: int = 0
     v_head_dim: int = 0
-    # MoE (later slice; the bridge needs the dense-prefix split)
+    # MoE
     moe: bool = False
+    n_experts: int = 0
+    n_shared_experts: int = 0
+    top_k: int = 0
+    moe_d_ff: int = 0
+    shared_d_ff: Optional[int] = None
     first_dense_layers: int = 0
+    capacity_factor: float = 1.25
+    norm_topk: bool = True
     # positional / attention
     rope_theta: float = 10000.0
     window: int = 0                     # 0 = full causal
@@ -83,6 +92,11 @@ class ModelConfig:
     def cdtype(self) -> torch.dtype:
         return getattr(torch, self.compute_dtype)
 
+    def layer_kind(self, i: int) -> str:
+        if self.moe and i >= self.first_dense_layers:
+            return "moe"
+        return "dense"
+
     def reset_config(self, window_tokens: int) -> Optional[ResetConfig]:
         if not self.dti_reset:
             return None
@@ -92,10 +106,6 @@ class ModelConfig:
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for model features that later slices of the port bring."""
-    if cfg.moe:
-        raise NotImplementedError(
-            "MoE layers are not ported yet (ROADMAP queue A: other "
-            "architectures slice)")
     if cfg.attn_type not in ("gqa", "mla"):
         raise ValueError(f"unknown attn_type {cfg.attn_type!r}")
     if cfg.remat_policy == "dots":
@@ -107,7 +117,8 @@ def check_supported(cfg: ModelConfig) -> None:
         raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}")
 
 
-def _init_layer(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
+def _init_layer(gen: torch.Generator, cfg: ModelConfig, device,
+                kind: str) -> Params:
     kw = dict(dtype=cfg.pdtype, device=device, lora_rank=cfg.lora_rank)
     if cfg.attn_type == "mla":
         attn = init_mla(gen, cfg.d_model, cfg.n_heads,
@@ -119,8 +130,14 @@ def _init_layer(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
     else:
         attn = init_gqa(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                         cfg.hd, qkv_bias=cfg.qkv_bias, **kw)
-    return {"attn": attn,
-            "ffn": init_swiglu(gen, cfg.d_model, cfg.d_ff, **kw),
+    if kind == "moe":
+        mlp = init_moe(gen, cfg.d_model, n_experts=cfg.n_experts,
+                       moe_d_ff=cfg.moe_d_ff, top_k=cfg.top_k,
+                       n_shared=cfg.n_shared_experts,
+                       shared_d_ff=cfg.shared_d_ff, **kw)
+    else:
+        mlp = init_swiglu(gen, cfg.d_model, cfg.d_ff, **kw)
+    return {"attn": attn, "ffn": mlp,
             "ln_attn": init_rmsnorm(cfg.d_model, cfg.pdtype, device),
             "ln_ffn": init_rmsnorm(cfg.d_model, cfg.pdtype, device)}
 
@@ -132,7 +149,8 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
 
     Layout: ``embed (V, d)``, ``ln_f``, ``lm_head.w (d, V)`` and
     ``layers``, a list of per-layer dicts (the reference stacks them on a
-    leading axis; ``repro_torch.bridge`` converts between the two).
+    leading axis, MoE models' dense ``first_dense_layers`` in a ``prefix``
+    group of their own; ``repro_torch.bridge`` converts between the two).
     """
     check_supported(cfg)
     device = resolve_device(device)
@@ -145,12 +163,23 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
         p["lm_head"] = init_linear(gen, cfg.d_model, cfg.vocab_size,
                                    scale=0.02, dtype=cfg.pdtype,
                                    device=device)
-    p["layers"] = [_init_layer(gen, cfg, device) for _ in range(cfg.n_layers)]
+    p["layers"] = [_init_layer(gen, cfg, device, cfg.layer_kind(i))
+                   for i in range(cfg.n_layers)]
     return p
 
 
-def _layer_fwd(lp: Params, h: torch.Tensor, cfg: ModelConfig, *, positions,
-               window: int, dti: Optional[DTIAttnOpts], valid) -> torch.Tensor:
+def ffn(lp: Params, x: torch.Tensor, cfg: ModelConfig, kind: str):
+    """The layer's FFN on its normed input: ``(out, aux_loss)``, the MoE
+    balance loss (an fp32 scalar), or None for a dense SwiGLU."""
+    if kind == "moe":
+        return moe_ffn(lp["ffn"], x, n_experts=cfg.n_experts,
+                       top_k=cfg.top_k, capacity_factor=cfg.capacity_factor,
+                       norm_topk=cfg.norm_topk)
+    return swiglu(lp["ffn"], x), None
+
+
+def _layer_fwd(lp: Params, h: torch.Tensor, cfg: ModelConfig, kind: str, *,
+               positions, window: int, dti: Optional[DTIAttnOpts], valid):
     x = rmsnorm(lp["ln_attn"], h, cfg.norm_eps)
     kw = dict(positions=positions, window=window, rope_theta=cfg.rope_theta,
               impl=cfg.attn_impl, q_chunk=cfg.attn_q_chunk, dti=dti,
@@ -164,8 +193,8 @@ def _layer_fwd(lp: Params, h: torch.Tensor, cfg: ModelConfig, *, positions,
         h = h + gqa_attention(lp["attn"], x, n_heads=cfg.n_heads,
                               n_kv_heads=cfg.n_kv_heads, head_dim=cfg.hd,
                               **kw)
-    x = rmsnorm(lp["ln_ffn"], h, cfg.norm_eps)
-    return h + swiglu(lp["ffn"], x)
+    f, aux = ffn(lp, rmsnorm(lp["ln_ffn"], h, cfg.norm_eps), cfg, kind)
+    return h + f, aux
 
 
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
@@ -176,9 +205,9 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
             dti_enabled: bool = False,
             window: Optional[int] = None) -> Dict[str, Any]:
     """Run the decoder; returns ``{"hidden": (B, S, d)}`` after the final
-    norm and ``"aux_loss"`` (a zero fp32 scalar: dense layers have no MoE
-    balance loss). Logits are not materialised here (see ``lm_logits`` and
-    ``repro_torch.core.losses.ctr_logits``).
+    norm and ``"aux_loss"``, the fp32 sum of the MoE layers' balance
+    losses (zero for a dense model). Logits are not materialised here (see
+    ``lm_logits`` and ``repro_torch.core.losses.ctr_logits``).
 
     With ``cfg.remat`` and policy ``"nothing"``, and while autograd
     records, each layer runs under ``torch.utils.checkpoint``: only its
@@ -205,16 +234,20 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
                           segment_ids=segment_ids)
     remat = (cfg.remat and cfg.remat_policy == "nothing"
              and torch.is_grad_enabled())
-    for lp in params["layers"]:
+    aux_total = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    for i, lp in enumerate(params["layers"]):
         kw = dict(positions=positions, window=win, dti=dti, valid=valid)
+        kind = cfg.layer_kind(i)
         if remat:
-            h = checkpoint(_layer_fwd, lp, h, cfg, use_reentrant=False,
-                           preserve_rng_state=False, **kw)
+            h, aux = checkpoint(_layer_fwd, lp, h, cfg, kind,
+                                use_reentrant=False,
+                                preserve_rng_state=False, **kw)
         else:
-            h = _layer_fwd(lp, h, cfg, **kw)
+            h, aux = _layer_fwd(lp, h, cfg, kind, **kw)
+        if aux is not None:
+            aux_total = aux_total + aux
     return {"hidden": rmsnorm(params["ln_f"], h, cfg.norm_eps),
-            "aux_loss": torch.zeros((), dtype=torch.float32,
-                                    device=tokens.device)}
+            "aux_loss": aux_total}
 
 
 def named_leaves(params: Params, prefix=()) -> Iterator:
@@ -259,6 +292,12 @@ def differentiable(params: Params) -> Iterator[List[torch.Tensor]]:
             t.requires_grad_(False)
 
 
+def count_params(params: Params) -> int:
+    """Elements over every leaf (LoRA scalars included), as the
+    reference counts them."""
+    return sum(t.numel() for _, t in named_leaves(params))
+
+
 def lm_logits(params: Params, cfg: ModelConfig, hidden: torch.Tensor,
               rows: Optional[torch.Tensor] = None) -> torch.Tensor:
     """hidden @ vocab. ``rows`` selects a subset of vocab rows (e.g. yes/no)."""
@@ -269,4 +308,5 @@ def lm_logits(params: Params, cfg: ModelConfig, hidden: torch.Tensor,
 
 
 __all__ = ["ModelConfig", "check_supported", "init_params", "forward",
-           "named_leaves", "map_leaves", "differentiable", "lm_logits"]
+           "ffn", "named_leaves", "map_leaves", "differentiable",
+           "lm_logits", "count_params"]

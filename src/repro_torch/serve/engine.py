@@ -33,9 +33,9 @@ from repro_torch.kernels.decode_attn import (decode_attention,
                                              decode_attention_plain)
 from repro_torch.models.attention import mla_query
 from repro_torch.models.layers import (alibi_slopes, apply_rope, dense,
-                                       rmsnorm, swiglu)
+                                       rmsnorm)
 from repro_torch.models.transformer import (ModelConfig, check_supported,
-                                            forward)
+                                            ffn, forward)
 from repro_torch.serve.cache import (Cache, is_paged, kv_keys,
                                      physical_slots, slot_indices)
 
@@ -119,14 +119,16 @@ def _cache_view(buf: torch.Tensor, read_idx):
     return buf if read_idx is None else buf[read_idx]
 
 
-def _ffn(lp: Params, h, cfg: ModelConfig):
-    return h + swiglu(lp["ffn"], rmsnorm(lp["ln_ffn"], h, cfg.norm_eps))
+def _ffn(lp: Params, h, cfg: ModelConfig, kind: str):
+    """The layer's FFN block, dense SwiGLU or MoE; a decode step drops the
+    MoE balance loss, as the reference's serving path does."""
+    return h + ffn(lp, rmsnorm(lp["ln_ffn"], h, cfg.norm_eps), cfg, kind)[0]
 
 
 def _gqa_decode_layer(lp: Params, h, kv: Dict[str, torch.Tensor], *,
-                      cfg: ModelConfig, plan, read_idx, pos_buf, positions,
-                      is_sum, window: int, seg_q=None, seg_buf=None,
-                      impl="dense"):
+                      cfg: ModelConfig, kind: str, plan, read_idx, pos_buf,
+                      positions, is_sum, window: int, seg_q=None,
+                      seg_buf=None, impl="dense"):
     b, s, _ = h.shape
     hq, hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     quant = "k_scale" in kv
@@ -170,13 +172,13 @@ def _gqa_decode_layer(lp: Params, h, kv: Dict[str, torch.Tensor], *,
                      v_raw, positions, pos_buf,
                      k_nope=k_raw if nope else None, **kw)
     h = h + dense(lp["attn"]["o"], out.to(h.dtype).reshape(b, s, hq * hd))
-    return _ffn(lp, h, cfg)
+    return _ffn(lp, h, cfg, kind)
 
 
 def _mla_decode_layer(lp: Params, h, kv: Dict[str, torch.Tensor], *,
-                      cfg: ModelConfig, plan, read_idx, pos_buf, positions,
-                      is_sum, window: int, seg_q=None, seg_buf=None,
-                      impl="dense"):
+                      cfg: ModelConfig, kind: str, plan, read_idx, pos_buf,
+                      positions, is_sum, window: int, seg_q=None,
+                      seg_buf=None, impl="dense"):
     """Absorbed-MLA decode: scores and values against the latent cache.
 
     W_UK folds into the query (q_abs = q_nope W_UK, r_kv wide) and the
@@ -237,7 +239,7 @@ def _mla_decode_layer(lp: Params, h, kv: Dict[str, torch.Tensor], *,
                        kpe_rope=kpe_rope[:, :, 0], **kw)
     out = torch.einsum("bshr,rhd->bshd", o_lat.to(h.dtype), w_uv)
     h = h + dense(ap["o"], out.reshape(b, s, hq * dv))
-    return _ffn(lp, h, cfg)
+    return _ffn(lp, h, cfg, kind)
 
 
 def make_decode_fn(cfg: ModelConfig, *, window: int, ring: bool,
@@ -322,7 +324,8 @@ def make_decode_fn(cfg: ModelConfig, *, window: int, ring: bool,
         h = params["embed"][tokens].to(cfg.cdtype)
         for li, lp in enumerate(params["layers"]):
             kv = {nm: cache[nm][li] for nm in kv_keys(cache)}
-            h = layer_fn(lp, h, kv, cfg=cfg, plan=plan, read_idx=read_idx,
+            h = layer_fn(lp, h, kv, cfg=cfg, kind=cfg.layer_kind(li),
+                         plan=plan, read_idx=read_idx,
                          pos_buf=pos_buf, positions=positions, is_sum=is_sum,
                          window=window, seg_q=seg, seg_buf=seg_buf,
                          impl=attn_impl)

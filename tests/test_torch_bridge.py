@@ -67,7 +67,10 @@ def test_import_loads_neither_jax_nor_repro():
             "repro_torch.configs.sasrec, repro_torch.configs.xdeepfm, "
             "repro_torch.data.recsys_gen, repro_torch.sparse.embedding, "
             "repro_torch.kernels.embedding_bag, repro_torch.models.recsys, "
-            "repro_torch.launch.steps, repro_torch.launch.smoke\n"
+            "repro_torch.launch.steps, repro_torch.launch.smoke, "
+            "repro_torch.models.moe, repro_torch.configs.minicpm_2b, "
+            "repro_torch.configs.qwen2_1_5b, "
+            "repro_torch.configs.qwen2_moe_a2_7b\n"
             "bad = [m for m in sys.modules if m == 'jax' or m == 'repro' "
             "or m.startswith(('jax.', 'repro.'))]\n"
             "assert not bad, bad\n")

@@ -201,26 +201,33 @@ def _decode_scores(decode, params, init, T_, toks, pos, is_sum):
     return np.concatenate(out, axis=1)
 
 
-@pytest.mark.parametrize("what", ["moe", "mla", "blocked", "decode-blocked"])
+@pytest.mark.parametrize("what", ["moe", "mla", "blocked", "decode-blocked",
+                                  "deepseek-v2-236b", "gin-tu"])
 def test_later_slices_raise(weights, what):
-    """MoE still raises: its slice comes later. The other three cases
-    raised until the MLA serving slice brought what they refused, and now
-    pin it: an MLA config initialises the reference's tree of leaves and
-    shapes; the blocked path equals the reference's (2e-5, the tolerance
-    of tests/test_attention.py); a config that prefills on the blocked
-    path decodes on the dense path, with the reference's scores (1e-4)."""
+    """The two architectures still to port raise from ``get_arch``. The
+    other cases raised until a slice brought what they refused, and now
+    pin it: an MLA config and an MoE config (one dense prefix layer, as
+    tests/test_serve.py builds it) initialise the reference's tree of
+    leaves and shapes; the blocked path equals the reference's (2e-5, the
+    tolerance of tests/test_attention.py); a config that prefills on the
+    blocked path decodes on the dense path, with the reference's scores
+    (1e-4)."""
     from repro.core.windowed import attention_blocked as j_blocked
     from repro_torch.bridge import to_numpy_tree
+    from repro_torch.configs import get_arch
     from repro_torch.core.windowed import attention
     from repro_torch.models.transformer import init_params
-    if what == "moe":
-        with pytest.raises(NotImplementedError):
-            init_params(dataclasses.replace(CFG, moe=True), device="cpu")
-    elif what == "mla":
-        mla = dict(attn_type="mla", n_kv_heads=4, q_lora_rank=24,
-                   kv_lora_rank=16, qk_nope_dim=8, qk_rope_dim=8,
-                   v_head_dim=16)
-        jcfg = dataclasses.replace(JCFG, **mla)
+    if what in ("deepseek-v2-236b", "gin-tu"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            get_arch(what)
+    elif what in ("moe", "mla"):
+        extra = dict(
+            mla=dict(attn_type="mla", n_kv_heads=4, q_lora_rank=24,
+                     kv_lora_rank=16, qk_nope_dim=8, qk_rope_dim=8,
+                     v_head_dim=16),
+            moe=dict(moe=True, n_experts=4, n_shared_experts=1, top_k=2,
+                     moe_d_ff=32, first_dense_layers=1, norm_topk=False))
+        jcfg = dataclasses.replace(JCFG, **extra[what])
         want = jax.tree_util.tree_map(
             lambda x: x.shape, j_init(jax.random.PRNGKey(0), jcfg))
         cfg = config_from_jax(dataclasses.asdict(jcfg))
