@@ -103,6 +103,36 @@ Phases, each fatal on failure:
    per layer per step, no plain call), one prefill call and one decode
    burst step timed; at 2 layers in fp32 the kernel path against the dense
    path within 1e-4, prefill and every decode step.
+16. gin-tu — ``configs/gin_tu`` FULL per shape (``config_for_shape``: 5
+   layers, d_hidden 64, sum, learnable eps, fp32, remat; random seeded
+   weights) trained with the reference cell's AdamW (lr 1e-3, cosine over
+   5,000 steps) at the four GNN shapes, nothing cut: full_graph_sm (a
+   seeded 10,556 of a 2,708-node community graph's edges, padded to
+   3,072 nodes and 10,752 edges), minibatch_lg (a 232,965-node graph of
+   114.6M edges on the host, ``sample_neighbors`` of 1,024 seeds at
+   fanouts (15, 10), padded to 180,224 nodes and 168,960 edges),
+   ogb_products (2,449,029 nodes, 61.2M edges, padded to 2,449,408 and
+   61,859,328) and molecule (128 graphs of 30 nodes, ``gin_graph_forward``).
+   The two large host graphs are built in two worker processes from the
+   start of the run. 16a: full_graph_sm, the card against the CPU on the
+   same weights: logits within 1e-4 max|logit| + 1e-5, 3 AdamW losses
+   within 1e-4. Each shape: two steps and two gradient passes from one
+   state equal bit for bit, every layer's eps moved, the step timed
+   (median after a warm-up), nodes/s, peak memory, the memory reckoning;
+   the two large shapes profiled. No kernel of the five on this path (the
+   counts are read: all 0).
+17. multi-target — dti-llama FULL on phase 3's weights: the first 8
+   requests of phase 9's stream (~960-token contexts, 16 candidates) as
+   one ``build_multi_target_request`` row of max_len 2048 each through
+   ``CTRServer.score_multi_target`` (dense path, no kernel launch), and
+   the same 128 candidates as sliding-window prompts through
+   ``CTRServer.score`` on kernel 1 (its launches counted). One
+   candidate's tokens and length changed: every other score equal bit
+   for bit; bf16 at full depth: the multi-target path's drift from fp32
+   no more than twice the independent path's + 5e-3; fp32 at 2 layers
+   (dti-llama, and minicpm3-4b for MLA): within 1e-3 of the independent
+   prefills. Both paths timed (ms, candidates/s, peak memory), the
+   multi-target call profiled.
 3. prefill — the serving path begins: dti-llama ``FULL`` (32 layers,
    Llama-3.1-8B widths, random seeded weights, bf16) scores 8
    sliding-window prompts of ~1,570 tokens through ``CTRServer.score``;
@@ -178,6 +208,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -2371,6 +2402,496 @@ def phase_gqa_archs(kernels):
 
 
 # ---------------------------------------------------------------------------
+# phase 16: gin-tu (GNN) training at the four GNN shapes
+# ---------------------------------------------------------------------------
+
+# (a) full_graph_sm, the card against the CPU in fp32 on the same weights:
+# summation order only, phase 11a's tolerances (REC_*). Every shape: two
+# steps from one state give equal bits (loss, gradients, params).
+GNN_CHECK_STEPS = 3
+GNN_TIMED = {"full_graph_sm": 10, "minibatch_lg": 5, "ogb_products": 3,
+             "molecule": 10}
+# the reference cell's optimizer (repro/launch/steps.py::_gnn_cell)
+GNN_OPT = dict(lr=1e-3, schedule="cosine", total_steps=5_000)
+
+
+def _pad_edges(es, ed, n_edges):
+    """Edges padded to ``n_edges`` with invalid (0, 0) pad edges."""
+    ev = np.zeros(n_edges, bool)
+    ev[:len(es)] = True
+    pad = lambda a: np.concatenate([a, np.zeros(n_edges - len(a), np.int32)])
+    return pad(es), pad(ed), ev
+
+
+def _pad_nodes(x, y, n_nodes):
+    xp = np.zeros((n_nodes, x.shape[1]), np.float32)
+    xp[:len(x)] = x
+    yp = np.zeros(n_nodes, np.int32)
+    yp[:len(y)] = y
+    mask = np.arange(n_nodes) < len(x)
+    return xp, yp, mask
+
+
+def gnn_host_graph(shape_name):
+    """Host material of one GNN shape (run in a worker process while the
+    card serves the earlier phases): node features, labels, the label
+    mask, padded edges with their valid mask; ``host_s`` the seconds the
+    generator and sampler took."""
+    from repro_torch.configs.base import GNN_SHAPES
+    from repro_torch.data.sampler import (make_community_graph,
+                                          make_molecule_batch,
+                                          sample_neighbors)
+    p = GNN_SHAPES[shape_name].params
+    t0 = time.perf_counter()
+    out = {}
+    if shape_name == "full_graph_sm":
+        # 2708 x 4 draws 10,832 edges: a seeded subset of the literature's
+        # 10,556, padded to the cell's counts
+        g = make_community_graph(p["n_nodes_raw"], 4, p["d_feat"],
+                                 p["n_classes"], seed=0)
+        es, ed = g.edge_list()
+        keep = np.sort(np.random.default_rng(1).choice(
+            len(es), p["n_edges_raw"], replace=False))
+        out["x"], out["labels"], out["label_mask"] = _pad_nodes(
+            g.x, g.y, p["n_nodes"])
+        out["edges"] = _pad_edges(es[keep], ed[keep], p["n_edges"])
+        out["graph"] = f"{g.n_nodes} nodes, {g.n_edges} edges drawn"
+    elif shape_name == "minibatch_lg":
+        g = make_community_graph(p["n_nodes"], round(p["n_edges"]
+                                                     / p["n_nodes"]),
+                                 p["d_feat"], p["n_classes"], seed=0)
+        out["graph_s"] = time.perf_counter() - t0
+        seeds = np.random.default_rng(2).choice(g.n_nodes, p["batch_nodes"],
+                                                replace=False)
+        sg = sample_neighbors(g, seeds, p["fanouts"],
+                              rng=np.random.default_rng(3))
+        ok = sg.node_valid
+        x = np.zeros((len(ok), g.x.shape[1]), np.float32)
+        x[ok] = g.x[sg.node_ids[ok]]
+        y = np.zeros(len(ok), np.int32)
+        y[ok] = g.y[sg.node_ids[ok]]
+        out["x"], out["labels"] = x, y
+        out["label_mask"] = np.zeros(len(ok), bool)
+        out["label_mask"][sg.seed_local] = True
+        out["edges"] = (sg.edge_src, sg.edge_dst, sg.edge_valid)
+        out["graph"] = (f"{g.n_nodes} nodes, {g.n_edges} edges on the host; "
+                        f"sampled {int(ok.sum())} nodes, "
+                        f"{int(sg.edge_valid.sum())} edges")
+    elif shape_name == "ogb_products":
+        g = make_community_graph(p["n_nodes_raw"], 25, p["d_feat"],
+                                 p["n_classes"], seed=0)
+        es, ed = g.edge_list()
+        out["x"], out["labels"], out["label_mask"] = _pad_nodes(
+            g.x, g.y, p["n_nodes"])
+        out["edges"] = _pad_edges(es, ed, p["n_edges"])
+        out["graph"] = f"{g.n_nodes} nodes, {g.n_edges} edges drawn"
+    else:
+        x, es, ed, gid, y = make_molecule_batch(
+            p["batch"], p["n_nodes"], p["n_edges"], p["d_feat"],
+            p["n_classes"], seed=0)
+        out.update(x=x, labels=y, graph_ids=gid, n_graphs=p["batch"],
+                   edges=(es, ed, np.ones(len(es), bool)))
+        out["graph"] = f"{p['batch']} graphs, {len(x)} nodes, {len(es)} edges"
+    out["host_s"] = time.perf_counter() - t0
+    return out
+
+
+GRAPH_DIR = ROOT / "build" / "gnn_graphs"
+
+
+def gnn_graph_file(shape_name, path):
+    """Worker: build the shape's host graph and save its arrays to
+    ``path`` (.npz); returns the rest. Gigabytes of arrays through the
+    executor's pipe would be unpickled by a thread of the main process,
+    which then takes the interpreter lock from the phases driving the
+    card for minutes."""
+    mat = gnn_host_graph(shape_name)
+    es, ed, ev = mat.pop("edges")
+    arrays = {k: v for k, v in mat.items() if isinstance(v, np.ndarray)}
+    np.savez(path, es=es, ed=ed, ev=ev, **arrays)
+    return {k: v for k, v in mat.items() if k not in arrays}
+
+
+def start_gnn_graphs():
+    """The two large graphs (114.6M and 61.2M edges) take minutes of host
+    time: build them in two worker processes while the card runs the
+    earlier phases. Returns (executor, {shape: (future, file)})."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    GRAPH_DIR.mkdir(parents=True, exist_ok=True)
+    ex = ProcessPoolExecutor(max_workers=2,
+                             mp_context=multiprocessing.get_context("spawn"))
+    jobs = {}
+    for s in ("minibatch_lg", "ogb_products"):
+        path = GRAPH_DIR / f"{s}.npz"
+        jobs[s] = (ex.submit(gnn_graph_file, s, path), path)
+    return ex, jobs
+
+
+def load_gnn_graph(job):
+    fut, path = job
+    meta = fut.result()
+    with np.load(path) as z:
+        mat = {k: z[k] for k in z.files}
+    path.unlink()
+    mat["edges"] = (mat.pop("es"), mat.pop("ed"), mat.pop("ev"))
+    mat.update(meta)
+    return mat
+
+
+def _gnn_loss(cfg, plan, readout=None):
+    from repro_torch.launch.smoke import _ce
+    from repro_torch.models.gnn import gin_forward, gin_graph_forward
+
+    def loss_fn(p, b, _gen):
+        if readout is not None:
+            logits = gin_graph_forward(p, cfg, b["x"], plan=plan,
+                                       readout=readout)
+            return _ce(logits, b["labels"]), {}
+        logits = gin_forward(p, cfg, b["x"], plan=plan)
+        return _ce(logits, b["labels"], b["label_mask"]), {}
+    return loss_fn
+
+
+def _gnn_setup(cfg, mat, device, seed=0):
+    """Params, plans, the step function and its batch on ``device``."""
+    from repro_torch.device import resolve_device
+    from repro_torch.models.gnn import (init_gin, make_edge_plan,
+                                        make_readout_plan)
+    from repro_torch.train.optimizer import OptimizerConfig
+    from repro_torch.train.trainer import make_train_step
+    device = resolve_device(device)
+    es, ed, ev = mat["edges"]
+    n = len(mat["x"])
+    plan = make_edge_plan(es, ed, n, ev, device=device)
+    readout = (make_readout_plan(mat["graph_ids"], mat["n_graphs"],
+                                 device=device)
+               if "graph_ids" in mat else None)
+    batch = {k: torch.from_numpy(np.asarray(mat[k])).to(device)
+             for k in ("x", "labels", "label_mask") if k in mat}
+    params = init_gin(cfg, seed=seed, device=device)
+    ocfg = OptimizerConfig(**GNN_OPT)
+    step = make_train_step(_gnn_loss(cfg, plan, readout), ocfg)
+    return dict(params=params, plan=plan, readout=readout, batch=batch,
+                ocfg=ocfg, step=step, loss_fn=_gnn_loss(cfg, plan, readout))
+
+
+def _gnn_grads(s):
+    from repro_torch.models.transformer import differentiable
+    with differentiable(s["params"]) as leaves:
+        loss, _ = s["loss_fn"](s["params"], s["batch"], None)
+        loss.backward()
+        return loss.detach(), [t.grad.clone() for t in leaves]
+
+
+def phase_gnn_cut(cfg, mat):
+    """16a: full_graph_sm, the card against the CPU on the same fp32
+    weights: logits, then GNN_CHECK_STEPS AdamW losses."""
+    from repro_torch.models.gnn import gin_forward
+    from repro_torch.train.trainer import init_train_state
+    cpu, card = _gnn_setup(cfg, mat, "cpu"), _gnn_setup(cfg, mat, "cuda")
+    card["params"] = _tree_to(cpu["params"], "cuda")
+    with torch.no_grad():
+        z_cpu = gin_forward(cpu["params"], cfg, cpu["batch"]["x"],
+                            plan=cpu["plan"])
+        z_card = gin_forward(card["params"], cfg, card["batch"]["x"],
+                             plan=card["plan"])
+    tol = REC_TOL * z_cpu.abs().max().item() + REC_FLOOR
+    check_close("gin-tu full_graph_sm logits, card vs CPU", z_card.cpu(),
+                z_cpu, tol)
+    losses = []
+    for s in (cpu, card):
+        state, ls = init_train_state(s["params"], s["ocfg"]), []
+        for _ in range(GNN_CHECK_STEPS):
+            state, m = s["step"](state, s["batch"])
+            ls.append(float(m["loss"]))
+        losses.append(ls)
+    diff = max(abs(a - c) for a, c in zip(*losses))
+    log(f"  gin-tu full_graph_sm {GNN_CHECK_STEPS} AdamW steps: losses card "
+        f"{[round(x, 6) for x in losses[1]]}, max |card - CPU| {diff:.3e} "
+        f"(tol {REC_LOSS_TOL:g})")
+    if not diff <= REC_LOSS_TOL:
+        fail(f"gin-tu full_graph_sm: AdamW losses differ by {diff}")
+    return diff
+
+
+def gnn_bound(cfg, n_nodes, n_edges, chunk_edges):
+    """Device memory reckoning for one shape in fp32 (bytes): x, h per
+    layer, the (E, d) messages a layer would hold if materialised, and
+    the chunked plan's transient."""
+    f = 4
+    return dict(x=n_nodes * cfg.d_feat * f, h_layer=n_nodes * cfg.d_hidden * f,
+                msgs_layer=n_edges * cfg.d_hidden * f,
+                chunk=min(n_edges, chunk_edges) * cfg.d_hidden * f,
+                plan=n_edges * (8 * 4 + 4 * 2))
+
+
+def phase_gnn_shape(shape_name, mat):
+    """One GNN shape on the card: train steps timed (median after a
+    warm-up step), nodes per second, peak memory; two steps and two
+    gradient passes from one state equal bit for bit; every layer's eps
+    moved."""
+    from repro_torch.configs.base import GNN_SHAPES
+    from repro_torch.configs.gin_tu import config_for_shape
+    from repro_torch.models.gnn import CHUNK_EDGES
+    from repro_torch.models.transformer import named_leaves
+    from repro_torch.train.trainer import init_train_state
+    cfg = config_for_shape(GNN_SHAPES[shape_name].params)
+    n_nodes, n_edges = len(mat["x"]), len(mat["edges"][0])
+    b = gnn_bound(cfg, n_nodes, n_edges, CHUNK_EDGES)
+    log(f"  {shape_name}: {mat['graph']}; padded {n_nodes} nodes, {n_edges} "
+        f"edges; host {mat['host_s']:.1f} s"
+        + (f" (graph {mat['graph_s']:.1f} s)" if "graph_s" in mat else "")
+        + f"; reckoning (fp32): x {b['x'] / 1e9:.3f} GB, h {b['h_layer'] / 1e9:.3f}"
+        f" GB a layer, whole messages would be {b['msgs_layer'] / 1e9:.2f} GB "
+        f"a layer, one chunk {b['chunk'] / 1e9:.3f} GB, plan "
+        f"{b['plan'] / 1e9:.2f} GB")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()      # what earlier phases keep
+    t0 = time.perf_counter()
+    s = _gnn_setup(cfg, mat, "cuda")
+    torch.cuda.synchronize()
+    plan_s = time.perf_counter() - t0
+    state0 = init_train_state(s["params"], s["ocfg"])
+    (s1, m1), (s2, m2) = (s["step"](state0, s["batch"]),
+                          s["step"](state0, s["batch"]))
+    (l1, g1), (l2, g2) = _gnn_grads(s), _gnn_grads(s)
+    p1 = [t for _, t in named_leaves(s1.params)]
+    p2 = [t for _, t in named_leaves(s2.params)]
+    same = (torch.equal(m1["loss"], m2["loss"]) and torch.equal(l1, l2)
+            and all(torch.equal(a, c) for a, c in zip(g1, g2))
+            and all(torch.equal(a, c) for a, c in zip(p1, p2)))
+    if not same:
+        fail(f"gin-tu {shape_name}: two steps from one state differ")
+    if not (np.isfinite(float(m1["loss"])) and all(
+            bool(torch.isfinite(g).all()) for g in g1)):
+        fail(f"gin-tu {shape_name}: non-finite loss or gradient")
+    del s1, s2, g1, g2, p1, p2
+    state = state0
+    times, losses = [], []
+    for i in range(1 + GNN_TIMED[shape_name]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = s["step"](state, s["batch"])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+    peak = torch.cuda.max_memory_allocated() - held
+    eps = [float(state.params[f"layer{i}"]["eps"]) for i in range(cfg.n_layers)]
+    if not all(e != 0.0 for e in eps):
+        fail(f"gin-tu {shape_name}: eps did not move in every layer: {eps}")
+    if not all(np.isfinite(losses)):
+        fail(f"gin-tu {shape_name}: non-finite losses {losses}")
+    step_ms = float(np.median(times[1:])) * 1e3
+    out = dict(step_ms=step_ms, nodes_per_s=n_nodes / step_ms * 1e3,
+               peak_gib=peak / 2**30, plan_s=plan_s, host_s=mat["host_s"],
+               first_s=times[0], losses=(losses[0], losses[-1]))
+    log(f"  {shape_name}: train step median {step_ms:.2f} ms over "
+        f"{len(times) - 1} steps (first {times[0] * 1e3:.1f} ms; plan and "
+        f"params {plan_s:.2f} s), {out['nodes_per_s']:.0f} nodes/s, peak "
+        f"{out['peak_gib']:.2f} GiB above the {held / 2**30:.2f} GiB earlier "
+        f"phases hold; loss {losses[0]:.4f} -> {losses[-1]:.4f};"
+        f" two steps and two gradient passes from one state equal bit for "
+        f"bit; eps {[round(e, 6) for e in eps]} ({card_line()})")
+    if shape_name in ("minibatch_lg", "ogb_products"):
+        st = {"s": state}
+
+        def one():
+            st["s"] = s["step"](st["s"], s["batch"])[0]
+        out["busy_ms"] = profile_call(one, f"gin-tu {shape_name} train step")
+    return out
+
+
+def phase_gnn(kernels, graphs):
+    """Phase 16: gin-tu FULL (5 layers, d_hidden 64, sum, learnable eps,
+    fp32, remat) at the four GNN shapes, nothing cut; no kernel of the
+    five on this path (the counts are read)."""
+    from repro_torch.configs.base import GNN_SHAPES
+    from repro_torch.configs.gin_tu import config_for_shape
+    log("phase 16: gin-tu (GIN) training at the four GNN shapes")
+    ex, jobs = graphs
+    kernels.reset_launches()
+    out = {"times": {}}
+    small = gnn_host_graph("full_graph_sm")
+    out["cut"] = phase_gnn_cut(config_for_shape(
+        GNN_SHAPES["full_graph_sm"].params), small)
+    out["times"]["full_graph_sm"] = phase_gnn_shape("full_graph_sm", small)
+    out["times"]["molecule"] = phase_gnn_shape("molecule",
+                                               gnn_host_graph("molecule"))
+    t0 = time.perf_counter()
+    for name in ("minibatch_lg", "ogb_products"):
+        mat = load_gnn_graph(jobs[name])
+        log(f"  {name}: host graph ready after {time.perf_counter() - t0:.1f}"
+            f" s of waiting in phase 16")
+        out["times"][name] = phase_gnn_shape(name, mat)
+        del mat
+        torch.cuda.empty_cache()
+    ex.shutdown()
+    launches = dict(kernels.LAUNCHES)
+    log(f"  gin-tu path launches {launches} (none of the five kernels is on "
+        f"it)")
+    if any(launches.values()):
+        fail(f"gin-tu path launched {launches}")
+    out["launches"] = launches
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 17: multi-target serving at dti-llama FULL width
+# ---------------------------------------------------------------------------
+
+MT_REQUESTS, MT_MAX_LEN = 8, 2048
+
+
+def mt_requests(cfg):
+    """The first MT_REQUESTS requests of phase 9's stream, as (context,
+    candidates) pairs."""
+    reqs = sched_stream(cfg, N_REQ)[:MT_REQUESTS]
+    return reqs, [(r["context"], r["candidates"]) for r in reqs]
+
+
+def mt_scores(cfg, params, pairs, per_call=MT_REQUESTS):
+    from repro_torch.serve.engine import CTRServer
+    server = CTRServer(params, cfg, max_len=MT_MAX_LEN)
+    return np.asarray([s for i in range(0, len(pairs), per_call)
+                       for s in server.score_multi_target(
+                           pairs[i:i + per_call])])
+
+
+def mt_fp32_check(cfg, params, reqs, pairs, label):
+    """fp32 at 2 layers, FULL widths: multi-target scores (dense path)
+    against the independent sliding-window prefills (kernel 1)."""
+    got = mt_scores(cfg, params, pairs)
+    want, _ = sched_oracle(cfg, params, reqs)
+    err = float(np.abs(got - want).max())
+    log(f"  {label} fp32, 2 layers: max|multi-target - independent| "
+        f"{err:.3e} over {got.size} candidates (tol {P32_TOL:g})")
+    if not err <= P32_TOL:
+        fail(f"phase 17 {label}: multi-target differs from independent "
+             f"prefills by {err}")
+    return err
+
+
+def phase_multi_target(cfg, params, kernels):
+    """Phase 17: ``CTRServer.score_multi_target`` at dti-llama FULL width
+    on phase 3's weights: the first 8 requests of phase 9's stream, one
+    row of max_len 2048 each, the dense path (no kernel launch); against
+    ``CTRServer.score`` over the 128 sliding-window prompts on kernel 1
+    (its launches counted for kernel 1). Checks: bit-equal scores of the
+    other candidates when one candidate's tokens and length change;
+    bf16 at full depth within phase 5's drift rule against fp32; fp32 at
+    2 layers within P32_TOL for GQA (dti-llama) and MLA (minicpm3-4b)."""
+    from repro_torch.configs.minicpm3_4b import FULL as MLA_FULL
+    from repro_torch.models.transformer import init_params
+    log("phase 17: multi-target serving, dti-llama FULL, "
+        f"{MT_REQUESTS} requests x 16 candidates, max_len {MT_MAX_LEN}")
+    reqs, pairs = mt_requests(cfg)
+    n_cand = sum(len(c) for _, c in pairs)
+    lens = [1 + sum(map(len, ctx)) + sum(len(c) + 1 for c in cands)
+            for ctx, cands in pairs]
+    log(f"  row lengths {lens}, {n_cand} candidates")
+    out = {}
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    base = mt_scores(cfg, params, pairs)
+    out["mt_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    if any(kernels.LAUNCHES.values()):
+        fail(f"multi-target path launched {dict(kernels.LAUNCHES)}")
+    if not (np.isfinite(base).all() and ((base > 0) & (base < 1)).all()):
+        fail(f"multi-target p_click not in (0, 1): {base}")
+    # one candidate changed (tokens and length): the rest keep their bits
+    ctx0, cands0 = pairs[0]
+    mutated = [list(c) for c in cands0]
+    mutated[1] = [int(t) + 1 for t in cands0[1][1:]] + [7, 8]
+    got = mt_scores(cfg, params, [(ctx0, mutated)] + pairs[1:])
+    keep = np.ones(base.shape, bool)
+    keep[0, 1] = False
+    if not np.array_equal(got[keep], base[keep]):
+        fail(f"multi-target leakage: {int((got[keep] != base[keep]).sum())} "
+             f"other candidates' scores changed")
+    if got[0, 1] == base[0, 1]:
+        fail("multi-target: the changed candidate kept its score")
+    log(f"  candidate 1 of request 0 changed ({len(cands0[1])} -> "
+        f"{len(mutated[1])} tokens): the other {int(keep.sum())} scores "
+        f"equal bit for bit, its own {base[0, 1]:.6f} -> {got[0, 1]:.6f}")
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    ind, ind_len = sched_oracle(cfg, params, reqs)
+    out["ind_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["launches"] = dict(kernels.LAUNCHES)
+    n_calls = sum(-(-len(c) // 8) for _, c in pairs)
+    want = {k: 0 for k in kernels.KERNELS}
+    want["windowed_attn"] = cfg.n_layers * n_calls
+    log(f"  independent path: {n_cand} prompts of max_len {ind_len} in "
+        f"{n_calls} CTRServer.score calls, launches {out['launches']}")
+    if out["launches"] != want:
+        fail(f"independent path launches {out['launches']}, want {want}")
+    # bf16 at full depth: drift from fp32 (multi-target in fp32, 4
+    # requests a call) no more than phase 5's rule allows against the
+    # independent path's
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                compute_dtype="float32")
+    params32 = _map_tensors(params, lambda t: t.float())
+    p32 = mt_scores(cfg32, params32, pairs, per_call=4)
+    del params32
+    torch.cuda.empty_cache()
+    drift_mt = float(np.abs(base - p32).max())
+    drift_ind = float(np.abs(ind - p32).max())
+    log(f"  bf16, {cfg.n_layers} layers: drift from fp32 multi-target: multi-target "
+        f"{drift_mt:.3e}, independent {drift_ind:.3e} (allowed: 2 x "
+        f"independent + {DRIFT_SLACK}); max|multi-target - independent| "
+        f"{float(np.abs(base - ind).max()):.3e}")
+    if not drift_mt <= 2 * drift_ind + DRIFT_SLACK:
+        fail(f"multi-target bf16 drifts {drift_mt} from fp32, independent "
+             f"path {drift_ind}")
+    out["drift"] = (drift_mt, drift_ind)
+    # times: one score_multi_target call of the 8 requests against the
+    # same 128 candidates through score
+    mt_s = _wall(lambda: mt_scores(cfg, params, pairs), 3)
+    ind_s = _wall(lambda: sched_oracle(cfg, params, reqs), 2)
+    out.update(mt_ms=mt_s * 1e3, ind_ms=ind_s * 1e3,
+               mt_cand_s=n_cand / mt_s, ind_cand_s=n_cand / ind_s)
+    log(f"  score_multi_target: {out['mt_ms']:.2f} ms a call of "
+        f"{MT_REQUESTS} requests ({out['mt_cand_s']:.1f} candidates/s, peak "
+        f"{out['mt_peak_gib']:.2f} GiB); score over the same {n_cand} "
+        f"candidates: {out['ind_ms']:.2f} ms ({out['ind_cand_s']:.1f} "
+        f"candidates/s, peak {out['ind_peak_gib']:.2f} GiB); "
+        f"{out['ind_ms'] / out['mt_ms']:.2f}x ({card_line()})")
+    out["profile_busy_ms"] = profile_call(
+        lambda: mt_scores(cfg, params, pairs),
+        f"score_multi_target {MT_REQUESTS} x {MT_MAX_LEN}")
+    # fp32, 2 layers: GQA on these weights, MLA on minicpm3-4b's
+    c32 = dataclasses.replace(cfg, n_layers=2, param_dtype="float32",
+                              compute_dtype="float32")
+    out["fp32"] = {"dti-llama": mt_fp32_check(
+        c32, _layers(params, 2, torch.float32), reqs, pairs, "dti-llama")}
+    m32 = dataclasses.replace(MLA_FULL, n_layers=2, attn_impl="cuda",
+                              param_dtype="float32", compute_dtype="float32")
+    mp = init_params(m32, seed=0)
+    mreqs, mpairs = mt_requests(m32)
+    out["fp32"]["minicpm3-4b"] = mt_fp32_check(m32, mp, mreqs, mpairs,
+                                               "minicpm3-4b")
+    del mp
+    torch.cuda.empty_cache()
+    return out
+
+
+def _wall(fn, iters):
+    """Median host seconds of ``fn`` (each call ends in a host copy of its
+    result), after one warm-up call."""
+    fn()
+    ts = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append(time.perf_counter() - t0)
+    return float(np.median(ts))
+
+
+# ---------------------------------------------------------------------------
 # phase 2f: the embedding bag (kernel 5) against its plain version
 # ---------------------------------------------------------------------------
 
@@ -3309,7 +3830,15 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
+    graphs = start_gnn_graphs()
+    try:
+        return run_phases(kernels, graphs, t_start)
+    finally:
+        graphs[0].shutdown(cancel_futures=True)
+        shutil.rmtree(GRAPH_DIR, ignore_errors=True)
 
+
+def run_phases(kernels, graphs, t_start) -> int:
     log("phase 1: build")
     t0 = time.perf_counter()
     logs = kernels.build()
@@ -3335,6 +3864,9 @@ def main() -> int:
     mla_train = phase_mla_train(kernels)
     moe = phase_moe(kernels)
     gqa = phase_gqa_archs(kernels)
+    torch.cuda.empty_cache()
+    gnn = phase_gnn(kernels, graphs)
+    torch.cuda.empty_cache()
 
     cfg, params = build_model()
     users, prompts = serving_material(cfg)
@@ -3366,10 +3898,12 @@ def main() -> int:
     for res in sched_runs.values():
         for name, n in res["launches"].items():
             launches[name] += n
-    for res in (bag, mla, mla_train, moe, gqa):
+    sched32 = phase_sched32(cfg, params, kernels)
+    torch.cuda.empty_cache()
+    multi = phase_multi_target(cfg, params, kernels)
+    for res in (bag, mla, mla_train, moe, gqa, gnn, multi):
         for name, n in res["launches"].items():
             launches[name] += n
-    sched32 = phase_sched32(cfg, params, kernels)
 
     log("phase 6: times (CUDA events after warm-up)")
     t_prefill = cuda_ms(lambda: server.score(prompts), iters=3, warmup=1)
@@ -3498,6 +4032,19 @@ def main() -> int:
         f"burst step {mo['decode_ms']:.2f} ms, peak {mo['peak_gib']:.2f} "
         f"GiB, drops at capacity factor 1.25 {mo['drops']}; 14b "
         f"{moe['checks']} ({card})")
+    log("  gin-tu (GNN): " + "; ".join(
+        f"{name} step {t['step_ms']:.2f} ms, {t['nodes_per_s']:.0f} nodes/s, "
+        f"peak {t['peak_gib']:.2f} GiB, host {t['host_s']:.1f} s"
+        for name, t in gnn["times"].items())
+        + f"; full_graph_sm card vs CPU AdamW loss diff {gnn['cut']:.3e} "
+        f"({card})")
+    log(f"  multi-target (dti-llama FULL): score_multi_target "
+        f"{multi['mt_ms']:.2f} ms ({multi['mt_cand_s']:.1f} candidates/s, "
+        f"peak {multi['mt_peak_gib']:.2f} GiB) vs score "
+        f"{multi['ind_ms']:.2f} ms ({multi['ind_cand_s']:.1f} candidates/s, "
+        f"peak {multi['ind_peak_gib']:.2f} GiB); bf16 drift multi-target / "
+        f"independent {multi['drift']}; fp32 2 layers {multi['fp32']} "
+        f"({card})")
     log("  GQA archs: " + "; ".join(
         f"{name} prefill {t['prefill_ms']:.2f} ms, decode burst step "
         f"{t['decode_ms']:.2f} ms, fp32 diffs {gqa['checks'][name]}"

@@ -20,8 +20,9 @@ Optimizer state (``step``, ``mu``, ``nu``, ``master``) converts the same
 way, with one difference: the reference keeps a single fp32 zero scalar
 for each frozen stacked leaf, the port one per layer. Decode caches carry
 across key for key (``cache_from_jax``, ``cache_to_numpy``), and so do the
-recsys models' params (``recsys_from_jax``, ``recsys_to_numpy``), nested
-dicts with the same leaf shapes in both packages.
+recsys models' and the GIN's params (``tree_from_jax``,
+``tree_to_numpy``; the recsys tests' ``recsys_*`` names), nested dicts
+with the same leaf shapes in both packages.
 """
 from __future__ import annotations
 
@@ -45,9 +46,9 @@ def config_from_jax(fields: Mapping[str, Any], **overrides) -> ModelConfig:
     """Port config from a reference ``ModelConfig``'s fields
     (``dataclasses.asdict(cfg)``). ``remat``, ``remat_policy``, the MLA
     and MoE widths (experts, top-k, capacity factor, ``norm_topk``, the
-    dense prefix) and the blocked path's q chunk carry over; fields the
-    port has no use for (kernel tile sizes, chunked LM loss) are dropped;
-    ``"pallas"`` maps to ``"cuda"``."""
+    dense prefix), the blocked path's q chunk and the chunked LM loss's
+    ``logits_chunk`` carry over; fields the port has no use for (kernel
+    tile sizes) are dropped; ``"pallas"`` maps to ``"cuda"``."""
     names = {f.name for f in dataclasses.fields(ModelConfig)}
     kw = {k: v for k, v in fields.items() if k in names}
     kw["attn_impl"] = ATTN_IMPL[kw.get("attn_impl", "dense")]
@@ -207,19 +208,25 @@ def cache_to_numpy(cache: Mapping[str, Any]) -> Dict[str, np.ndarray]:
             for k, v in cache.items()}
 
 
-def recsys_from_jax(tree: Tree, device) -> Tree:
-    """Reference ``init_recsys`` tree (numpy leaves) -> port params, leaf
-    for leaf (a linear ``w`` is ``(d_in, d_out)``, CIN ``w{i}`` is ``(h,
-    h_prev, m)``, the scalar ``bias`` is ``()`` in both)."""
+def tree_from_jax(tree: Tree, device) -> Tree:
+    """A reference param tree of nested dicts (numpy leaves) -> port
+    params, leaf for leaf: the recsys models' (a linear ``w`` is ``(d_in,
+    d_out)``, CIN ``w{i}`` is ``(h, h_prev, m)``, the scalar ``bias`` is
+    ``()`` in both) and the GIN's (``proj``, ``layer{i}`` with its scalar
+    ``eps``, ``head``)."""
     return _map(tree, lambda x: _to_tensor(x, device))
 
 
-def recsys_to_numpy(tree: Tree) -> Tree:
-    """Port recsys params -> numpy leaves (the inverse of
-    ``recsys_from_jax``)."""
+def tree_to_numpy(tree: Tree) -> Tree:
+    """Port params of nested dicts -> numpy leaves (the inverse of
+    ``tree_from_jax``)."""
     return _map(tree, _to_numpy)
+
+
+recsys_from_jax, recsys_to_numpy = tree_from_jax, tree_to_numpy
 
 
 __all__ = ["ATTN_IMPL", "config_from_jax", "from_jax_params", "to_numpy_tree",
            "opt_state_from_jax", "opt_state_to_numpy", "cache_from_jax",
-           "cache_to_numpy", "recsys_from_jax", "recsys_to_numpy"]
+           "cache_to_numpy", "tree_from_jax", "tree_to_numpy",
+           "recsys_from_jax", "recsys_to_numpy"]

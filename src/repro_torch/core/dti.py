@@ -1,6 +1,6 @@
 """DTI prompt formulation (numpy): a copy of ``repro.core.dti``'s
-sliding-window and streaming prompts, packing, batching and the row-length
-and window rules.
+sliding-window and streaming prompts, packing, multi-target serving rows,
+batching and the row-length and window rules.
 
 Byte-identical to the reference for the same inputs. Rows follow the
 canonical batch schema (docs/batch_schema.md):
@@ -11,9 +11,6 @@ canonical batch schema (docs/batch_schema.md):
   is_sum      (L,) bool    [SUM] readout positions
   labels      (L,) int32   label at the [SUM] position, 0 elsewhere
   valid       (L,) bool    padding mask
-
-Multi-target serving rows (``build_multi_target_request``) wait for the
-multi-target slice.
 """
 from __future__ import annotations
 
@@ -214,6 +211,68 @@ def pack_prompts(prompts: List[Dict[str, np.ndarray]], max_len: int, *,
     return rows
 
 
+def build_multi_target_request(
+    context_tokens: Sequence[Sequence[int]],
+    candidate_tokens: Sequence[Sequence[int]], *, max_len: int,
+    sp: SpecialTokens = SpecialTokens(),
+    stats: PromptStats | None = None,
+) -> Dict[str, np.ndarray]:
+    """One serving request — a shared user context + k candidate items —
+    laid out as a single canonical-schema row (the serving analog of the
+    streaming training prompt):
+
+        [BOS] ctx...              segment 0, positions 0..n-1
+        cand_1... [SUM]           segment 1, positions n..n+c_1
+        ...
+        cand_k... [SUM]           segment k, positions n..n+c_k
+
+    Candidate positions *continue* after the context instead of restarting
+    at 0, and the attention mask treats segment 0 as a shared prefix
+    (``seg_shared=0``): every candidate attends the context plus itself,
+    never another candidate. Each candidate therefore sees exactly the
+    token/position geometry of a standalone ``[BOS] ctx cand [SUM]``
+    sliding-window prompt, so one prefill over this row reproduces k
+    independent prefills — O(n^2 + k·n) attention instead of O(k·n^2).
+
+    Scores are read at the [SUM] slots, in candidate order
+    (``candidate_sum_slots``). Labels are zero: serving rows carry no
+    supervision.
+    """
+    toks: List[int] = [sp.bos]
+    for it in context_tokens:
+        toks.extend(it)
+    n = len(toks)
+    pos = list(range(n))
+    seg = [0] * n
+    is_sum = [False] * n
+    for j, cand in enumerate(candidate_tokens):
+        toks.extend(cand)
+        toks.append(sp.sum)
+        pos.extend(range(n, n + len(cand) + 1))
+        seg.extend([j + 1] * (len(cand) + 1))
+        is_sum.extend([False] * len(cand) + [True])
+    total = len(toks)
+    if total > max_len:
+        raise ValueError(f"request length {total} > max_len {max_len}")
+    if stats is not None:
+        stats.add_packed_row(total, len(candidate_tokens),
+                            len(candidate_tokens), max_len)
+    return {
+        "tokens": _pad_to(np.asarray(toks, np.int32), max_len, sp.pad),
+        "positions": _pad_to(np.asarray(pos, np.int32), max_len, 0),
+        "segment_ids": _pad_to(np.asarray(seg, np.int32), max_len, -1),
+        "is_sum": _pad_to(np.asarray(is_sum, bool), max_len, False),
+        "labels": np.zeros((max_len,), np.int32),
+        "valid": _pad_to(np.ones((total,), bool), max_len, False),
+    }
+
+
+def candidate_sum_slots(row: Dict[str, np.ndarray]) -> np.ndarray:
+    """Physical indices of the k [SUM] readouts of a multi-target row, in
+    candidate order."""
+    return np.flatnonzero(row["is_sum"])
+
+
 def batch_prompts(prompts: List[Dict[str, np.ndarray]],
                   batch_size: int, *, drop_remainder: bool = False,
                   rng: Optional[np.random.Generator] = None):
@@ -257,5 +316,6 @@ def effective_window(attn_impl: str, window: int, n_ctx: int,
 
 __all__ = ["SpecialTokens", "PromptStats", "build_sliding_prompts",
            "build_streaming_prompts", "prompt_length", "pack_prompts",
+           "build_multi_target_request", "candidate_sum_slots",
            "batch_prompts", "train_max_len", "window_tokens",
            "effective_window"]

@@ -1,9 +1,9 @@
-"""The DTI CTR readout and objective (counterpart of
-``repro.core.losses``; the chunked ``lm_loss`` is not on the DTI path and
-waits)."""
+"""Losses: the DTI CTR readout and objective (yes/no at [SUM] rows) and
+the next-token LM loss, chunked over the vocabulary (counterpart of
+``repro.core.losses``)."""
 from __future__ import annotations
 
-from typing import TYPE_CHECKING, Any, Dict, Tuple
+from typing import TYPE_CHECKING, Any, Dict, Optional, Tuple
 
 import torch
 
@@ -41,4 +41,45 @@ def ctr_loss(params: Dict[str, Any], cfg: "ModelConfig",
     return loss, {"p_click": torch.exp(logp[..., 0]), "mask": sum_mask}
 
 
-__all__ = ["ctr_logits", "ctr_loss"]
+def lm_loss(params: Dict[str, Any], cfg: "ModelConfig",
+            hidden: torch.Tensor, targets: torch.Tensor,
+            valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Next-token cross entropy, the mean over ``valid`` positions (all
+    when None). With ``cfg.logits_chunk > 0`` dividing the vocabulary, an
+    online logsumexp runs over vocabulary chunks, so (B, S, V) fp32
+    logits never exist whole; otherwise one pass."""
+    w = params["embed"] if cfg.tie_embeddings else params["lm_head"]["w"].T
+    v, d = w.shape
+    h = hidden.float()
+    wmask = (torch.ones(targets.shape, dtype=torch.float32,
+                        device=hidden.device)
+             if valid is None else valid.float())
+    tgt_ids = targets.long()
+
+    def mean(nll):
+        return torch.sum(nll * wmask) / torch.clamp(torch.sum(wmask), min=1.0)
+
+    if cfg.logits_chunk <= 0 or v % cfg.logits_chunk != 0:
+        logits = torch.einsum("bsd,vd->bsv", h, w.float())
+        lse = torch.logsumexp(logits, dim=-1)
+        tgt = torch.gather(logits, -1, tgt_ids[..., None])[..., 0]
+        return mean(lse - tgt)
+
+    c = cfg.logits_chunk
+    m = torch.full(targets.shape, float("-inf"), device=hidden.device)
+    s = torch.zeros(targets.shape, device=hidden.device)
+    tgt = torch.zeros(targets.shape, device=hidden.device)
+    for base in range(0, v, c):
+        logits = torch.einsum("bsd,cd->bsc", h, w[base:base + c].float())
+        m_new = torch.maximum(m, logits.amax(dim=-1))
+        s = s * torch.exp(m - m_new) + torch.sum(
+            torch.exp(logits - m_new[..., None]), dim=-1)
+        in_chunk = (tgt_ids >= base) & (tgt_ids < base + c)
+        local = (tgt_ids - base).clamp(0, c - 1)
+        t_val = torch.gather(logits, -1, local[..., None])[..., 0]
+        tgt = torch.where(in_chunk, t_val, tgt)
+        m = m_new
+    return mean(m + torch.log(s) - tgt)
+
+
+__all__ = ["ctr_logits", "ctr_loss", "lm_loss"]

@@ -2,23 +2,26 @@
 
 ``train_smoke(arch)`` instantiates the arch's SMOKE config, generates
 matching synthetic data, runs real AdamW steps and returns the loss
-trajectory. ``repro_torch.launch.train`` calls it for the recsys archs.
-The ``lm`` and ``recsys`` branches are ported; the reference's ``gnn``
-branch waits for ROADMAP A9b (``models/gnn.py``).
+trajectory. ``repro_torch.launch.train`` calls it for the recsys archs
+and the GNN. All three of the reference's branches (``lm``, ``recsys``,
+``gnn``) are ported.
 """
 from __future__ import annotations
 
 from typing import Dict
 
 import numpy as np
+import torch
 
 from repro_torch.configs import get_arch
 from repro_torch.core.dti import (SpecialTokens, batch_prompts,
                                   build_streaming_prompts)
 from repro_torch.core.losses import ctr_loss
 from repro_torch.data.recsys_gen import RecsysGenerator
+from repro_torch.data.sampler import make_community_graph
 from repro_torch.data.synthetic import make_ctr_dataset
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models.gnn import gin_forward, init_gin, make_edge_plan
 from repro_torch.models.recsys import bce_loss, init_recsys, recsys_logits
 from repro_torch.models.transformer import forward, init_params
 from repro_torch.train.optimizer import OptimizerConfig
@@ -26,6 +29,17 @@ from repro_torch.train.trainer import init_train_state, make_train_step
 
 
 SP = SpecialTokens()
+
+
+def _ce(logits, labels, mask=None):
+    """Mean cross entropy of ``labels`` under ``logits`` (fp32), over the
+    rows ``mask`` keeps when given."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, labels[:, None].long())[:, 0]
+    if mask is None:
+        return nll.mean()
+    w = mask.float()
+    return torch.sum(nll * w) / torch.clamp(torch.sum(w), min=1.0)
 
 
 def _run(loss_fn, params, batches, steps, lr) -> Dict:
@@ -47,15 +61,17 @@ def train_smoke(arch: str, *, steps: int = 20, batch: int = 8,
                 seed: int = 0, lr: float = 1e-2,
                 device: DeviceLike = None) -> Dict:
     spec = get_arch(arch)
-    if spec.family not in ("lm", "recsys"):
-        raise NotImplementedError(f"the {spec.family} family waits for "
-                                  "ROADMAP A9b (models/gnn.py)")
     device = resolve_device(device)
     rng = np.random.default_rng(seed)
     cfg = spec.smoke
     if spec.family == "lm":
         return {"arch": arch, "device": str(device),
                 **_train_lm(cfg, rng, steps, batch, seed, lr, device)}
+    if spec.family == "gnn":
+        return {"arch": arch, "device": str(device),
+                **_train_gnn(cfg, steps, seed, lr, device)}
+    if spec.family != "recsys":
+        raise ValueError(spec.family)
     gen = RecsysGenerator(cfg.n_items, seed=seed)
 
     def batches():
@@ -98,6 +114,27 @@ def _train_lm(cfg, rng, steps, batch, seed, lr, device) -> Dict:
     def batches():
         while True:
             yield from batch_prompts(prompts, batch, rng=rng)
+
+    return _run(loss_fn, params, batches(), steps, lr)
+
+
+def _train_gnn(cfg, steps, seed, lr, device) -> Dict:
+    """The reference's ``gnn`` branch: full-graph node classification on a
+    200-node community graph (average degree 6), every node labelled."""
+    g = make_community_graph(200, 6, cfg.d_feat, cfg.n_classes, seed=seed)
+    es, ed = g.edge_list()
+    plan = make_edge_plan(es, ed, g.n_nodes, np.ones(len(es), bool),
+                          device=device)
+    params = init_gin(cfg, seed=seed, device=device)
+    full = {"x": g.x, "labels": g.y, "label_mask": np.ones(len(g.y), bool)}
+
+    def loss_fn(p, b, _gen):
+        logits = gin_forward(p, cfg, b["x"], plan=plan)
+        return _ce(logits, b["labels"], b["label_mask"]), {}
+
+    def batches():
+        while True:
+            yield full
 
     return _run(loss_fn, params, batches(), steps, lr)
 

@@ -19,8 +19,9 @@ does; the reference's CLI trains every leaf, which stays the default.
 ``qwen2-1.5b``, ``minicpm3-4b``, ``qwen2-moe-a2.7b``) at ``--size smoke``
 (its SMOKE config) or ``full`` (its FULL config), as the reference's
 ``run_lm`` does; ``--arch din|mind|sasrec|xdeepfm`` trains that recsys
-model's SMOKE config on synthetic batches (``run_other``, through
-``repro_torch.launch.smoke.train_smoke``); the GNN raises (ROADMAP A9b).
+model's SMOKE config on synthetic batches, and ``--arch gin-tu`` the
+GNN's on a community graph (``run_other``, through
+``repro_torch.launch.smoke.train_smoke``).
 Checkpointing (atomic, keep-k, resumable), straggler monitoring and the
 evaluation (AUC / LogLoss / F1) are always on.
 """

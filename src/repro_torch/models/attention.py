@@ -14,7 +14,8 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from repro_torch.core.windowed import ResetConfig, attention
+from repro_torch.core.windowed import (ResetConfig, SharedPrefixPlan,
+                                       attention)
 from repro_torch.models.layers import (Params, alibi_slopes, apply_rope,
                                        dense, init_linear, init_rmsnorm,
                                        rmsnorm)
@@ -29,6 +30,14 @@ class DTIAttnOpts:
     sum_alibi: bool = True                    # NoPE + ALiBi on SUM rows
     sum_isolated: bool = True
     segment_ids: Optional[torch.Tensor] = None  # (B, S) int32 packed segments
+    seg_shared: Optional[int] = None          # shared-prefix segment id
+                                              # (multi-target serving rows)
+    shared_plan: Optional[SharedPrefixPlan] = None  # made once per forward
+
+    def __post_init__(self):
+        if self.seg_shared is not None and self.segment_ids is None:
+            raise ValueError("seg_shared (shared-prefix rows) requires "
+                             "segment_ids")
 
 
 def init_gqa(gen: torch.Generator, d_model: int, n_heads: int,
@@ -49,7 +58,8 @@ def _dti_kwargs(dti: Optional[DTIAttnOpts], q_nope, k_nope, n_heads: int,
                 device, v0) -> Dict[str, Any]:
     """The attention operands of the DTI context: [SUM] flags, the NoPE
     stream with ALiBi, the reset's v0 (``v0()`` computes it on demand),
-    packed segments."""
+    packed segments and the shared segment of multi-target rows (the
+    reference's ``_seg_kwargs``)."""
     kw: Dict[str, Any] = {}
     if dti is not None and dti.is_sum is not None:
         kw["is_sum_q"] = dti.is_sum
@@ -63,6 +73,10 @@ def _dti_kwargs(dti: Optional[DTIAttnOpts], q_nope, k_nope, n_heads: int,
             kw["reset"] = dti.reset
     if dti is not None and dti.segment_ids is not None:
         kw["seg_q"] = kw["seg_k"] = dti.segment_ids
+        if dti.seg_shared is not None:
+            kw["seg_shared"] = dti.seg_shared
+            if dti.shared_plan is not None:
+                kw["shared_plan"] = dti.shared_plan
     return kw
 
 

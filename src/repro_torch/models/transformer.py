@@ -21,7 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.core.windowed import ResetConfig
+from repro_torch.core.windowed import ResetConfig, shared_prefix_plan
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.attention import (DTIAttnOpts, gqa_attention,
                                           init_gqa, init_mla, mla_attention)
@@ -75,6 +75,7 @@ class ModelConfig:
     tie_embeddings: bool = False
     norm_eps: float = 1e-6
     lora_rank: int = 0
+    logits_chunk: int = 0               # 0 = unchunked LM loss
     remat: bool = True
     remat_policy: str = "nothing"       # "nothing" | "none" ("dots": later)
     param_dtype: str = "float32"
@@ -202,12 +203,19 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
             is_sum: Optional[torch.Tensor] = None,
             valid: Optional[torch.Tensor] = None,
             segment_ids: Optional[torch.Tensor] = None,
+            seg_shared: Optional[int] = None,
             dti_enabled: bool = False,
             window: Optional[int] = None) -> Dict[str, Any]:
     """Run the decoder; returns ``{"hidden": (B, S, d)}`` after the final
     norm and ``"aux_loss"``, the fp32 sum of the MoE layers' balance
     losses (zero for a dense model). Logits are not materialised here (see
     ``lm_logits`` and ``repro_torch.core.losses.ctr_logits``).
+
+    ``segment_ids`` (packed rows, -1 on padding) isolate segments in every
+    attention layer. ``seg_shared`` marks one segment id (the user context
+    of a multi-target serving row) as a shared prefix every other segment
+    may attend; candidate segments keep positions continuing after the
+    context. Dense attention path only: the other paths raise.
 
     With ``cfg.remat`` and policy ``"nothing"``, and while autograd
     records, each layer runs under ``torch.utils.checkpoint``: only its
@@ -223,15 +231,21 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     # fixed order (indexing's index_put is nondeterministic on the CPU)
     h = F.embedding(tokens, params["embed"]).to(cfg.cdtype)
 
+    plan = None      # the shared-prefix form's plan, once per call
+    if (seg_shared is not None and segment_ids is not None
+            and cfg.attn_impl == "dense"):
+        plan = shared_prefix_plan(segment_ids, valid, seg_shared)
     dti: Optional[DTIAttnOpts] = None
-    if (dti_enabled and is_sum is not None) or segment_ids is not None:
+    if ((dti_enabled and is_sum is not None) or segment_ids is not None
+            or seg_shared is not None):
         use_sum = dti_enabled and is_sum is not None
         dti = DTIAttnOpts(is_sum=is_sum if use_sum else None, h0=h,
                           reset=(cfg.reset_config(win)
                                  if use_sum and cfg.dti_reset else None),
                           sum_alibi=cfg.dti_sum_alibi,
                           sum_isolated=cfg.dti_sum_isolated,
-                          segment_ids=segment_ids)
+                          segment_ids=segment_ids, seg_shared=seg_shared,
+                          shared_plan=plan)
     remat = (cfg.remat and cfg.remat_policy == "nothing"
              and torch.is_grad_enabled())
     aux_total = torch.zeros((), dtype=torch.float32, device=tokens.device)

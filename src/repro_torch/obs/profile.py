@@ -6,6 +6,7 @@
 - :func:`annotate` — a ``record_function`` range, so a host-side span name
   shows up on the profiler's timeline; the scheduler opens one around
   each dispatch when its tracer was built with ``device_annotate=True``.
+- :func:`available` — whether this build of torch can record a trace.
 
 Outside a profiling session ``record_function`` costs one host-side
 range push and pop, and no device sync.
@@ -16,6 +17,13 @@ import os
 from contextlib import contextmanager
 
 import torch
+
+
+def available() -> bool:
+    """True when torch was built with its Kineto profiler, which
+    :func:`trace` records through (host activity, and the card's when
+    one is present)."""
+    return bool(torch.autograd.kineto_available())
 
 
 @contextmanager
@@ -39,4 +47,4 @@ def annotate(name: str):
     return torch.profiler.record_function(name)
 
 
-__all__ = ["trace", "annotate"]
+__all__ = ["available", "trace", "annotate"]

@@ -11,7 +11,12 @@
   [SUM] query scores the same cache with NoPE+ALiBi. MLA models run in
   absorbed form against the latent cache (W_UK folded into the query,
   W_UV applied after aggregation), as MQA on the decode kernel.
-* ``CTRServer.score`` — batched scoring of sliding-window prompts.
+* ``make_multi_target_prefill_fn`` — one prefill over a shared-context
+  row (``repro_torch.core.dti.build_multi_target_request``: the user
+  context as segment 0, then k [SUM]-terminated candidate segments), on
+  the dense attention path.
+* ``CTRServer.score`` — batched scoring of sliding-window prompts;
+  ``CTRServer.score_multi_target`` — one multi-target row per request.
 
 The cache is updated in place (see ``repro_torch.serve.cache``): the
 caller's dict is mutated and returned.
@@ -24,6 +29,8 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.core.dti import (build_multi_target_request,
+                                  candidate_sum_slots)
 from repro_torch.core.losses import ctr_logits
 from repro_torch.core.quant import quantize_q8
 from repro_torch.device import DeviceLike, resolve_device
@@ -49,21 +56,50 @@ def _p_click(params: Params, cfg: ModelConfig, hidden, yes_id: int,
 
 
 def make_prefill_fn(cfg: ModelConfig, *, yes_id: int = 3, no_id: int = 4,
-                    window: Optional[int] = None) -> Callable:
+                    window: Optional[int] = None,
+                    multi_target: bool = False) -> Callable:
     """(params, batch of tensors) -> p_click (B, S); valid only at [SUM]
-    positions. Multi-target rows (shared-prefix segments) wait for a later
-    slice."""
+    positions.
+
+    ``multi_target=True`` scores shared-context rows instead of
+    one-prompt rows: the batch must carry ``segment_ids`` and segment 0 is
+    a shared prefix (``seg_shared=0``); the dense attention path is
+    forced."""
     icfg = dataclasses.replace(cfg, dti_reset=False)
+    if multi_target:
+        icfg = dataclasses.replace(icfg, attn_impl="dense")
 
     @torch.no_grad()
     def prefill(params: Params, batch: Dict[str, torch.Tensor]):
+        kw: Dict[str, Any] = {}
+        if multi_target:
+            kw = dict(segment_ids=batch["segment_ids"], seg_shared=0)
         out = forward(params, icfg, batch["tokens"],
                       positions=batch["positions"], is_sum=batch["is_sum"],
-                      valid=batch["valid"], dti_enabled=True, window=window)
+                      valid=batch["valid"], dti_enabled=True, window=window,
+                      **kw)
         p = _p_click(params, cfg, out["hidden"], yes_id, no_id)
         return torch.where(batch["is_sum"], p, torch.zeros_like(p))
 
     return prefill
+
+
+def make_multi_target_prefill_fn(cfg: ModelConfig, *, yes_id: int = 3,
+                                 no_id: int = 4,
+                                 window: Optional[int] = None) -> Callable:
+    """(params, batch) -> p_click (B, S) for multi-target serving rows
+    (``build_multi_target_request``): one shared user context (segment 0)
+    plus k [SUM]-terminated candidate segments whose positions continue
+    after the context. One prefill scores all k candidates with the
+    context encoded once, O(n^2 + k n) attention instead of the O(k n^2)
+    of k independent sliding-window prefills, and each [SUM] probability
+    equals the standalone prompt's score up to summation order.
+
+    Dense attention path only: the banded kernel schedules assume that
+    physical distance equals positional distance, which the interleaved
+    candidate segments break."""
+    return make_prefill_fn(cfg, yes_id=yes_id, no_id=no_id, window=window,
+                           multi_target=True)
 
 
 def _rope_read(k: torch.Tensor, pos: torch.Tensor, theta: float):
@@ -349,8 +385,13 @@ def make_decode_fn(cfg: ModelConfig, *, window: int, ring: bool,
 
 @dataclasses.dataclass
 class CTRServer:
-    """Batched pointwise CTR scorer over ``max_len``-padded sliding-window
-    prompts (one prompt per candidate, the paper's procedure)."""
+    """Batched pointwise CTR scorer over ``max_len``-padded rows.
+
+    * ``score`` — one sliding-window prompt per candidate (the paper's
+      procedure: the context is encoded again for every candidate).
+    * ``score_multi_target`` — one multi-target row per request (shared
+      context + k isolated candidate segments): the context is encoded
+      once per request, on the dense attention path."""
     params: Params
     cfg: ModelConfig
     max_len: int
@@ -362,20 +403,38 @@ class CTRServer:
         self.device = resolve_device(self.device)
         self._prefill = make_prefill_fn(self.cfg, yes_id=self.yes_id,
                                         no_id=self.no_id)
+        self._mt_prefill = make_multi_target_prefill_fn(
+            self.cfg, yes_id=self.yes_id, no_id=self.no_id)
 
-    def score(self, prompts) -> List[float]:
-        batch = {k: np.stack([p[k] for p in prompts])
-                 for k in ("tokens", "positions", "is_sum", "valid")}
+    def _run(self, fn, rows, keys) -> np.ndarray:
+        batch = {k: np.stack([r[k] for r in rows]) for k in keys}
         if batch["tokens"].shape[1] != self.max_len:
-            raise ValueError(f"prompts of length {batch['tokens'].shape[1]} "
+            raise ValueError(f"rows of length {batch['tokens'].shape[1]} "
                              f"!= max_len {self.max_len}")
         tb = {k: torch.from_numpy(v).to(self.device) for k, v in batch.items()}
-        p = self._prefill(self.params, tb).float().cpu().numpy()
+        return fn(self.params, tb).float().cpu().numpy()
+
+    def score(self, prompts) -> List[float]:
+        p = self._run(self._prefill, prompts,
+                      ("tokens", "positions", "is_sum", "valid"))
         out = []
-        for i in range(len(prompts)):
-            sums = np.flatnonzero(batch["is_sum"][i])
+        for i, prompt in enumerate(prompts):
+            sums = np.flatnonzero(prompt["is_sum"])
             out.append(float(p[i, sums[-1]]) if len(sums) else 0.5)
         return out
 
+    def score_multi_target(self, requests) -> List[List[float]]:
+        """``requests``: (context_tokens, candidate_tokens) pairs, each a
+        list of per-interaction / per-candidate token lists. Returns the k
+        candidate scores of each request, in candidate order."""
+        rows = [build_multi_target_request(ctx, cands, max_len=self.max_len)
+                for ctx, cands in requests]
+        p = self._run(self._mt_prefill, rows,
+                      ("tokens", "positions", "segment_ids", "is_sum",
+                       "valid"))
+        return [[float(p[i, j]) for j in candidate_sum_slots(row)]
+                for i, row in enumerate(rows)]
 
-__all__ = ["make_prefill_fn", "make_decode_fn", "CTRServer"]
+
+__all__ = ["make_prefill_fn", "make_multi_target_prefill_fn",
+           "make_decode_fn", "CTRServer"]

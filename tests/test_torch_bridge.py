@@ -70,7 +70,10 @@ def test_import_loads_neither_jax_nor_repro():
             "repro_torch.launch.steps, repro_torch.launch.smoke, "
             "repro_torch.models.moe, repro_torch.configs.minicpm_2b, "
             "repro_torch.configs.qwen2_1_5b, "
-            "repro_torch.configs.qwen2_moe_a2_7b\n"
+            "repro_torch.configs.qwen2_moe_a2_7b, repro_torch.serve, "
+            "repro_torch.models.gnn, repro_torch.data.sampler, "
+            "repro_torch.configs.gin_tu, repro_torch.launch.obs_report, "
+            "repro_torch.core.losses, repro_torch.obs.clock\n"
             "bad = [m for m in sys.modules if m == 'jax' or m == 'repro' "
             "or m.startswith(('jax.', 'repro.'))]\n"
             "assert not bad, bad\n")

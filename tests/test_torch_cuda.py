@@ -888,3 +888,68 @@ def test_embedding_bag_refuses_a_plan_it_would_not_make(gen, quant):
     torch.testing.assert_close(
         out, eb.embedding_bag_plain(t, ids, w, scale if quant else None),
         atol=1e-5, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# GNN aggregation and multi-target serving: no kernel of their own, but
+# equal bits on equal inputs, on the card too
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("aggregator", ["sum", "max", "mean"])
+def test_gnn_aggregation_gives_the_same_bits(gen, aggregator):
+    """Two forward and backward passes of ``gin_aggregate`` over a graph
+    with hub nodes (runs longer than a chunk) give equal bits; the sum is
+    within 1e-4 of its CPU value."""
+    from repro_torch.models.gnn import gin_aggregate, make_edge_plan
+    n, e, d = 3000, 60000, 64
+    src = torch.randint(0, n, (e,), generator=gen, device="cuda")
+    dst = torch.randint(0, n, (e,), generator=gen, device="cuda")
+    dst[: e // 4] = 7                       # a hub: one long run
+    valid = torch.rand(e, generator=gen, device="cuda") < 0.9
+    plan = make_edge_plan(src, dst, n, valid, chunk_edges=4096)
+    h = torch.randn(n, d, generator=gen, device="cuda")
+    w = torch.randn(n, d, generator=gen, device="cuda")
+
+    def run():
+        x = h.clone().requires_grad_(True)
+        out = gin_aggregate(x, aggregator=aggregator, plan=plan)
+        torch.sum(torch.where(torch.isfinite(out), out, 0.0) * w).backward()
+        return out.detach(), x.grad
+    (o1, g1), (o2, g2) = run(), run()
+    assert torch.equal(o1, o2) and torch.equal(g1, g2)
+    if aggregator == "sum":
+        cpu = make_edge_plan(src.cpu(), dst.cpu(), n, valid.cpu())
+        torch.testing.assert_close(
+            o1.cpu(), gin_aggregate(h.cpu(), plan=cpu), atol=TOL, rtol=0)
+
+
+def test_multi_target_no_cross_candidate_leakage(gen):
+    """A candidate's tokens and length changed: every other candidate's
+    score keeps its bits, in bf16 on the card."""
+    import dataclasses
+    from repro_torch.configs.dti_llama import REPRO
+    from repro_torch.core.dti import (build_multi_target_request,
+                                      candidate_sum_slots)
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve.engine import make_multi_target_prefill_fn
+    cfg = dataclasses.replace(REPRO, n_layers=2, param_dtype="bfloat16",
+                              compute_dtype="bfloat16")
+    params = init_params(cfg, seed=0)
+    r = torch.Generator().manual_seed(1)
+    toks = lambda n: (torch.randint(8, 1000, (n,), generator=r)).tolist()
+    ctx = [toks(5) for _ in range(12)]
+    cands = [toks(3 + i % 4) for i in range(8)]
+    prefill = make_multi_target_prefill_fn(cfg)
+
+    def scores(cands_):
+        row = build_multi_target_request(ctx, cands_, max_len=256)
+        batch = {k: torch.from_numpy(v[None]).cuda() for k, v in row.items()}
+        return prefill(params, batch)[0, candidate_sum_slots(row)].cpu()
+    base = scores(cands)
+    mutated = [list(c) for c in cands]
+    mutated[2] = toks(len(cands[2]) + 2)
+    got = scores(mutated)
+    keep = torch.ones(len(cands), dtype=torch.bool)
+    keep[2] = False
+    assert torch.equal(got[keep], base[keep])
+    assert got[2] != base[2]

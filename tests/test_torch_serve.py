@@ -204,9 +204,10 @@ def _decode_scores(decode, params, init, T_, toks, pos, is_sum):
 @pytest.mark.parametrize("what", ["moe", "mla", "blocked", "decode-blocked",
                                   "deepseek-v2-236b", "gin-tu"])
 def test_later_slices_raise(weights, what):
-    """The two architectures still to port raise from ``get_arch``. The
-    other cases raised until a slice brought what they refused, and now
-    pin it: an MLA config and an MoE config (one dense prefix layer, as
+    """The architecture still to port (deepseek-v2-236b) raises from
+    ``get_arch``. The other cases raised until a slice brought what they
+    refused, and now pin it: gin-tu's spec carries the reference's
+    configs; an MLA config and an MoE config (one dense prefix layer, as
     tests/test_serve.py builds it) initialise the reference's tree of
     leaves and shapes; the blocked path equals the reference's (2e-5, the
     tolerance of tests/test_attention.py); a config that prefills on the
@@ -217,9 +218,16 @@ def test_later_slices_raise(weights, what):
     from repro_torch.configs import get_arch
     from repro_torch.core.windowed import attention
     from repro_torch.models.transformer import init_params
-    if what in ("deepseek-v2-236b", "gin-tu"):
+    if what == "deepseek-v2-236b":
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             get_arch(what)
+    elif what == "gin-tu":
+        from repro.configs import get_arch as j_get_arch
+        spec, jspec = get_arch(what), j_get_arch(what)
+        assert spec.family == jspec.family == "gnn"
+        for name in ("config", "smoke"):
+            assert dataclasses.asdict(getattr(spec, name)) == \
+                dataclasses.asdict(getattr(jspec, name))
     elif what in ("moe", "mla"):
         extra = dict(
             mla=dict(attn_type="mla", n_kv_heads=4, q_lora_rank=24,
