@@ -45,7 +45,17 @@ Phases, each fatal on failure:
    (and int8 codes) per row, then at minicpm3-4b's decode shape (B=8,
    cap=2048, s=64, 40 heads on one latent key, r 256, dr 32) in bf16 and
    on int8 codes with keys up to position 2047 at phase 2c's per-row
-   tolerance, each twice (the same bits).
+   tolerance, each twice (the same bits). 2h: the wide geometries
+   deepseek-v2 brings, under launch keys of their own: kernel 1's Dqk-192
+   class (``windowed_attn_192``) over 2a's flags at Dqk 192 and 136 in
+   fp32 (1e-4) and bf16 (per row), then at deepseek-v2's prefill shape
+   (B=8, S=2048, 128 heads, Dqk 192, Dv 128, window 1024, NoPE) against
+   the fp32 plain version a batch row at a time; kernel 4's MLA mode at a
+   latent of up to 512 and a rope span of up to 64
+   (``decode_attn_mla_576``, ``_q8``) over 2g's flags at r 512 / dr 64,
+   300 / 40, 264 / 48 and 392 / 56, then at deepseek-v2's decode shape
+   (B=8, cap=2048, s=64, 128 heads, r 512, dr 64) in bf16 and on int8
+   codes; each real shape twice (the same bits).
 11. recsys — DIN, MIND, SASRec and xDeepFM in fp32 before the dti-llama
    weights are loaded: (a) FULL widths with tables cut to 2^20 rows
    (xDeepFM: each field to min(v, 2^16)), the card against the CPU on the
@@ -71,7 +81,9 @@ Phases, each fatal on failure:
    12b: at FULL widths, 2 layers, fp32, the kernel path against the dense
    path within 1e-4 (prefill, every decode step, the first 6 scheduler
    requests), and one paged int8 step bit for bit equal to the same step
-   on a contiguous latent cache.
+   on a contiguous latent cache; then at 1 layer the scheduler on paged
+   int8 latent KV, kernel path against dense path within 1e-4, the two
+   caches' codes and scales equal.
 13. minicpm3-4b training — first kernels 2 and 3 at its training shape
    (B=8, S=2048, H = Hk = 40, Dqk 96, Dv 64, NoPE + reset, [SUM] rows in
    each row's tail) in bf16 against the fp32 plain version per row, each
@@ -103,6 +115,27 @@ Phases, each fatal on failure:
    per layer per step, no plain call), one prefill call and one decode
    burst step timed; at 2 layers in fp32 the kernel path against the dense
    path within 1e-4, prefill and every decode step.
+18. deepseek-v2-236b — its ``FULL`` config at full width (d_model 5120,
+   128 heads, MLA kv_lora 512 and qk 128 + 64, 160 experts top-6 and 2
+   shared, ``norm_topk=False``) with the depth cut to the dense first
+   layer and two MoE layers (~9.3B parameters, ~18.7 GB of random seeded
+   bf16 weights made on the card), ``attn_impl="cuda"``, the counts set to
+   0 before it: at the no-drop capacity factor phases 3 and 4 on it
+   (``CTRServer.score`` in calls of 2 prompts, kernel 1 at Dqk 192 / Dv
+   128 once per layer a call; the chunked context, the 6-candidate burst
+   held to per-candidate prefill, ring steps, kernel 4's MLA mode at 576 /
+   512 once per layer a step) and the same decode path on int8 latent KV;
+   no plain call, no dropped choice; then ``ServeScheduler`` over 8
+   requests on paged bf16 latent KV (its launches added), held to the
+   naive oracle in calls of 4 prompts within 5e-2. Off the main path:
+   prefill against the blocked path, bf16 and int8 decode against the
+   dense plain decode, int8 against bf16 KV, each within 5e-2; a paged
+   step bit for bit equal to a contiguous one (bf16, int8). At the
+   config's capacity factor 1.25: the prefill call (B=8, S=2048) and
+   decode burst step timed and profiled, drops and peak memory printed.
+   18b: the dense first layer alone in fp32, kernel path against dense
+   path for prefill and every decode step within 1e-4, then the int8
+   latent cache's one-layer check as in 12b.
 16. gin-tu — ``configs/gin_tu`` FULL per shape (``config_for_shape``: 5
    layers, d_hidden 64, sum, learnable eps, fp32, remat; random seeded
    weights) trained with the reference cell's AdamW (lr 1e-3, cosine over
@@ -197,7 +230,9 @@ Phases, each fatal on failure:
    breakdowns of one decode burst step, one prefill call, one train step
    and the 9a and 9b scheduler runs; kernels 2 and 3 also at minicpm3-4b's
    training shape (phase 13's operands) beside their bound and SDPA
-   backward on the same mask.
+   backward on the same mask; the wide geometries of 2h at deepseek-v2's
+   shapes beside their plain versions (kernel 1's summed over calls of
+   one batch row) and SDPA.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. With no card, or run
@@ -799,19 +834,48 @@ def _score(cfg, params, prompts, impl, batch=8):
                        for p in server.score(prompts[i:i + batch])])
 
 
-def phase_prefill(cfg, params, prompts, kernels):
-    """The main path's prefill: ``CTRServer.score`` in bf16 on kernel 1."""
+class ChunkedServer:
+    """A ``CTRServer`` whose ``score`` runs at most ``per_call`` prompts a
+    call (an MoE model at the no-drop capacity factor holds E x T x d of
+    expert buffers a call); ``calls`` counts the calls."""
+
+    def __init__(self, server, per_call):
+        self.server, self.per_call, self.calls = server, per_call, 0
+
+    def score(self, prompts):
+        out = []
+        for i in range(0, len(prompts), self.per_call):
+            out += self.server.score(prompts[i:i + self.per_call])
+            self.calls += 1
+        return out
+
+
+def prefill_kernel(cfg):
+    """Kernel 1's launch key for ``cfg``'s q/k head dim."""
+    from repro_torch.kernels.windowed_attn import MAX_HEAD_DIM
+    d = (cfg.qk_nope_dim + cfg.qk_rope_dim if cfg.attn_type == "mla"
+         else cfg.hd)
+    return "windowed_attn" if d <= MAX_HEAD_DIM else "windowed_attn_192"
+
+
+def phase_prefill(cfg, params, prompts, kernels, per_call=None):
+    """The main path's prefill: ``CTRServer.score`` in bf16 on kernel 1
+    (in calls of ``per_call`` prompts when given: a ``ChunkedServer``)."""
     from repro_torch.serve.engine import CTRServer
     log("phase 3: prefill, CTRServer.score on 8 sliding-window prompts")
     lens = [int(p["valid"].sum()) for p in prompts]
     log(f"  prompt lengths {lens} (window {cfg.window})")
     server = CTRServer(params, cfg, max_len=MAX_LEN)
-    before = kernels.LAUNCHES["windowed_attn"]
+    if per_call:
+        server = ChunkedServer(server, per_call)
+    key = prefill_kernel(cfg)
+    before = kernels.LAUNCHES[key]
     p = np.asarray(server.score(prompts))
-    n = kernels.LAUNCHES["windowed_attn"] - before
-    if n != cfg.n_layers:
-        fail(f"windowed kernel ran {n} times in one prefill, want "
-             f"{cfg.n_layers}")
+    n = kernels.LAUNCHES[key] - before
+    calls = -(-len(prompts) // per_call) if per_call else 1
+    if n != cfg.n_layers * calls:
+        fail(f"windowed kernel ran {n} times in {calls} prefill calls, want "
+             f"{cfg.n_layers * calls}")
     if not (np.isfinite(p).all() and ((p > 0) & (p < 1)).all()):
         fail(f"p_click not in (0, 1): {p}")
     log(f"  p_click bf16 cuda {p.tolist()}; windowed kernel launches per "
@@ -868,20 +932,21 @@ def _slate(ctx_rows, users, sum_id):
     return burst
 
 
-def drive_decode(cfg, params, users, kernels):
+def drive_decode(cfg, params, users, kernels, kv_dtype=None):
     """The decode steps of phase 4 on ``cfg.attn_impl``: commit each user's
     context into a contiguous cache in valid-padded chunks of CHUNK, score
     the slate as one ``commit=False`` burst, then stream context + first
-    target through a window+64-slot ring in steps of BURST. Each step must
-    launch the decode kernel once per layer on the kernel path and never
-    on the dense path. Returns the p_click of every valid token of every
+    target through a window+64-slot ring in steps of BURST (both caches
+    int8 with ``kv_dtype="int8"``). Each step must launch the decode
+    kernel once per layer on the kernel path and never on the dense
+    path. Returns the p_click of every valid token of every
     step, in step order, and what phase 4 checks and phase 6 times."""
     from repro_torch.core.dti import SpecialTokens
     from repro_torch.serve.cache import init_lm_cache
     from repro_torch.serve.engine import make_decode_fn
     sp = SpecialTokens()
     per_step = cfg.n_layers if cfg.attn_impl == "cuda" else 0
-    key = decode_kernel(cfg, None)
+    key = decode_kernel(cfg, kv_dtype)
 
     def step(fn, *args):
         before = kernels.LAUNCHES[key]
@@ -893,7 +958,8 @@ def drive_decode(cfg, params, users, kernels):
 
     ctx_rows = [[sp.bos] + [t for it in toks[:N_CTX] for t in it]
                 for toks, _ in users]
-    cache = init_lm_cache(cfg, 8, MAX_LEN, dtype=cfg.cdtype)
+    cache = init_lm_cache(cfg, 8, MAX_LEN, dtype=cfg.cdtype,
+                          kv_dtype=kv_dtype)
     decode = make_decode_fn(cfg, window=cfg.window, ring=False)
     valid_p = []
     for lo in range(0, max(len(r) for r in ctx_rows), CHUNK):
@@ -915,7 +981,8 @@ def drive_decode(cfg, params, users, kernels):
     valid_p.append(p[burst["valid"]])
     p_burst = np.stack([p[b, burst["sum"][b]] for b in range(8)])
 
-    ring = init_lm_cache(cfg, 8, cfg.window + 64, dtype=cfg.cdtype)
+    ring = init_lm_cache(cfg, 8, cfg.window + 64, dtype=cfg.cdtype,
+                         kv_dtype=kv_dtype)
     rdec = make_decode_fn(cfg, window=cfg.window, ring=True)
     rows = [r + list(toks[N_CTX]) + [sp.sum] for r, (toks, _) in
             zip(ctx_rows, users)]
@@ -936,8 +1003,12 @@ def drive_decode(cfg, params, users, kernels):
 
 
 def decode_kernel(cfg, kv_dtype):
-    """The decode kernel's launch key for ``cfg``'s attention and KV."""
-    name = "decode_attn_mla" if cfg.attn_type == "mla" else "decode_attn"
+    """The decode kernel's launch key for ``cfg``'s attention (the MLA
+    mode's geometry) and KV."""
+    from repro_torch.kernels.decode_attn import MLA_KEYS, mla_geometry
+    name = "decode_attn"
+    if cfg.attn_type == "mla":
+        name = MLA_KEYS[mla_geometry(cfg.kv_lora_rank, cfg.qk_rope_dim)]
     return f"{name}_q8" if kv_dtype == "int8" else name
 
 
@@ -1412,13 +1483,14 @@ def mla_args(o, q8=None):
     return (o["q"], src["ckv"], src["kpe"], o["pos_q"], o["pos_k"])
 
 
-def real_mla(gen, *, s=64, dtype=torch.bfloat16):
+def real_mla(gen, *, s=64, dtype=torch.bfloat16, H=40, r=256, dr=32):
     """Kernel 4's MLA mode at minicpm3-4b's decode shape: B=8, cap=2048,
     s=64 (or a scheduler bucket), 40 heads on one latent key, r 256, dr 32
     (Dqk 288, Dv 256), window 1024, a burst of 6 candidates (4 at a
-    smaller bucket) over contexts of 1.4k-1.9k, NoPE stream on."""
+    smaller bucket) over contexts of 1.4k-1.9k, NoPE stream on; or at
+    deepseek-v2's (H 128, r 512, dr 64)."""
     fills = [1400 + 70 * b for b in range(8)]
-    o = latent_operands(gen, B=8, s=s, H=40, r=256, dr=32, cap=2048,
+    o = latent_operands(gen, B=8, s=s, H=H, r=r, dr=dr, cap=2048,
                         dtype=dtype, fills=fills, n_seg=6 if s == 64 else 4)
     return o, mla_kwargs(o, window=1024, nope=True, seg=True)
 
@@ -1443,10 +1515,10 @@ def check_same_bits(name, fn):
     log(f"  {name}: two calls give the same bits")
 
 
-def real_mla_q8(gen, *, s=64):
+def real_mla_q8(gen, *, s=64, **geo):
     """``real_mla``'s shape on int8 codes, row 7's keys at every position
     up to 2047."""
-    o, _ = real_mla(gen, s=s)
+    o, _ = real_mla(gen, s=s, **geo)
     keys_to_cap(o)
     rope_latent(o)
     q8 = quantize_latent(o, gen)
@@ -1661,7 +1733,8 @@ def run_sched(cfg, params, reqs, kernels, *, kv_dtype, paged, n_pages=None,
 
 
 DECODE_KERNELS = ("decode_attn", "decode_attn_q8", "decode_attn_mla",
-                  "decode_attn_mla_q8")
+                  "decode_attn_mla_q8", "decode_attn_mla_576",
+                  "decode_attn_mla_576_q8")
 
 
 def check_sched_run(res, cfg, kernel, label):
@@ -1685,9 +1758,10 @@ def check_sched_run(res, cfg, kernel, label):
              f"finished, watchdog {res['tel']['watchdog_fired']}")
 
 
-def sched_oracle(cfg, params, reqs):
+def sched_oracle(cfg, params, reqs, per_call=8):
     """The paper's procedure taken literally: one sliding-window prompt
-    per candidate through ``CTRServer.score`` (kernel 1)."""
+    per candidate through ``CTRServer.score`` (kernel 1), ``per_call``
+    prompts a call."""
     from repro_torch.core.dti import build_sliding_prompts
     from repro_torch.serve.engine import CTRServer
     n = max(1 + sum(len(t) for t in r["context"])
@@ -1701,8 +1775,8 @@ def sched_oracle(cfg, params, reqs):
             prompts += build_sliding_prompts(
                 r["context"] + [cand], [0] * (len(r["context"]) + 1),
                 n_ctx=len(r["context"]), max_len=max_len)
-        out.append([p for i in range(0, len(prompts), 8)
-                    for p in server.score(prompts[i:i + 8])])
+        out.append([p for i in range(0, len(prompts), per_call)
+                    for p in server.score(prompts[i:i + per_call])])
     return np.asarray(out), max_len
 
 
@@ -2032,6 +2106,7 @@ def phase_mla32(cfg, params, users, prompts, kernels):
                                  _layers(params, 2, cfg.pdtype), "int8")
     log(f"  one step on a paged int8 latent cache (pages out of order) == "
         f"the same step on a contiguous cache: {n} values equal bit for bit")
+    out["int8 1 layer"] = int8_one_layer_check(cfg, params, kernels, "12b")
     return out
 
 
@@ -2892,6 +2967,470 @@ def _wall(fn, iters):
 
 
 # ---------------------------------------------------------------------------
+# phase 18: deepseek-v2-236b (MLA + MoE) serving at full width
+# ---------------------------------------------------------------------------
+
+DS_LAYERS = 3        # the dense first layer and two MoE layers
+DS_PER_CALL = 2      # prompts a prefill call at the no-drop factor (4,096 tokens)
+DS_REQ = 8           # the scheduler's requests
+
+
+def build_deepseek_model():
+    """deepseek-v2-236b ``FULL`` at full width (d_model 5120, 128 heads,
+    kv_lora 512, qk 128 + 64, 160 experts top-6 and 2 shared) with its
+    depth cut to the dense first layer and two MoE layers, random seeded
+    bf16 weights made on the card, on the kernels (``attn_impl="cuda"``;
+    the config's own default is the blocked path). Its LoRA B leaves stay
+    zero, so that the absorbed decode, which leaves ``kv_up``'s adapter
+    out as the reference does, computes what the prefill computes."""
+    from repro_torch.configs.deepseek_v2_236b import FULL
+    from repro_torch.models.transformer import count_params, init_params
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(FULL, n_layers=DS_LAYERS, attn_impl="cuda")
+    params = init_params(cfg, seed=0)
+    torch.cuda.synchronize()
+    part = lambda t: sum(x.numel() for x in _leaves(t))
+    lp0, lp1 = params["layers"][0], params["layers"][1]
+    experts = {k: lp1["ffn"][k] for k in ("w_gate", "w_up", "w_down")}
+    log(f"  deepseek-v2-236b FULL widths, {DS_LAYERS} layers, on card: "
+        f"count_params {count_params(params)} "
+        f"({count_params(params) / 1e9:.2f}B; MLA block "
+        f"{part(lp0['attn']) / 1e6:.1f}M, dense SwiGLU "
+        f"{part(lp0['ffn']) / 1e6:.1f}M, one MoE FFN "
+        f"{part(lp1['ffn']) / 1e9:.3f}B of which routed experts "
+        f"{part(experts) / 1e9:.3f}B and shared "
+        f"{part(lp1['ffn']['shared']) / 1e6:.1f}M; embed and lm_head "
+        f"{params['embed'].numel() / 1e6:.1f}M each), "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB, "
+        f"{time.perf_counter() - t0:.1f}s")
+    return cfg, params
+
+
+def int8_one_layer_check(cfg, params, kernels, label):
+    """The int8 latent cache's kernel-vs-dense check at one layer, as
+    phase 10 makes it for GQA: ``ServeScheduler`` over phase 10's first 6
+    requests on paged int8 latent KV in fp32 at FULL widths, kernel path
+    against dense path. With one layer the codes the two paths write
+    depend on the embeddings alone and are shown equal; the scores differ
+    in summation order only, within SCHED32_TOL. Returns the max diff."""
+    from repro_torch.serve.cache import kv_keys
+    reqs = sched_stream(cfg, N_REQ_SHORT)
+    c1 = dataclasses.replace(cfg, n_layers=1, param_dtype="float32",
+                             compute_dtype="float32")
+    p1 = _layers(params, 1, torch.float32)
+    got, caches = {}, {}
+    for impl in ("cuda", "dense"):
+        res = run_sched(c1, p1, reqs, kernels, kv_dtype="int8", paged=True,
+                        attn_impl=impl, label=f"{label} int8 {impl}, 1 layer")
+        if res["finished"] != len(reqs):
+            fail(f"{label} int8 {impl}: {res['finished']} requests finished")
+        if impl == "cuda":
+            check_sched_run(res, c1, decode_kernel(c1, "int8"),
+                            f"{label} int8 cuda")
+        got[impl], caches[impl] = res["scores"], res["sched"].cache
+    for key in kv_keys(caches["cuda"]):
+        if not torch.equal(caches["cuda"][key], caches["dense"][key]):
+            fail(f"{label}: the 1-layer int8 latent caches differ in {key}")
+    err = float(np.abs(got["cuda"] - got["dense"]).max())
+    log(f"  {label}: int8 latent KV, 1 layer, fp32, kernel path vs dense "
+        f"path: max|diff| {err:.3e} (tol {SCHED32_TOL:g}) over "
+        f"{got['cuda'].size} scores; the caches' codes and scales equal")
+    if not err <= SCHED32_TOL:
+        fail(f"{label}: int8 latent KV at 1 layer, kernel path differs from "
+             f"dense by {err}")
+    del caches
+    return err
+
+
+def phase_deepseek(kernels):
+    """Phase 18: deepseek-v2-236b at FULL widths over its dense first
+    layer and two MoE layers, bf16, on the kernels. The counts are set to
+    0 before its main path and read after it: at the no-drop capacity
+    factor (n_experts / top_k), phases 3 and 4 on it (``CTRServer.score``
+    in calls of 2 prompts, kernel 1 at Dqk 192 / Dv 128 once per layer a
+    call; the chunked context, the 6-candidate burst held to
+    per-candidate prefill, ring steps, kernel 4's MLA mode at 576 / 512
+    once per layer a step) and the same decode path on int8 latent KV
+    (``decode_attn_mla_576_q8``); no plain call, no dropped choice. Then
+    ``ServeScheduler`` over 8 requests on paged bf16 latent KV, its
+    launches added, held to the naive oracle (calls of 4 prompts of 1,024
+    tokens). Off the main path: the prefill held to the blocked path (the
+    config's default), both decode runs to the dense plain decode, int8
+    to bf16 KV, a paged step to a contiguous one bit for bit (bf16 and
+    int8); then at the config's capacity factor 1.25 the timed prefill
+    call (B=8, S=2048) and decode burst step, their drops and profiles,
+    peak memory; then 18b, the dense first layer alone in fp32. Returns
+    the launches, times, errors and checks; frees its weights."""
+    from repro_torch.serve.engine import CTRServer, make_decode_fn
+    log("phase 18: deepseek-v2-236b (MLA + MoE) FULL widths, "
+        f"{DS_LAYERS} layers, bf16, attn_impl cuda")
+    cfg, params = build_deepseek_model()
+    users, prompts = serving_material(cfg)
+    nd = no_drop(cfg)
+    log(f"  serving logic checks at capacity factor {nd.capacity_factor:g} "
+        f"(n_experts / top_k: no choice can drop), prefill calls of "
+        f"{DS_PER_CALL} prompts")
+    torch.cuda.reset_peak_memory_stats()
+    routing, plain = _MoeRouting(), serve_plain_calls()
+    kernels.reset_launches()
+    try:
+        server, p_prefill = phase_prefill(nd, params, prompts, kernels,
+                                          per_call=DS_PER_CALL)
+        run = phase_decode(nd, params, users, server, p_prefill, kernels)
+        run8 = drive_decode(nd, params, users, kernels, kv_dtype="int8")
+    finally:
+        plain.close()
+        routing.close()
+    launches = dict(kernels.LAUNCHES)
+    want = {k: 0 for k in kernels.KERNELS}
+    want.update(windowed_attn_192=cfg.n_layers * server.calls,
+                decode_attn_mla_576=cfg.n_layers * run["n_steps"],
+                decode_attn_mla_576_q8=cfg.n_layers * run8["n_steps"])
+    dropped, choices = routing.dropped()
+    log(f"  deepseek serving path launches {launches}: kernel 1 in "
+        f"{server.calls} prefill calls, kernel 4's MLA mode in "
+        f"{run['n_steps']} bf16 and {run8['n_steps']} int8 decode steps; "
+        f"plain attention calls {plain.n}; dropped choices {dropped} of "
+        f"{choices}")
+    if launches != want:
+        fail(f"deepseek serving path launches {launches}, want {want}")
+    if plain.n:
+        fail(f"the plain attention ran {plain.n} times on the deepseek path")
+    if dropped:
+        fail(f"{dropped} choices dropped at capacity factor "
+             f"{nd.capacity_factor}")
+    del routing
+
+    errs = {}
+    dense = dataclasses.replace(nd, attn_impl="dense")
+    for name, a, b in (
+            ("bf16 decode vs dense plain decode", run["valid_p"],
+             drive_decode(dense, params, users, kernels)["valid_p"]),
+            ("int8 decode vs dense plain decode", run8["valid_p"],
+             drive_decode(dense, params, users, kernels,
+                          kv_dtype="int8")["valid_p"]),
+            ("int8 vs bf16 KV, burst and ring",
+             np.concatenate([run8["burst"].ravel(), run8["ring"]]),
+             np.concatenate([run["burst"].ravel(), run["ring"]]))):
+        errs[name] = float(np.abs(a - b).max())
+    blocked = ChunkedServer(CTRServer(params, dataclasses.replace(
+        nd, attn_impl="blocked"), max_len=MAX_LEN), DS_PER_CALL)
+    errs["prefill vs blocked"] = float(np.abs(
+        np.asarray(blocked.score(prompts)) - p_prefill).max())
+    del blocked, run8
+    log(f"  bf16 max|diff|: {errs} (tol {P_TOL}: both sides round to bf16 "
+        f"at other places)")
+    for name, err in errs.items():
+        if not err <= P_TOL:
+            fail(f"phase 18 {name}: {err} > {P_TOL}")
+    for kv in (None, "int8"):
+        n = step_paged_vs_contiguous(nd, params, kv)
+        log(f"  one step on a paged cache (pages out of order) == the same "
+            f"step on a contiguous cache, {kv or 'bf16'} latent KV: {n} "
+            f"values equal bit for bit")
+
+    reqs = sched_stream(cfg, DS_REQ)
+    label = "18 scheduler, paged bf16 latent KV, no-drop"
+    res = run_sched(nd, params, reqs, kernels, kv_dtype=None, paged=True,
+                    label=label)
+    res.pop("sched")
+    check_sched_run(res, nd, "decode_attn_mla_576", label)
+    for name, n in res["launches"].items():
+        launches[name] += n
+    oracle, max_len = sched_oracle(nd, params, reqs[:N_ORACLE], per_call=4)
+    errs["scheduler vs oracle"] = err = float(np.abs(
+        res["scores"][:N_ORACLE] - oracle).max())
+    log(f"  scheduler vs naive oracle: max|diff| {err:.3e} (tol "
+        f"{SCHED_TOL}; {oracle.size} sliding-window prompts of max_len "
+        f"{max_len}, 4 a call)")
+    if not err <= SCHED_TOL:
+        fail(f"phase 18 scheduler differs from the oracle by {err}")
+    tel = res["tel"]
+    times = dict(sched=(res["wall"] * 1e3 / tel["steps"],
+                        res["candidates"] / res["wall"]))
+    del res
+    torch.cuda.empty_cache()
+
+    server = CTRServer(params, cfg, max_len=MAX_LEN)
+    decode = make_decode_fn(cfg, window=cfg.window, ring=False)
+    burst = lambda: decode(params, run["cache"], *run["burst_args"])
+    times.update(prefill_ms=cuda_ms(lambda: server.score(prompts), iters=3,
+                                    warmup=1),
+                 decode_ms=cuda_ms(burst, iters=5, warmup=1))
+    times["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    card = card_line()
+    log(f"  deepseek-v2-236b ({DS_LAYERS} layers) at capacity factor "
+        f"{cfg.capacity_factor}: prefill call B=8 S=2048 "
+        f"{times['prefill_ms']:.2f} ms; decode burst step B=8 s=64 "
+        f"cap=2048 {times['decode_ms']:.2f} ms; scheduler (no-drop) "
+        f"{times['sched'][0]:.2f} ms per step, {times['sched'][1]:.1f} "
+        f"candidates/s; peak memory {times['peak_gib']:.2f} GiB ({card})")
+    routing = _MoeRouting()
+    try:
+        server.score(prompts)
+        n_pre = routing.dropped()
+        burst()
+    finally:
+        routing.close()
+    d_all = routing.dropped()
+    times["drops"] = dict(prefill=n_pre, burst=(d_all[0] - n_pre[0],
+                                                d_all[1] - n_pre[1]))
+    log(f"  dropped (token, expert) choices at capacity factor "
+        f"{cfg.capacity_factor}: prefill call {n_pre[0]} of {n_pre[1]}, "
+        f"burst step {times['drops']['burst'][0]} of "
+        f"{times['drops']['burst'][1]}")
+    times["decode_busy_ms"] = profile_call(
+        burst, f"deepseek-v2-236b decode burst step B=8 s=64 cap=2048 "
+        f"{DS_LAYERS} layers")
+    times["prefill_busy_ms"] = profile_call(
+        lambda: server.score(prompts),
+        f"deepseek-v2-236b prefill call B=8 S=2048 {DS_LAYERS} layers")
+    del run, server, burst, decode
+    torch.cuda.empty_cache()
+    checks = phase_deepseek32(cfg, params, users, prompts, kernels)
+    del params
+    torch.cuda.empty_cache()
+    return dict(launches=launches, times=times, errs=errs, checks=checks)
+
+
+def phase_deepseek32(cfg, params, users, prompts, kernels):
+    """18b: the dense first layer alone (its MLA block at full width and
+    its SwiGLU, with the embedding and head: ~5.5 GB) in fp32, the kernel
+    path against the dense path: prefill (kernel 1 at Dqk 192) and every
+    decode step of phase 4's path (kernel 4 at 576 / 512) within
+    SCHED32_TOL; then the int8 latent cache's one-layer check."""
+    log("phase 18b: deepseek-v2-236b's dense first layer, FULL widths, "
+        "fp32: kernel path vs dense path")
+    c32 = dataclasses.replace(cfg, n_layers=1, param_dtype="float32",
+                              compute_dtype="float32")
+    p32 = _layers(params, 1, torch.float32)
+    out = {"prefill": float(np.abs(_score(c32, p32, prompts, "cuda")
+                                   - _score(c32, p32, prompts, "dense",
+                                            batch=2)).max())}
+    dec = drive_decode(c32, p32, users, kernels)["valid_p"]
+    dec_dense = drive_decode(dataclasses.replace(c32, attn_impl="dense"),
+                             p32, users, kernels)["valid_p"]
+    out["decode"] = float(np.abs(dec - dec_dense).max())
+    del p32
+    torch.cuda.empty_cache()
+    for name, err in out.items():
+        log(f"  fp32 {name}: max|p_cuda - p_dense| {err:.3e} (tol "
+            f"{SCHED32_TOL:g})")
+        if not err <= SCHED32_TOL:
+            fail(f"phase 18b {name}: kernel path differs from dense by {err}")
+    out["int8 1 layer"] = int8_one_layer_check(cfg, params, kernels, "18b")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 2h: the wide geometries of kernels 1 and 4 (deepseek-v2-236b)
+# ---------------------------------------------------------------------------
+
+DS_HEADS = dict(H=128, Hk=128, D=192, Dv=128)   # deepseek-v2's prefill heads
+DS_LATENT = dict(H=128, r=512, dr=64)           # its absorbed decode
+
+
+def _rows(t, i, n, f32):
+    """Batch rows [i, i + n) of a tensor operand of two or more dims (all
+    batch-major here; one-dim ones, the ALiBi slopes, are shared), in
+    fp32 where it is floating point and ``f32``."""
+    if not torch.is_tensor(t):
+        return t
+    if t.dim() >= 2:
+        t = t[i:i + n]
+    return t.float() if f32 and t.is_floating_point() else t
+
+
+def row_slices(args, kw, n=1, f32=True):
+    """``(args, kw)`` of each slice of ``n`` batch rows (in fp32 with
+    ``f32``): the plain versions' (B, H, S, S) score planes of a whole
+    batch at 128 heads would take tens of GB."""
+    B = args[0].shape[0]
+    return [([_rows(t, i, n, f32) for t in args],
+             {k: _rows(v, i, n, f32) for k, v in kw.items()})
+            for i in range(0, B, n)]
+
+
+def plain_by_rows(fn, args, kw, n=1):
+    """``fn`` over ``row_slices``, its outputs concatenated along the
+    batch."""
+    outs = [fn(*a, **k) for a, k in row_slices(args, kw, n)]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat(x) for x in zip(*outs))
+    return torch.cat(outs)
+
+
+def real_windowed_192(gen):
+    """Kernel 1 at deepseek-v2's prefill shape: B=8, S=2048, 128 heads
+    (n_rep 1), Dqk 192 (nope 128 + rope 64), Dv 128, window 1024, NoPE +
+    SUM isolation on, a [SUM] every ~200 tokens."""
+    o = windowed_operands(gen, B=8, S=2048, **DS_HEADS, dtype=torch.bfloat16,
+                          sum_every=197)
+    kw = windowed_kwargs(o, window=1024, nope=True, reset=False,
+                         packed=False, sum_iso=True)
+    return o, kw
+
+
+def check_kernels_wide():
+    """Kernels 1 and 4 at the wide geometries deepseek-v2 brings, each
+    under its own launch key. Kernel 1's Dqk-192 class
+    (``windowed_attn_192``) over phase 2a's flags at Dqk 192 and 136, in
+    fp32 within SMALL_TOL and on bf16 inputs per row, then at deepseek-v2's
+    prefill shape (``real_windowed_192``) in bf16 against the fp32 plain
+    version (a batch row at a time), twice (the same bits). Kernel 4's MLA
+    mode at a latent of up to 512 and a rope span of up to 64
+    (``decode_attn_mla_576``, ``decode_attn_mla_576_q8``) over phase 2g's
+    flags at r 512 / dr 64, r 300 / dr 40 (a second value chunk of 44
+    columns), r 264 / dr 48 and, on int8 codes, r 392 / dr 56 (codes
+    converted from memory), in fp32 within SMALL_TOL and on bf16 inputs
+    per row, then at deepseek-v2's decode shape (B=8, cap=2048, s=64, 128
+    heads on one latent key, r 512, dr 64) in bf16 and on int8 codes
+    (keys up to position 2047) per row, each twice. Returns the errors
+    at the real shapes."""
+    from repro_torch import kernels
+    from repro_torch.kernels.decode_attn import (decode_attention_mla,
+                                                 decode_attention_mla_plain)
+    from repro_torch.kernels.windowed_attn import (windowed_attention,
+                                                   windowed_attention_plain)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(18)
+    before = dict(kernels.LAUNCHES)
+    log("phase 2h: windowed_attn_192 (kernel 1's Dqk-192 class) vs plain, "
+        "fp32 and bf16 inputs, small shapes")
+    cases = [  # window, nope, reset, packed, sum_iso, Hk, D, Dv, S, empty
+        (48, True, False, False, True, 8, 192, 128, 256, True),
+        (100, False, True, True, True, 2, 192, 128, 200, False),
+        (300, True, True, True, False, 1, 192, 64, 190, True),
+        (64, True, False, True, True, 2, 136, 96, 190, False),
+    ]
+    n_win = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for window, nope, reset, packed, sum_iso, hk, d, dv, S, empty in cases:
+            o = windowed_operands(gen, B=2, S=S, H=8, Hk=hk, D=d, Dv=dv,
+                                  dtype=dtype, packed=packed, empty_row=empty)
+            kw = windowed_kwargs(o, window=window, nope=nope, reset=reset,
+                                 packed=packed, sum_iso=sum_iso)
+            got, lse = windowed_attention(o["q"], o["k"], o["v"],
+                                          return_lse=True, **kw)
+            torch.cuda.synchronize()
+            args, kw32 = _f32(o["q"], o["k"], o["v"], **kw)
+            want, lse_w = windowed_attention_plain(*args, **kw32)
+            tag = (f"{'fp32' if dtype == torch.float32 else 'bf16'} "
+                   f"w={window} nope={nope} reset={reset} seg={packed} "
+                   f"iso={sum_iso} n_rep={8 // hk} D={d} Dv={dv} S={S} "
+                   f"empty={empty}")
+            if dtype == torch.float32:
+                check_close(f"o   [{tag}]", got, want, SMALL_TOL)
+                check_close(f"lse [{tag}]", lse, lse_w, SMALL_TOL)
+            else:
+                check_rows(f"o   [{tag}]", got, want)
+                check_close(f"lse [{tag}]", lse, lse_w, LSE_TOL)
+            if empty and not (got[-1] == 0).all():
+                fail("empty row did not give 0 (Dqk-192 class)")
+            n_win += 1
+
+    log("phase 2h: deepseek-v2's prefill shape, bf16 kernel vs the fp32 "
+        "plain version (a batch row at a time)")
+    errs = {}
+    o, kw = real_windowed_192(gen)
+    run = lambda: windowed_attention(o["q"], o["k"], o["v"],
+                                     return_lse=True, **kw)
+    got, lse = run()
+    torch.cuda.synchronize()
+    want, lse_w = plain_by_rows(windowed_attention_plain,
+                                (o["q"], o["k"], o["v"]), kw)
+    errs["windowed_attn_192"] = check_rows(
+        "windowed_attn_192 o   B8 S2048 H128 Dqk192 Dv128 w1024", got, want)
+    check_close("windowed_attn_192 lse", lse, lse_w, LSE_TOL)
+    del got, lse, want, lse_w
+    check_same_bits("windowed_attn_192 at deepseek-v2's prefill shape",
+                    lambda: run()[0])
+    n_win += 3
+    del o, kw, run
+
+    log("phase 2h: decode_attn_mla_576 (kernel 4's MLA mode, latent 512, "
+        "rope span 64) vs plain, fp32, small shapes")
+    cases = [  # window, nope, seg, r, dr, s, cap, skip, n_seg, int8 base
+        (0, False, False, 512, 64, 5, 200, False, 0, None),
+        (40, True, True, 512, 64, 12, 200, True, 3, None),
+        (0, True, True, 300, 40, 70, 300, False, 5, None),   # 9 row blocks
+        (30, True, False, 264, 48, 5, 190, False, 0, None),
+        (0, True, True, 512, 64, 12, 200, False, 3, 1800),
+        (20, False, False, 512, 64, 5, 100, True, 0, 0),
+        (30, True, True, 392, 56, 12, 190, False, 4, 1500),  # codes from memory
+    ]
+    n_bf, n_q8 = 0, 0
+    for (window, nope, seg, r, dr, s, cap, skip, n_seg, base) in cases:
+        o = latent_operands(gen, B=3, s=s, H=8, r=r, dr=dr, cap=cap,
+                            dtype=torch.float32, fills=(120, 150, 0),
+                            skip_block=skip, n_seg=n_seg)
+        q8 = None
+        if base is not None:
+            o["pos_k"] = torch.where(o["pos_k"] >= 0, o["pos_k"] + base, -1)
+            o["pos_q"] = o["pos_q"] + base
+            q8 = quantize_latent(o, gen)
+        kw = mla_kwargs(o, window=window, nope=nope, seg=seg, q8=q8)
+        got = decode_attention_mla(*mla_args(o, q8), **kw)
+        torch.cuda.synchronize()
+        want = decode_attention_mla_plain(*mla_args(o, q8), **kw)
+        tag = (f"w={window} nope={nope} seg={seg} r={r} dr={dr} s={s} "
+               f"cap={cap} skip={skip}"
+               + ("" if q8 is None else f" int8 pos<{int(o['pos_k'].max()) + 1}"))
+        check_close(f"o [{tag}]", got, want, SMALL_TOL)
+        if not (got[2] == 0).all():
+            fail("empty cache row did not give 0 (MLA mode, latent 512)")
+        n_q8 += q8 is not None
+        n_bf += q8 is None
+    log("phase 2h: bf16 inputs (and int8 codes), small shapes, per row")
+    for r, dr, quant in ((512, 64, False), (300, 40, False), (512, 64, True),
+                         (392, 56, True)):
+        o = latent_operands(gen, B=3, s=12, H=8, r=r, dr=dr, cap=200,
+                            dtype=torch.bfloat16, fills=(120, 150, 0),
+                            n_seg=3)
+        q8 = quantize_latent(o, gen) if quant else None
+        kw = mla_kwargs(o, window=40, nope=True, seg=True, q8=q8)
+        got = decode_attention_mla(*mla_args(o, q8), **kw)
+        torch.cuda.synchronize()
+        args, kw32 = _f32(*mla_args(o, q8), **kw)
+        check_rows(f"o [bf16 r={r} dr={dr}{' int8' if quant else ''}]", got,
+                   decode_attention_mla_plain(*args, **kw32))
+        n_q8 += quant
+        n_bf += not quant
+
+    log("phase 2h: deepseek-v2's decode shape, bf16 kernel vs the fp32 "
+        "plain version")
+    for name, (o, q8, kw) in (
+            ("decode_attn_mla_576", (*real_mla(gen, **DS_LATENT)[:1], None,
+                                     None)),
+            ("decode_attn_mla_576_q8", real_mla_q8(gen, **DS_LATENT))):
+        if q8 is None:
+            kw = mla_kwargs(o, window=1024, nope=True, seg=True)
+        args = mla_args(o, q8)
+        got = decode_attention_mla(*args, **kw)
+        torch.cuda.synchronize()
+        a32, kw32 = _f32(*args, **kw)
+        errs[name] = check_rows(
+            f"{name} o B8 cap2048 s64 H128 r512 dr64 w1024"
+            + ("" if q8 is None else ", int8 latent and rope codes, keys at "
+               f"positions up to {int(o['pos_k'].max())}"),
+            got, decode_attention_mla_plain(*a32, **kw32))
+        del a32, kw32, got
+        check_same_bits(f"{name} at deepseek-v2's decode shape",
+                        lambda: decode_attention_mla(*args, **kw))
+        if q8 is None:
+            n_bf += 3
+        else:
+            n_q8 += 3
+    launched = {k: n - before[k] for k, n in kernels.LAUNCHES.items()
+                if n != before[k]}
+    want = {"windowed_attn_192": n_win, "decode_attn_mla_576": n_bf,
+            "decode_attn_mla_576_q8": n_q8}
+    if launched != want:
+        fail(f"phase 2h launched {launched}, want {want}")
+    return errs
+
+
+# ---------------------------------------------------------------------------
 # phase 2f: the embedding bag (kernel 5) against its plain version
 # ---------------------------------------------------------------------------
 
@@ -3347,18 +3886,32 @@ def time_kernels(real):
     the attended keys as ``_attended_bytes`` counts, the index operands,
     and writes o (and lse); FLOPs are 2 (D + Dv) per attended pair and
     head."""
+    out = {"windowed_attn": time_windowed(*real["windowed_attn"]["ops"])}
+    out["decode_attn"] = time_decode(*real["decode_attn"]["ops"])
+    return out
+
+
+def time_windowed(o, kw, rows=None):
+    """Kernel 1 on ``o`` beside its plain version and SDPA, the bound as
+    ``time_kernels`` counts it; with ``rows`` the plain version's time is
+    the sum of its calls on ``row_slices`` of that many batch rows (at 128
+    heads)."""
     import torch.nn.functional as F
     from repro_torch.core.windowed import dti_mask
     from repro_torch.kernels.windowed_attn import (windowed_attention,
                                                    windowed_attention_plain)
-    out = {}
-    o, kw = real["windowed_attn"]["ops"]
     B, S, H, D = o["q"].shape
     Hk, Dv, e = o["k"].shape[2], o["v"].shape[3], o["q"].element_size()
     ms = cuda_ms(lambda: windowed_attention(o["q"], o["k"], o["v"],
                                             return_lse=True, **kw))
-    plain = cuda_ms(lambda: windowed_attention_plain(o["q"], o["k"], o["v"],
-                                                     **kw), iters=3, warmup=1)
+    if rows is None:
+        plain = cuda_ms(lambda: windowed_attention_plain(
+            o["q"], o["k"], o["v"], **kw), iters=3, warmup=1)
+    else:
+        plain = sum(cuda_ms(lambda: windowed_attention_plain(*a, **k),
+                            iters=3, warmup=1)
+                    for a, k in row_slices((o["q"], o["k"], o["v"]), kw,
+                                           rows, f32=False))
     mask = dti_mask(o["pos"], o["pos"], window=1024, is_sum_k=o["is_sum"],
                     valid_k=o["valid"])
     kv_bytes, keys = _attended_bytes(mask, o["is_sum"], hk=Hk, d=D, dv=Dv,
@@ -3373,11 +3926,27 @@ def time_kernels(real):
                    o["v"].repeat_interleave(H // Hk, 2)))
     lib = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt,
                                                          attn_mask=mask))
-    out["windowed_attn"] = dict(ms=ms, plain_ms=plain, library_ms=lib,
-                                bytes=nbytes, flops=flops, keys=keys)
-    del mask, qt, kt, vt
+    backend = sdpa_backend(qt, kt, vt, mask)
+    return dict(ms=ms, plain_ms=plain, library_ms=lib, bytes=nbytes,
+                flops=flops, keys=keys, backend=backend)
 
-    out["decode_attn"] = time_decode(*real["decode_attn"]["ops"])
+
+def time_wide():
+    """Phase 6's rows for the wide geometries, on phase 2h's real shapes
+    made again from a seed: kernel 1's Dqk-192 class at deepseek-v2's
+    prefill shape, kernel 4's MLA mode at its decode shape in both
+    modes."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(19)
+    out = {"windowed_attn_192": time_windowed(*real_windowed_192(gen),
+                                              rows=1)}
+    o, kw = real_mla(gen, **DS_LATENT)
+    out["decode_attn_mla_576"] = time_mla(dict(ops=(o, None, kw)), False)
+    del o, kw
+    out["decode_attn_mla_576_q8"] = time_mla(
+        dict(ops=real_mla_q8(gen, **DS_LATENT)), True)
+    for name, r in out.items():
+        log(f"  {name}: SDPA picks {r.get('backend')} for these operands")
     return out
 
 
@@ -3628,7 +4197,7 @@ def time_mla_ranges(mla_k, n_split=3):
     from repro_torch.kernels import decode_attn as da
     plan = da.mla_split_plan
 
-    def cut(b, s, h, cap, n_sm, dv=da.MLA_MAX_V):
+    def cut(b, s, h, cap, n_sm, dv=256, dr=32):
         n_rb = -(-h * s // da.ROW_BLOCK)
         per, ns = da._ranges(-(-cap // da.KV_TILE), n_split)
         return da.SplitPlan(n_rb, ns, per * da.KV_TILE, b * n_rb * ns,
@@ -3781,8 +4350,9 @@ def profile_call(fn, label):
 
 def mla_ptxas(logs) -> str:
     """``-Xptxas -v``'s report for the MLA mode's instantiations
-    (``mla_kernel<T, NOPE, QUANT>`` in ``csrc/decode_attn.cu``): registers
-    and spill bytes of each, on one line."""
+    (``mla_kernel<MlaGeo<latent, rope span>, T, NOPE, QUANT>`` in
+    ``csrc/decode_attn.cu``): registers and spill bytes of each, on one
+    line."""
     text = logs.get("decode_attn")
     if text is None:
         return "not built in this run (the library was already built)"
@@ -3798,11 +4368,12 @@ def mla_ptxas(logs) -> str:
             spill = f"{m.group(1)}/{m.group(2)} B spill stores/loads"
             continue
         m = re.search(r"Used (\d+) registers", line)
-        t = re.search(r"mla_kernelI(f|13__nv_bfloat16)Lb([01])ELb([01])E",
-                      name or "")
+        t = re.search(r"mla_kernelINS_6MlaGeoILi(\d+)ELi(\d+)EEE"
+                      r"(f|13__nv_bfloat16)Lb([01])ELb([01])E", name or "")
         if m and t:
-            out.append(f"mla_kernel<{'fp32' if t.group(1) == 'f' else 'bf16'}"
-                       f", nope={t.group(2)}, int8={t.group(3)}>: "
+            out.append(f"mla_kernel<{t.group(1)}/{t.group(2)}, "
+                       f"{'fp32' if t.group(3) == 'f' else 'bf16'}"
+                       f", nope={t.group(4)}, int8={t.group(5)}>: "
                        f"{m.group(1)} registers, {spill}")
     return "; ".join(out) or "no MLA instantiation in the report"
 
@@ -3857,6 +4428,7 @@ def run_phases(kernels, graphs, t_start) -> int:
     bwd = check_kernels_bwd()
     q8res = check_kernels_q8()
     mla_k = check_kernels_mla()
+    wide = check_kernels_wide()
     bag = check_kernels_bag(kernels)
     recsys = phase_recsys(kernels)
     torch.cuda.empty_cache()
@@ -3864,6 +4436,8 @@ def run_phases(kernels, graphs, t_start) -> int:
     mla_train = phase_mla_train(kernels)
     moe = phase_moe(kernels)
     gqa = phase_gqa_archs(kernels)
+    torch.cuda.empty_cache()
+    ds = phase_deepseek(kernels)
     torch.cuda.empty_cache()
     gnn = phase_gnn(kernels, graphs)
     torch.cuda.empty_cache()
@@ -3878,7 +4452,9 @@ def run_phases(kernels, graphs, t_start) -> int:
             "windowed_attn_dq": 0, "windowed_attn_dkv": 0,
             "decode_attn": cfg.n_layers * run["n_steps"], "decode_attn_q8": 0,
             "decode_attn_mla": 0, "decode_attn_mla_q8": 0,
-            "embedding_bag": 0, "embedding_bag_q8": 0}
+            "embedding_bag": 0, "embedding_bag_q8": 0,
+            "windowed_attn_192": 0, "decode_attn_mla_576": 0,
+            "decode_attn_mla_576_q8": 0}
     log(f"  serving path launches {launches}: kernel 1 in "
         f"{1 + run['n_prefill_calls']} prefill calls, kernel 4 in "
         f"{run['n_steps']} decode steps")
@@ -3901,7 +4477,7 @@ def run_phases(kernels, graphs, t_start) -> int:
     sched32 = phase_sched32(cfg, params, kernels)
     torch.cuda.empty_cache()
     multi = phase_multi_target(cfg, params, kernels)
-    for res in (bag, mla, mla_train, moe, gqa, gnn, multi):
+    for res in (bag, mla, mla_train, moe, gqa, gnn, multi, ds):
         for name, n in res["launches"].items():
             launches[name] += n
 
@@ -3940,11 +4516,13 @@ def run_phases(kernels, graphs, t_start) -> int:
     time_decode_s16()
     time_mla_s16()
     time_mla_ranges(mla_k)
+    times.update(time_wide())
     times.update(bag["times"])
     prof = {kv: profile_sched(cfg, params, kv) for kv in (None, "int8")}
     errs = {name: r["err"] for name, r in {**real, **bwd}.items()}
     errs["decode_attn_q8"] = q8res["err"]
     errs.update({name: r["err"] for name, r in mla_k.items()})
+    errs.update(wide)
     errs.update(bag["errs"])
     for key, res in sched_runs.items():
         tel = res["tel"]
@@ -3975,7 +4553,13 @@ def run_phases(kernels, graphs, t_start) -> int:
            "embedding_bag": ("src/repro_torch/kernels/csrc/embedding_bag.cu",
                              "src/repro/kernels/embedding_bag/embedding_bag.py:29"),
            "embedding_bag_q8": ("src/repro_torch/kernels/csrc/embedding_bag.cu",
-                                "src/repro/kernels/embedding_bag/embedding_bag.py:29")}
+                                "src/repro/kernels/embedding_bag/embedding_bag.py:29"),
+           "windowed_attn_192": ("src/repro_torch/kernels/csrc/windowed_attn.cu",
+                                 "src/repro/kernels/windowed_attn/windowed_attn.py:79"),
+           "decode_attn_mla_576": ("src/repro_torch/kernels/csrc/decode_attn.cu",
+                                   "src/repro/kernels/decode_attn/decode_attn.py:317"),
+           "decode_attn_mla_576_q8": ("src/repro_torch/kernels/csrc/decode_attn.cu",
+                                      "src/repro/kernels/decode_attn/decode_attn.py:139")}
     rows = []
     for name in kernels.KERNELS:
         t = times[name]
@@ -4045,6 +4629,15 @@ def run_phases(kernels, graphs, t_start) -> int:
         f"peak {multi['ind_peak_gib']:.2f} GiB); bf16 drift multi-target / "
         f"independent {multi['drift']}; fp32 2 layers {multi['fp32']} "
         f"({card})")
+    dt = ds["times"]
+    log(f"  deepseek-v2-236b (MLA + MoE, {DS_LAYERS} layers at FULL "
+        f"widths): prefill {dt['prefill_ms']:.2f} ms (device busy "
+        f"{dt['prefill_busy_ms']:.2f} ms), decode burst step "
+        f"{dt['decode_ms']:.2f} ms (device busy {dt['decode_busy_ms']:.2f} "
+        f"ms), scheduler {dt['sched'][0]:.2f} ms/step "
+        f"{dt['sched'][1]:.1f} candidates/s, peak {dt['peak_gib']:.2f} GiB, "
+        f"drops at 1.25 {dt['drops']}; bf16 diffs {ds['errs']}; 18b "
+        f"{ds['checks']} ({card})")
     log("  GQA archs: " + "; ".join(
         f"{name} prefill {t['prefill_ms']:.2f} ms, decode burst step "
         f"{t['decode_ms']:.2f} ms, fp32 diffs {gqa['checks'][name]}"
@@ -4055,12 +4648,14 @@ def run_phases(kernels, graphs, t_start) -> int:
                     f"{r['retrieval_ms']:.2f} ms, peak {r['peak_gib']:.2f} GiB"
                     for a, r in recsys["full"].items()) + f" ({card})")
     from repro_torch.kernels.decode_attn import mla_ctas_per_sm
-    occ = {f"{'bf16' if bf else 'fp32'}{' int8' if q8 else ''}"
-           f"{' nope' if nope else ''}": mla_ctas_per_sm(bf, q8, nope, 64, 40)
+    occ = {f"{r}/{dr} {'bf16' if bf else 'fp32'}{' int8' if q8 else ''}"
+           f"{' nope' if nope else ''}": mla_ctas_per_sm(bf, q8, nope, 64, h,
+                                                         r, dr)
+           for h, r, dr in ((40, 256, 32), (128, 512, 64))
            for bf in (True, False) for q8 in (False, True)
            for nope in (False, True)}
     log(f"  MLA instantiations (-Xptxas -v): {mla_ptxas(logs)}; resident "
-        f"CTAs per SM at s=64, H=40: {occ}")
+        f"CTAs per SM at s=64 (H=40 at 256/32, H=128 at 512/64): {occ}")
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

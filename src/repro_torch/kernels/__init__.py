@@ -12,8 +12,9 @@ the CPU has no ``nvcc``.
 Tile sizes are fixed in each source (the reference's autotune tables are
 TPU VMEM heuristics and are re-derived for sm_90 in a later PR).
 
-``LAUNCHES`` counts, per kernel (entry point), the launches its wrapper
-made; a run
+``LAUNCHES`` counts, per kernel (entry point; the wide geometries of
+kernels 1 and 4, ``windowed_attn_192`` and ``decode_attn_mla_576``, under
+keys of their own), the launches its wrapper made; a run
 resets it with ``reset_launches`` to show which kernels a path went
 through. The plain-PyTorch versions never count.
 """
@@ -35,7 +36,9 @@ SOURCES = ("windowed_attn", "windowed_attn_bwd", "decode_attn",
            "embedding_bag")
 KERNELS = ("windowed_attn", "windowed_attn_dq", "windowed_attn_dkv",
            "decode_attn", "decode_attn_q8", "decode_attn_mla",
-           "decode_attn_mla_q8", "embedding_bag", "embedding_bag_q8")
+           "decode_attn_mla_q8", "embedding_bag", "embedding_bag_q8",
+           "windowed_attn_192", "decode_attn_mla_576",
+           "decode_attn_mla_576_q8")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

@@ -144,6 +144,22 @@
 // of this design (1.27x slower than wgmma); tile kt + 1's Q.K^T beside
 // tile kt's softmax (two sets of score registers: no faster, and int8
 // spilled); descriptors held across the loop (spills).
+//
+// Two geometries (`MlaGeo`, the kernel's first template parameter): the
+// narrow one above (a latent of up to 256, a rope span of up to 32:
+// minicpm3-4b's 288 / 256), and a wide one for deepseek-v2's 576 / 512 (a
+// latent of up to 512, a rope span of up to 64; `repro/serve/engine.py:
+// 354,383` calls the reference kernel at Dqk 576, Dv 512, int8 scale
+// groups split at 512). A 64 x 512 fp32 accumulator would be 256
+// registers a thread, so a CTA keeps the narrow one's 256 value columns
+// (`VW`), and the grid's fastest axis splits the latent's value columns
+// over `n_vc` CTAs (two), side by side so that they read the same latent
+// tiles from L2. Each computes its row block's scores over the whole
+// latent and rope span itself: 1.53x the needed products at 576 / 512,
+// and no exchange of P between CTAs or warpgroups (the design that
+// avoids the repeat, two warpgroups sharing P through shared memory, is
+// work for a redesign). Its Q planes (64 x 576) and three plane stages
+// of 32 slots (latent 512 wide) take ~200 KB: one CTA per SM.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -167,18 +183,28 @@ constexpr int LDK = DMAX + 8;      // the GQA planes' row stride: conflict-free
 // int8 mode, one copy stage: K codes (BK x DMAX bytes), V codes (BK x
 // DMAX), K scales (BK x 2) and V scales (BK), as cp.async leaves them
 constexpr int RAW_BYTES = BK * 2 * DMAX + 3 * BK * (int)sizeof(float);
-// The MLA mode: latent (value) width up to MLA_R, rope span up to MLA_DR
-constexpr int MLA_R = 256;
-constexpr int MLA_DR = 32;
-// Its planes hold 8 x 8 core matrices (8 rows of 16 bytes, 128 bytes
-// contiguous: what wgmma reads without a swizzle, and conflict-free for
-// ldmatrix), CL (CR) of them along a latent (rope span) row group
-constexpr int CL = MLA_R / 8;
-constexpr int CR = MLA_DR / 8;
-constexpr int NT_L = MLA_R / 8;            // value n-tiles
-// int8, one copy stage: latent codes (BK x MLA_R bytes), rope codes (BK x
-// MLA_DR), the two scales (BK each)
-constexpr int MLA_RAW = BK * (MLA_R + MLA_DR) + 2 * BK * (int)sizeof(float);
+// The MLA mode's geometries (`mla_kernel`'s instances): a latent (value)
+// width up to LAT and a rope span up to ROPE; a CTA owns VW value columns,
+// so a latent wider than VW takes NVC CTAs per row block (the grid's
+// value-column chunks), each computing the block's scores itself.
+template <int LAT_, int ROPE_>
+struct MlaGeo {
+  static constexpr int LAT = LAT_;
+  static constexpr int ROPE = ROPE_;
+  static constexpr int VW = 256;
+  static constexpr int NVC = (LAT + VW - 1) / VW;
+  // Its planes hold 8 x 8 core matrices (8 rows of 16 bytes, 128 bytes
+  // contiguous: what wgmma reads without a swizzle, and conflict-free for
+  // ldmatrix), CL (CR) of them along a latent (rope span) row group
+  static constexpr int CL = LAT / 8;
+  static constexpr int CR = ROPE / 8;
+  static constexpr int NT_L = VW / 8;      // value n-tiles of a CTA
+  // int8, one copy stage: latent codes (BK x LAT bytes), rope codes (BK x
+  // ROPE), the two scales (BK each)
+  static constexpr int RAW = BK * (LAT + ROPE) + 2 * BK * (int)sizeof(float);
+};
+using MlaNarrow = MlaGeo<256, 32>;   // minicpm3-4b (288 / 256)
+using MlaWide = MlaGeo<512, 64>;     // deepseek-v2 (576 / 512)
 constexpr unsigned FULL = 0xffffffffu;
 constexpr float LOG2E = 1.4426950408889634f;
 
@@ -492,7 +518,7 @@ struct MlaArgs {
   T* o;
   float *ws_acc, *ws_m, *ws_l;
   int B, s, H, cap, R, DR, window, use_seg;
-  int n_rb, n_split, span, direct;
+  int n_rb, n_split, span, n_vc, direct;
   float scale;
 };
 
@@ -1213,28 +1239,31 @@ decode_attn_kernel(const Args<T> a) {
 }
 
 // The MLA mode's shared memory: the Q planes (bf16 only: the latent span,
-// 64 x 256, and the rope span, 64 x 32), PS plane stages (latent 32 x 256
-// in NL terms, roped rope span 32 x 32 in NR terms, unroped one in NN
-// terms when NOPE), int8 copy stages, then the tile rings, the tile's two
-// scales, the RoPE freqs and the row tables
-template <typename T, bool NOPE, bool QUANT>
+// 64 x LAT, and the rope span, 64 x ROPE), PS plane stages (latent 32 x
+// LAT in NL terms, roped rope span 32 x ROPE in NR terms, unroped one in
+// NN terms when NOPE), int8 copy stages, then the tile rings, the tile's
+// two scales, the RoPE freqs and the row tables
+template <typename G, typename T, bool NOPE, bool QUANT>
 struct MlaSmem {
   using M = MlaMode<T, QUANT>;
-  static constexpr size_t Q_ELEMS = M::QPLANE ? (size_t)RB * (MLA_R + MLA_DR) : 0;
-  static constexpr size_t LAT = (size_t)M::NL * BK * MLA_R;
-  static constexpr size_t ROPE = (size_t)M::NR * BK * MLA_DR;
-  static constexpr size_t STAGE_ELEMS = LAT + ROPE + (NOPE ? (size_t)M::NN * BK * MLA_DR : 0);
-  static constexpr size_t RAW = QUANT ? (size_t)M::S * MLA_RAW : 0;
+  static constexpr size_t Q_ELEMS = M::QPLANE ? (size_t)RB * (G::LAT + G::ROPE) : 0;
+  static constexpr size_t LAT = (size_t)M::NL * BK * G::LAT;
+  static constexpr size_t ROPE = (size_t)M::NR * BK * G::ROPE;
+  static constexpr size_t STAGE_ELEMS = LAT + ROPE + (NOPE ? (size_t)M::NN * BK * G::ROPE : 0);
+  static constexpr size_t RAW = QUANT ? (size_t)M::S * G::RAW : 0;
   static constexpr size_t BYTES =
       (Q_ELEMS + M::PS * STAGE_ELEMS) * sizeof(bf16) + RAW +
-      (4 * M::S * BK + 2 * BK + MLA_DR / 2 + TAB_INTS) * sizeof(int);
+      (4 * M::S * BK + 2 * BK + G::ROPE / 2 + TAB_INTS) * sizeof(int);
 };
 
-template <typename T, bool NOPE, bool QUANT>
+template <typename G, typename T, bool NOPE, bool QUANT>
 __global__ void __launch_bounds__(THREADS, 2)
 mla_kernel(const MlaArgs<T> a) {
   using M = MlaMode<T, QUANT>;
-  using L = MlaSmem<T, NOPE, QUANT>;
+  using L = MlaSmem<G, T, NOPE, QUANT>;
+  // this instance's geometry
+  constexpr int MLA_R = G::LAT, MLA_DR = G::ROPE, MLA_RAW = G::RAW;
+  constexpr int CL = G::CL, CR = G::CR, NT_L = G::NT_L, VW = G::VW;
   constexpr int NQ = M::NQ, NL = M::NL, NR = M::NR, NN = M::NN, NP = M::NP;
   constexpr int S = M::S, PS = M::PS, MS = 2 * S, NG = M::NG;
   constexpr int TL = NQ > NL ? NQ : NL;      // term pairs i + j < T*
@@ -1265,9 +1294,14 @@ mla_kernel(const MlaArgs<T> a) {
   auto raw_cs = [&](int st) { return reinterpret_cast<float*>(raw_rope(st) + BK * MLA_DR); };
   auto raw_ps = [&](int st) { return raw_cs(st) + BK; };
 
-  // blockIdx.x: row block, then cache range; blockIdx.y: batch row
-  const int rb = blockIdx.x % a.n_rb, split = blockIdx.x / a.n_rb, b = blockIdx.y;
+  // blockIdx.x: value-column chunk (a geometry wider than VW only), then
+  // row block, then cache range; blockIdx.y: batch row
+  const int vch = G::NVC > 1 ? (int)blockIdx.x % a.n_vc : 0;
+  const int bx = G::NVC > 1 ? (int)blockIdx.x / a.n_vc : (int)blockIdx.x;
+  const int rb = bx % a.n_rb, split = bx / a.n_rb, b = blockIdx.y;
   const int n_rep = a.H, s = a.s, cap = a.cap, R = a.R, DR = a.DR, D = R + DR;
+  // this CTA's value columns [vc0, vc0 + RV) of the R
+  const int vc0 = vch * VW, RV = min(VW, R - vc0), RVP = (RV + 15) & ~15;
   const int r0 = rb * RB, nr = min(RB, n_rep * s - r0);
   const int kv0 = split * a.span, kv1 = min(cap, kv0 + a.span);
   const int n_t = kv1 > kv0 ? (kv1 - kv0 + BK - 1) / BK : 0;
@@ -1347,31 +1381,34 @@ mla_kernel(const MlaArgs<T> a) {
   // read. bf16: slot `cslot`'s latent row, 16-byte chunks cch + 4 i, into
   // the latent plane of stage kt % S, its rope spans (chunk cch) into
   // theirs, kpe_rope only for ordinary rows and kpe only for [SUM] rows.
-  // int8: latent codes (chunk tid % 16 of slots tid / 16 + 8 i), rope
-  // codes and the two scales into copy stage kt % S.
+  // int8: latent codes (chunk tid % LC of slots tid / LC + SR i, LC the
+  // slot's 16-code chunks, SR the slots a round covers), rope codes (RC
+  // chunks a slot, thread tid: chunk tid % RC of slot tid / RC) and the
+  // two scales (chunks 0 and 1's threads) into copy stage kt % S.
   auto issue = [&](int kt) {
     const int st = kt % S, k0 = t0(kt);
     auto row_of = [&](int c, bool ok) { return (size_t)b * cap + (ok ? k0 + c : 0); };
     if constexpr (QUANT) {
-      const int ch = tid & 15, c0 = tid >> 4;
+      constexpr int LC = MLA_R / 16, SR = THREADS / LC, RC = MLA_DR / 16;
+      const int ch = tid % LC, c0 = tid / LC;
       if (ch < R / 16) {
 #pragma unroll
-        for (int i = 0; i < BK / 8; ++i) {
-          const int c = c0 + 8 * i;
+        for (int i = 0; i < BK / SR; ++i) {
+          const int c = c0 + SR * i;
           const bool ok = pk_at(kt, c) >= 0;
           cp16(raw_lat(st) + c * MLA_R + (ch ^ (c & 7)) * 16,
                a.ckq + row_of(c, ok) * R + ch * 16, ok);
         }
       }
-      if (tid < 2 * BK) {
-        const int c = tid >> 1, rc = tid & 1;
+      if (tid < RC * BK) {
+        const int c = tid / RC, rc = tid % RC;
         const bool ok = pk_at(kt, c) >= 0;
         if (rc < DR / 16)
           cp16(raw_rope(st) + c * MLA_DR + rc * 16, a.kpq + row_of(c, ok) * DR + rc * 16, ok);
         const size_t sl = row_of(c, ok);
         if (rc == 0)
           cp4(raw_cs(st) + c, a.cks + sl, ok);
-        else
+        else if (RC == 2 || rc == 1)
           cp4(raw_ps(st) + c, a.kps + sl, ok);
       }
     } else {
@@ -1387,11 +1424,15 @@ mla_kernel(const MlaArgs<T> a) {
         if (ch < R / 8)
           cp16(lat_pl(st, 0) + cm(c, ch * 8, CL), ckv + row * R + ch * 8, ok);
       }
-      if (cch < DR / 8) {
-        if (any_plain)
-          cp16(rope_pl(st, 0) + cm(c, cch * 8, CR), kpr + row * DR + cch * 8, ok);
-        if (NOPE && any_sum)
-          cp16(nope_pl(st, 0) + cm(c, cch * 8, CR), kpe + row * DR + cch * 8, ok);
+#pragma unroll
+      for (int i = 0; i < (CR + 3) / 4; ++i) {
+        const int ch = cch + 4 * i;
+        if (ch < DR / 8) {
+          if (any_plain)
+            cp16(rope_pl(st, 0) + cm(c, ch * 8, CR), kpr + row * DR + ch * 8, ok);
+          if (NOPE && any_sum)
+            cp16(nope_pl(st, 0) + cm(c, ch * 8, CR), kpe + row * DR + ch * 8, ok);
+        }
       }
     }
   };
@@ -1721,14 +1762,16 @@ mla_kernel(const MlaArgs<T> a) {
         }
       }
     if constexpr (M::QPLANE) {
-      // P.V from the latent plane, read transposed: 16 slots a k-step
-      // (core matrices CL * 128 bytes apart along K, 128 along N)
+      // P.V from the latent plane's columns [vc0, vc0 + VW), read
+      // transposed: 16 slots a k-step (core matrices CL * 128 bytes apart
+      // along K, 128 along N)
       wg_fence();
 #pragma unroll
       for (int kk = 0; kk < KK; ++kk)
 #pragma unroll
         for (int t = 0; t < NP; ++t)
-          wg_pv(acc, pa[t][kk], gdesc(lat_pl(st, 0) + kk * 2 * CL * 64, CL * 128, 128));
+          wg_pv(acc, pa[t][kk],
+                gdesc(lat_pl(st, 0) + kk * 2 * CL * 64 + cm(0, vc0, CL), CL * 128, 128));
       wg_commit();
       wg_wait0();
       hold(acc);
@@ -1738,15 +1781,15 @@ mla_kernel(const MlaArgs<T> a) {
       for (int kk = 0; kk < KK; ++kk)
 #pragma unroll
         for (int n4 = 0; n4 < NT_L / (2 * NG); ++n4) {
-          if (n4 * NG * 16 < RP) {
+          if (n4 * NG * 16 < RVP) {
             uint32_t bv[NL][NG][4];
 #pragma unroll
             for (int tv = 0; tv < NL; ++tv)
 #pragma unroll
               for (int u = 0; u < NG; ++u)
-                if ((n4 * NG + u) * 16 < RP)
-                  ldsm_x4_t(bv[tv][u],
-                            lat_pl(st, tv) + cm(kk * 16 + vn, (n4 * NG + u) * 16 + vc, CL));
+                if ((n4 * NG + u) * 16 < RVP)
+                  ldsm_x4_t(bv[tv][u], lat_pl(st, tv) + cm(kk * 16 + vn,
+                                                           vc0 + (n4 * NG + u) * 16 + vc, CL));
 #pragma unroll
             for (int tv = 0; tv < NL; ++tv)
 #pragma unroll
@@ -1754,7 +1797,7 @@ mla_kernel(const MlaArgs<T> a) {
                 if (tp + tv < TPV) {
 #pragma unroll
                   for (int u = 0; u < NG; ++u)
-                    if ((n4 * NG + u) * 16 < RP) {
+                    if ((n4 * NG + u) * 16 < RVP) {
                       const int np = n4 * NG + u;
                       mma(acc[2 * np], pa[tp][kk], bv[tv][u][0], bv[tv][u][1]);
                       mma(acc[2 * np + 1], pa[tp][kk], bv[tv][u][2], bv[tv][u][3]);
@@ -1855,15 +1898,17 @@ mla_kernel(const MlaArgs<T> a) {
 #pragma unroll
     for (int j = 0; j < NT_L; ++j) {
       const int col = j * 8 + 2 * cq;
-      if (col >= R) continue;
-      const bool two = col + 1 < R;
+      if (col >= RV) continue;
+      const bool two = col + 1 < RV;
       if (a.n_split == 1)
-        store2(a.o + row * R + col, acc[j][2 * h] * inv, acc[j][2 * h + 1] * inv, two, vec);
+        store2(a.o + row * R + vc0 + col, acc[j][2 * h] * inv, acc[j][2 * h + 1] * inv, two,
+               vec);
       else
-        store2(a.ws_acc + ((size_t)split * rows + row) * R + col, acc[j][2 * h],
+        store2(a.ws_acc + ((size_t)split * rows + row) * R + vc0 + col, acc[j][2 * h],
                acc[j][2 * h + 1], two, vec);
     }
-    if (a.n_split > 1 && cq == 0) {
+    // every value-column chunk holds the same m and l: the first writes them
+    if (a.n_split > 1 && cq == 0 && vch == 0) {
       a.ws_m[(size_t)split * rows + row] = m[h];
       a.ws_l[(size_t)split * rows + row] = l[h];
     }
@@ -1919,16 +1964,16 @@ int launch(const Args<T>& a, cudaStream_t stream) {
 
 // The MLA mode: `smem` is the bytes `mla_smem_bytes` in decode_attn.py
 // computes; a launch whose count differs from the kernel's own is refused.
-template <typename T, bool NOPE, bool QUANT>
+template <typename G, typename T, bool NOPE, bool QUANT>
 size_t mla_smem(int s, int H) {
-  return MlaSmem<T, NOPE, QUANT>::BYTES + (3 * (size_t)s + H) * 4;
+  return MlaSmem<G, T, NOPE, QUANT>::BYTES + (3 * (size_t)s + H) * 4;
 }
 
 // the kernel's shared memory, with the carveout that lets two CTAs share
-// an SM
-template <typename T, bool NOPE, bool QUANT>
+// an SM (the narrow geometry's)
+template <typename G, typename T, bool NOPE, bool QUANT>
 cudaError_t mla_attrs(size_t smem) {
-  auto kern = mla_kernel<T, NOPE, QUANT>;
+  auto kern = mla_kernel<G, T, NOPE, QUANT>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
@@ -1936,14 +1981,15 @@ cudaError_t mla_attrs(size_t smem) {
                               (int)cudaSharedmemCarveoutMaxShared);
 }
 
-template <typename T, bool NOPE, bool QUANT>
-int mla_launch(const MlaArgs<T>& a, int want_smem, cudaStream_t stream) {
-  const size_t smem = mla_smem<T, NOPE, QUANT>(a.s, a.H);
+template <typename G, typename T, bool NOPE, bool QUANT>
+int mla_launch(MlaArgs<T> a, int want_smem, cudaStream_t stream) {
+  const size_t smem = mla_smem<G, T, NOPE, QUANT>(a.s, a.H);
   if ((size_t)want_smem != smem) return (int)cudaErrorInvalidValue;
-  auto kern = mla_kernel<T, NOPE, QUANT>;
-  cudaError_t e = mla_attrs<T, NOPE, QUANT>(smem);
+  auto kern = mla_kernel<G, T, NOPE, QUANT>;
+  cudaError_t e = mla_attrs<G, T, NOPE, QUANT>(smem);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid(a.n_rb * a.n_split, a.B);
+  a.n_vc = (a.R + G::VW - 1) / G::VW;
+  const dim3 grid(a.n_rb * a.n_split * a.n_vc, a.B);
   kern<<<grid, THREADS, smem, stream>>>(a);
   e = cudaGetLastError();
   if (e != cudaSuccess || a.n_split == 1) return (int)e;
@@ -2081,18 +2127,27 @@ int mla_run(const MlaPtrs& p, const Plan& pl, int B, int s, int H, int cap,
                        (sizeof(T) == 2 ? (uintptr_t)p.q | (uintptr_t)p.qn : 0);
   a.direct = (quant || sizeof(T) == 2) && R % row == 0 && DR % row == 0 &&
              al % 16 == 0;
-  if (quant)
-    return use_nope ? mla_launch<T, true, true>(a, smem, st)
-                    : mla_launch<T, false, true>(a, smem, st);
-  return use_nope ? mla_launch<T, true, false>(a, smem, st)
-                  : mla_launch<T, false, false>(a, smem, st);
+  // the narrowest geometry that holds R and DR (`mla_geometry`)
+  const bool narrow = R <= MlaNarrow::LAT && DR <= MlaNarrow::ROPE;
+  if (quant) {
+    if (narrow)
+      return use_nope ? mla_launch<MlaNarrow, T, true, true>(a, smem, st)
+                      : mla_launch<MlaNarrow, T, false, true>(a, smem, st);
+    return use_nope ? mla_launch<MlaWide, T, true, true>(a, smem, st)
+                    : mla_launch<MlaWide, T, false, true>(a, smem, st);
+  }
+  if (narrow)
+    return use_nope ? mla_launch<MlaNarrow, T, true, false>(a, smem, st)
+                    : mla_launch<MlaNarrow, T, false, false>(a, smem, st);
+  return use_nope ? mla_launch<MlaWide, T, true, false>(a, smem, st)
+                  : mla_launch<MlaWide, T, false, false>(a, smem, st);
 }
 
 int mla_dispatch(const MlaPtrs& p, const Plan& pl, int B, int s, int H,
                  int cap, int R, int DR, int window, int use_nope,
                  int use_seg, int quant, int is_bf16, int smem, float scale,
                  void* stream) {
-  if (R <= 0 || R > MLA_R || DR <= 0 || DR > MLA_DR || DR % 2 != 0 || H <= 0 ||
+  if (R <= 0 || R > MlaWide::LAT || DR <= 0 || DR > MlaWide::ROPE || DR % 2 != 0 || H <= 0 ||
       p.ckv == nullptr || ((quant || use_nope) && p.kpe == nullptr) ||
       (!quant && p.kpr == nullptr) ||
       (use_nope && (p.qn == nullptr || p.sum_q == nullptr)) ||
@@ -2110,13 +2165,26 @@ int mla_dispatch(const MlaPtrs& p, const Plan& pl, int B, int s, int H,
                         quant, smem, scale, st);
 }
 
-template <typename T, bool NOPE, bool QUANT>
+template <typename G, typename T, bool NOPE, bool QUANT>
 int mla_occupancy(int s, int H, int* n) {
-  const size_t smem = mla_smem<T, NOPE, QUANT>(s, H);
-  cudaError_t e = mla_attrs<T, NOPE, QUANT>(smem);
+  const size_t smem = mla_smem<G, T, NOPE, QUANT>(s, H);
+  cudaError_t e = mla_attrs<G, T, NOPE, QUANT>(smem);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      n, mla_kernel<T, NOPE, QUANT>, THREADS, smem);
+      n, mla_kernel<G, T, NOPE, QUANT>, THREADS, smem);
+}
+
+template <typename G>
+int mla_occupancy_of(int is_bf16, int quant, int nope, int s, int H, int* n) {
+  if (is_bf16)
+    return quant ? (nope ? mla_occupancy<G, bf16, true, true>(s, H, n)
+                         : mla_occupancy<G, bf16, false, true>(s, H, n))
+                 : (nope ? mla_occupancy<G, bf16, true, false>(s, H, n)
+                         : mla_occupancy<G, bf16, false, false>(s, H, n));
+  return quant ? (nope ? mla_occupancy<G, float, true, true>(s, H, n)
+                       : mla_occupancy<G, float, false, true>(s, H, n))
+               : (nope ? mla_occupancy<G, float, true, false>(s, H, n)
+                       : mla_occupancy<G, float, false, false>(s, H, n));
 }
 
 }  // namespace
@@ -2194,17 +2262,12 @@ extern "C" int decode_attn_mla_q8_fwd(
                       stream);
 }
 
-// The MLA kernel's resident CTAs per SM (into *n) for a mode and a call's
-// s and H, as the runtime's occupancy calculator gives them.
+// The MLA kernel's resident CTAs per SM (into *n) for a mode, the
+// geometry that holds R and DR, and a call's s and H, as the runtime's
+// occupancy calculator gives them.
 extern "C" int decode_attn_mla_ctas_per_sm(int is_bf16, int quant, int nope,
-                                           int s, int H, int* n) {
-  if (is_bf16)
-    return quant ? (nope ? mla_occupancy<bf16, true, true>(s, H, n)
-                         : mla_occupancy<bf16, false, true>(s, H, n))
-                 : (nope ? mla_occupancy<bf16, true, false>(s, H, n)
-                         : mla_occupancy<bf16, false, false>(s, H, n));
-  return quant ? (nope ? mla_occupancy<float, true, true>(s, H, n)
-                       : mla_occupancy<float, false, true>(s, H, n))
-               : (nope ? mla_occupancy<float, true, false>(s, H, n)
-                       : mla_occupancy<float, false, false>(s, H, n));
+                                           int s, int H, int R, int DR, int* n) {
+  if (R <= MlaNarrow::LAT && DR <= MlaNarrow::ROPE)
+    return mla_occupancy_of<MlaNarrow>(is_bf16, quant, nope, s, H, n);
+  return mla_occupancy_of<MlaWide>(is_bf16, quant, nope, s, H, n);
 }

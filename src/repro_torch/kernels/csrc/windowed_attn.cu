@@ -66,6 +66,13 @@
 //   instantiation (and bf16 rows that are not 16-byte aligned) converts
 //   each tile straight from memory into its term planes, one stage, 106-158
 //   KB, 1 CTA per SM.
+// * Head-dim classes (`Cfg`'s DQ). q/k head dims up to 128 (DMAX) and, for
+//   deepseek-v2's MLA prefill (Dqk = 128 + 64, Dv 128,
+//   `repro/configs/deepseek_v2_236b.py`), up to 192 (DWIDE): the q and K
+//   planes' rows hold DQ + 8 values (200: conflict-free for ldmatrix too),
+//   V's stay at 136; tiles, terms, stages and the loop over k-steps are
+//   the same, so the 128 class is as it was. At 192 with the NoPE stream
+//   a bf16 CTA takes ~120 KB: one CTA per SM.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -80,8 +87,10 @@ namespace {
 constexpr int WARPS = 4;            // 16 rows each
 constexpr int THREADS = 32 * WARPS;
 constexpr int BK = 32;              // keys per kv tile
-constexpr int DMAX = 128;           // largest head dim (qk and v)
-constexpr int LD = DMAX + 8;        // plane row stride: conflict-free fragments
+constexpr int DMAX = 128;           // the value head dim's limit, and the narrow
+                                    // class's q/k head dim's
+constexpr int DWIDE = 192;          // the wide class's q/k head dim limit
+constexpr int LDV = DMAX + 8;       // V planes' row stride: conflict-free fragments
 constexpr int NT_S = BK / 8;        // score n-tiles per warp and tile
 constexpr int KK = BK / 16;         // P.V k-steps per tile
 constexpr int NT_V = DMAX / 8;      // value n-tiles
@@ -99,8 +108,11 @@ __device__ __forceinline__ void store(bf16* p, float x) { *p = __float2bfloat16(
 
 // Rows, terms of each operand, stages and shared memory per instantiation
 // (see the header); `windowed_tile_plan` in windowed_attn.py mirrors this.
-template <typename T, bool NOPE, bool RESET>
+// DQ is the head-dim class of q and K (DMAX or DWIDE): their planes' rows
+// hold DQ + 8 values (conflict-free for ldmatrix at both), V's DMAX + 8.
+template <typename T, bool NOPE, bool RESET, int DQ>
 struct Cfg {
+  static constexpr int LDQ = DQ + 8;
   static constexpr bool F32 = sizeof(T) == 4;
   // 16-row m-tiles per warp: two share each K/V fragment where the
   // registers allow it (bf16 without the reset stream)
@@ -110,11 +122,13 @@ struct Cfg {
   static constexpr int NK = F32 ? 3 : 1;
   static constexpr int NP = F32 ? 3 : 2;
   static constexpr int NV = F32 ? 3 : 1;
-  static constexpr int PLANES = NK + (NOPE ? NK : 0) + NV + (RESET ? NV : 0);
+  static constexpr int KPLANES = NK + (NOPE ? NK : 0);   // K, K_nope terms
+  static constexpr int PLANES = KPLANES + NV + (RESET ? NV : 0);
   static constexpr int STAGES = F32 ? 1 : (PLANES <= 2 ? 3 : 2);
   static constexpr int MS = STAGES > 1 ? STAGES : 2;     // metadata ring
-  static constexpr size_t Q_ELEMS = (size_t)NQ * BQ * LD;
-  static constexpr size_t STAGE_ELEMS = (size_t)PLANES * BK * LD;
+  static constexpr size_t Q_ELEMS = (size_t)NQ * BQ * LDQ;
+  static constexpr size_t STAGE_ELEMS =
+      (size_t)KPLANES * BK * LDQ + (size_t)(PLANES - KPLANES) * BK * LDV;
   static constexpr size_t BYTES = (Q_ELEMS + STAGES * STAGE_ELEMS) * sizeof(bf16) +
                                   (size_t)(MS * META * BK + 3 * BQ + BQ / 8 + MS) * sizeof(int);
 };
@@ -196,10 +210,11 @@ struct Args {
   float scale, y_min, y_max, midpoint;
 };
 
-template <typename T, bool NOPE, bool RESET>
+template <typename T, bool NOPE, bool RESET, int DQ>
 __global__ void __launch_bounds__(THREADS, 2)
 windowed_attn_kernel(const Args<T> a) {
-  using C = Cfg<T, NOPE, RESET>;
+  using C = Cfg<T, NOPE, RESET, DQ>;
+  constexpr int LDQ = C::LDQ;
   constexpr int MT = C::MT, BQ = C::BQ, NR = 2 * MT;
   constexpr int NQ = C::NQ, NK = C::NK, NP = C::NP, NV = C::NV;
   constexpr int ST = C::STAGES, MS = C::MS;
@@ -216,7 +231,12 @@ windowed_attn_kernel(const Args<T> a) {
   int* seg_r = sum_r + BQ;
   int* red = seg_r + BQ;      // per warp of rows: least, greatest position, segment
   int* interior = red + BQ / 8;   // per ring slot: every pair of the tile attends
-  auto plane = [&](int st, int p) { return st_p + st * C::STAGE_ELEMS + (size_t)p * BK * LD; };
+  // plane p of stage st: the K and K_nope terms LDQ wide, then V's LDV
+  auto plane = [&](int st, int p) {
+    return st_p + st * C::STAGE_ELEMS +
+           (p < C::KPLANES ? (size_t)p * BK * LDQ
+                           : (size_t)C::KPLANES * BK * LDQ + (size_t)(p - C::KPLANES) * BK * LDV);
+  };
   // tile i's slots in ring slot i % MS: positions, flags, [SUM] flags, segments
   auto meta_of = [&](int i) { return meta + (i % MS) * META * BK; };
 
@@ -277,7 +297,7 @@ windowed_attn_kernel(const Args<T> a) {
       const int r = idx / nch, ch = idx - r * nch;
       const bool in = r < nr;
       const T* src = (NOPE && sum_r[r]) ? a.qn : a.q;
-      cp16(q_p + r * LD + ch * 8,
+      cp16(q_p + r * LDQ + ch * 8,
            src + (((size_t)b * S + q0 + (in ? r : 0)) * a.H + h) * D + ch * 8, in);
     }
   } else {
@@ -288,7 +308,7 @@ windowed_attn_kernel(const Args<T> a) {
         const T* src = (NOPE && sum_r[r]) ? a.qn : a.q;
         x = to_f(src[(((size_t)b * S + q0 + r) * a.H + h) * D + d]);
       }
-      split_store<NQ>(x, q_p + r * LD + d, BQ * LD);
+      split_store<NQ>(x, q_p + r * LDQ + d, BQ * LDQ);
     }
   }
 
@@ -340,8 +360,9 @@ windowed_attn_kernel(const Args<T> a) {
     return live;
   };
   // 16-byte copies of tile i's K, V (K_nope, V0 where a row needs them)
-  // rows into stage i % ST; thread tid copies chunk tid % 16 of slots
-  // tid / 16 + 8 j; slots past S are zero-filled without a read
+  // rows into stage i % ST; thread tid copies chunks tid % 16 (and, of a
+  // K row of the wide class, tid % 16 + 16) of slots tid / 16 + 8 j;
+  // slots past S are zero-filled without a read
   auto issue = [&](int i) {
     const int st = i % ST, k0 = (kb_lo + i) * BK;
     const int ch = tid & 15, c0 = tid >> 4;
@@ -351,15 +372,19 @@ windowed_attn_kernel(const Args<T> a) {
       const int c = c0 + 8 * j, kj = k0 + c;
       const bool ok = kj < S;
       const size_t row = ((size_t)b * S + (ok ? kj : 0)) * a.Hk + hk;
-      if (ch < D / 8) {
-        cp16(plane(st, PK) + c * LD + ch * 8, a.k + row * D + ch * 8, ok);
-        if (NOPE && any_sum)
-          cp16(plane(st, PKN) + c * LD + ch * 8, a.kn + row * D + ch * 8, ok);
+#pragma unroll
+      for (int u = 0; u < (DQ / 8 + 15) / 16; ++u) {   // K rows past 128 values
+        const int cu = ch + 16 * u;
+        if (cu < D / 8) {
+          cp16(plane(st, PK) + c * LDQ + cu * 8, a.k + row * D + cu * 8, ok);
+          if (NOPE && any_sum)
+            cp16(plane(st, PKN) + c * LDQ + cu * 8, a.kn + row * D + cu * 8, ok);
+        }
       }
       if (ch < Dv / 8) {
-        cp16(plane(st, PV) + c * LD + ch * 8, a.v + row * Dv + ch * 8, ok);
+        cp16(plane(st, PV) + c * LDV + ch * 8, a.v + row * Dv + ch * 8, ok);
         if (RESET && any_sum)
-          cp16(plane(st, PV0) + c * LD + ch * 8, a.v0 + row * Dv + ch * 8, ok);
+          cp16(plane(st, PV0) + c * LDV + ch * 8, a.v0 + row * Dv + ch * 8, ok);
       }
     }
   };
@@ -373,15 +398,15 @@ windowed_attn_kernel(const Args<T> a) {
       const size_t row = ((size_t)b * S + (ok ? kj : 0)) * a.Hk + hk;
       for (int d = lane; d < DP; d += 32) {
         const bool on = ok && d < D;
-        split_store<NK>(on ? to_f(a.k[row * D + d]) : 0.f, plane(st, PK) + c * LD + d, BK * LD);
+        split_store<NK>(on ? to_f(a.k[row * D + d]) : 0.f, plane(st, PK) + c * LDQ + d, BK * LDQ);
         if (NOPE && any_sum)
-          split_store<NK>(on ? to_f(a.kn[row * D + d]) : 0.f, plane(st, PKN) + c * LD + d, BK * LD);
+          split_store<NK>(on ? to_f(a.kn[row * D + d]) : 0.f, plane(st, PKN) + c * LDQ + d, BK * LDQ);
       }
       for (int d = lane; d < DVP; d += 32) {
         const bool on = ok && d < Dv;
-        split_store<NV>(on ? to_f(a.v[row * Dv + d]) : 0.f, plane(st, PV) + c * LD + d, BK * LD);
+        split_store<NV>(on ? to_f(a.v[row * Dv + d]) : 0.f, plane(st, PV) + c * LDV + d, BK * LDV);
         if (RESET && any_sum)
-          split_store<NV>(on ? to_f(a.v0[row * Dv + d]) : 0.f, plane(st, PV0) + c * LD + d, BK * LD);
+          split_store<NV>(on ? to_f(a.v0[row * Dv + d]) : 0.f, plane(st, PV0) + c * LDV + d, BK * LDV);
       }
     }
   };
@@ -426,9 +451,9 @@ windowed_attn_kernel(const Args<T> a) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0.f;
 
-  const int koff = ((lane & 7) + (lane >> 4) * 8) * LD + ((lane >> 3) & 1) * 8;
-  const int voff = ((lane & 7) + ((lane >> 3) & 1) * 8) * LD + (lane >> 4) * 8;
-  const bf16* qrow = q_p + (wr0 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + (lane >> 4) * 8;
+  const int koff = ((lane & 7) + (lane >> 4) * 8) * LDQ + ((lane >> 3) & 1) * 8;
+  const int voff = ((lane & 7) + ((lane >> 3) & 1) * 8) * LDV + (lane >> 4) * 8;
+  const bf16* qrow = q_p + (wr0 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDQ + (lane >> 4) * 8;
 
   auto compute = [&](int i) {
     const int st = i % ST;
@@ -447,19 +472,19 @@ windowed_attn_kernel(const Args<T> a) {
       for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
         for (int t = 0; t < NQ; ++t)
-          ldsm_x4(fq[mt][t], qrow + (t * BQ + 16 * mt) * LD + kd * 16);
+          ldsm_x4(fq[mt][t], qrow + (t * BQ + 16 * mt) * LDQ + kd * 16);
 #pragma unroll
       for (int tk = 0; tk < NK; ++tk)
 #pragma unroll
         for (int jp = 0; jp < 2; ++jp)
-          ldsm_x4(fk[tk][jp], plane(st, PK + tk) + jp * 16 * LD + koff + kd * 16);
+          ldsm_x4(fk[tk][jp], plane(st, PK + tk) + jp * 16 * LDQ + koff + kd * 16);
       uint32_t fn[NK][2][4];
       if (w_n) {
 #pragma unroll
         for (int tk = 0; tk < NK; ++tk)
 #pragma unroll
           for (int jp = 0; jp < 2; ++jp)
-            ldsm_x4(fn[tk][jp], plane(st, PKN + tk) + jp * 16 * LD + koff + kd * 16);
+            ldsm_x4(fn[tk][jp], plane(st, PKN + tk) + jp * 16 * LDQ + koff + kd * 16);
       }
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt) {
@@ -595,7 +620,7 @@ windowed_attn_kernel(const Args<T> a) {
 #pragma unroll
             for (int u = 0; u < 2; ++u)
               if ((n2 * 2 + u) * 16 < DVP)
-                ldsm_x4_t(bv[tv][u], plane(st, pl + tv) + kk * 16 * LD + voff + (n2 * 2 + u) * 16);
+                ldsm_x4_t(bv[tv][u], plane(st, pl + tv) + kk * 16 * LDV + voff + (n2 * 2 + u) * 16);
 #pragma unroll
           for (int mt = 0; mt < MT; ++mt)
             if (!v0 || m_sum[mt])
@@ -707,13 +732,13 @@ windowed_attn_kernel(const Args<T> a) {
   }
 }
 
-template <typename T, bool NOPE, bool RESET>
+template <typename T, bool NOPE, bool RESET, int DQ>
 int launch(const Args<T>& a, int smem, cudaStream_t stream) {
-  using C = Cfg<T, NOPE, RESET>;
+  using C = Cfg<T, NOPE, RESET, DQ>;
   // the plan must be this source's (windowed_tile_plan)
   if (smem != (int)C::BYTES || a.n_qb != (a.S + C::BQ - 1) / C::BQ)
     return (int)cudaErrorInvalidValue;
-  auto kern = windowed_attn_kernel<T, NOPE, RESET>;
+  auto kern = windowed_attn_kernel<T, NOPE, RESET, DQ>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
@@ -722,10 +747,18 @@ int launch(const Args<T>& a, int smem, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+template <typename T, int DQ>
+int dispatch_dq(const Args<T>& a, bool nope, bool reset, int smem, cudaStream_t st) {
+  if (nope)
+    return reset ? launch<T, true, true, DQ>(a, smem, st) : launch<T, true, false, DQ>(a, smem, st);
+  return reset ? launch<T, false, true, DQ>(a, smem, st) : launch<T, false, false, DQ>(a, smem, st);
+}
+
+// the head-dim class of q and K: DMAX up to 128, else DWIDE
 template <typename T>
 int dispatch(const Args<T>& a, bool nope, bool reset, int smem, cudaStream_t st) {
-  if (nope) return reset ? launch<T, true, true>(a, smem, st) : launch<T, true, false>(a, smem, st);
-  return reset ? launch<T, false, true>(a, smem, st) : launch<T, false, false>(a, smem, st);
+  return a.D <= DMAX ? dispatch_dq<T, DMAX>(a, nope, reset, smem, st)
+                     : dispatch_dq<T, DWIDE>(a, nope, reset, smem, st);
 }
 
 template <typename T>
@@ -780,7 +813,7 @@ extern "C" int windowed_attn_fwd(
     int use_nope, int use_reset, int sum_isolated, int use_seg, int is_bf16,
     int n_qb, int smem, float scale, float y_min, float y_max,
     float midpoint, void* stream) {
-  if (D > DMAX || Dv > DMAX || D <= 0 || Dv <= 0 || Hk <= 0 || H % Hk != 0 ||
+  if (D > DWIDE || Dv > DMAX || D <= 0 || Dv <= 0 || Hk <= 0 || H % Hk != 0 ||
       window <= 0 || (use_nope && (qn == nullptr || kn == nullptr || sum_q == nullptr)) ||
       (use_reset && (v0 == nullptr || sum_q == nullptr)) ||
       (sum_isolated && sum_k == nullptr) ||

@@ -20,9 +20,11 @@ its plain version computes any head dims. ``decode_attention_mla`` is the
 absorbed-MLA mode (``"decode_attn_mla"``, ``"decode_attn_mla_q8"``): one
 latent key (Hk = 1) read in place from the latent cache's own tensors,
 ``ckv (B, cap, r)`` (the latent, and the values: Dv = r) and the rope span
-``kpe_rope``/``kpe (B, cap, dr)``, q = [q_abs | q_pe] of r + dr dims, up to
-``MLA_MAX_V`` / ``MLA_MAX_ROPE`` (256 / 32: minicpm3-4b;
-deepseek-v2's 512 / 64 is refused, ROADMAP queue B). It computes what
+``kpe_rope``/``kpe (B, cap, dr)``, q = [q_abs | q_pe] of r + dr dims, in
+one of ``MLA_GEOMETRIES``: a latent up to 256 and a rope span up to 32
+(minicpm3-4b's 288 / 256; launch keys as above), or up to 512 and 64
+(deepseek-v2's 576 / 512; ``"decode_attn_mla_576"``,
+``"decode_attn_mla_576_q8"``); wider ones raise. It computes what
 ``decode_attention_plain`` computes on the concatenated operands the
 engine built before (``decode_attention_mla_plain``), without the copies.
 
@@ -40,9 +42,11 @@ The GQA kernel's work is split by ``decode_split_plan``: blocks of
 SMs, ranges of the cache whose fp32 partials go to a workspace this
 wrapper allocates and the same C entry point combines in a fixed order
 (one launch count per call; equal inputs give equal bits). The MLA
-kernel's by ``mla_split_plan``: row blocks times the fewest cache ranges
-that fill one wave of resident CTAs (``MLA_CTAS_PER_SM`` per SM, as its
-registers and shared memory, ``mla_smem_bytes``, allow).
+kernel's by ``mla_split_plan``: row blocks (times the value-column
+chunks of ``MLA_VALUE_COLS`` a CTA owns: two at a latent of 512) times
+the fewest cache ranges that fill one wave of resident CTAs
+(``MLA_CTAS`` per SM, as its registers and shared memory,
+``mla_smem_bytes``, allow).
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises.
@@ -64,12 +68,18 @@ _ARGTYPES = {"decode_attn_fwd": [_P] * 13 + [_I] * 14 + [_F, _P],
              "decode_attn_q8_fwd": [_P] * 15 + [_I] * 16 + [_F, _P],
              "decode_attn_mla_fwd": [_P] * 13 + [_I] * 14 + [_F, _P],
              "decode_attn_mla_q8_fwd": [_P] * 15 + [_I] * 14 + [_F, _P],
-             "decode_attn_mla_ctas_per_sm": [_I] * 5 + [_P]}
+             "decode_attn_mla_ctas_per_sm": [_I] * 7 + [_P]}
 MAX_HEAD_DIM = 128  # the GQA mode's head dims (DMAX in csrc/decode_attn.cu)
-MLA_MAX_V = 256     # the MLA mode's latent (value) width (MLA_R there),
-MLA_MAX_ROPE = 32   # its rope span (MLA_DR there)
+# The MLA mode's geometries, (latent (value) width, rope span) up to which
+# each instance of mla_kernel reads (MlaNarrow, MlaWide there), with their
+# resident CTAs per SM (bf16 and int8 queries) and launch keys
+MLA_CTAS = {(256, 32): 2, (512, 64): 1}
+MLA_GEOMETRIES = tuple(MLA_CTAS)
+MLA_KEYS = {(256, 32): "decode_attn_mla", (512, 64): "decode_attn_mla_576"}
+MLA_MAX_V, MLA_MAX_ROPE = MLA_GEOMETRIES[-1]
 MLA_MAX_QK = MLA_MAX_V + MLA_MAX_ROPE
-MLA_CTAS_PER_SM = 2  # resident MLA CTAs per SM (bf16 and int8 queries)
+MLA_CTAS_PER_SM = MLA_CTAS[MLA_GEOMETRIES[0]]  # the narrow geometry's
+MLA_VALUE_COLS = 256  # value columns one MLA CTA owns (VW there)
 ROW_BLOCK = 64      # query rows per CTA (RB there)
 KV_TILE = 32        # cache slots per staged tile (BK there)
 MAX_TILES = 256     # tiles of one cache range (MAX_TILES there)
@@ -118,20 +128,35 @@ def decode_split_plan(b: int, s: int, h: int, hk: int, cap: int, n_sm: int,
     return SplitPlan(n_rb, n_split, per * KV_TILE, base * n_split, ws)
 
 
+def mla_geometry(r: int, dr: int):
+    """The narrowest of ``MLA_GEOMETRIES`` that holds a latent of ``r``
+    values and an even rope span of ``dr``; raises for wider ones."""
+    for lat, rope in MLA_GEOMETRIES:
+        if 0 < r <= lat and 0 < dr <= rope and dr % 2 == 0:
+            return lat, rope
+    raise ValueError(
+        f"head dims {r + dr}/{r} exceed the MLA mode's geometries: a latent "
+        f"of up to {MLA_MAX_V} values and an even rope span of up to "
+        f"{MLA_MAX_ROPE} (" + ", ".join(f"{v + dr_}/{v}" for v, dr_ in
+                                        MLA_GEOMETRIES) + ")")
+
+
 def mla_split_plan(b: int, s: int, h: int, cap: int, n_sm: int,
-                   dv: int = MLA_MAX_V) -> SplitPlan:
-    """The MLA mode's plan: ``b * n_rb`` row blocks (each CTA owns all
-    ``dv`` value columns of its rows), times the fewest equal ranges of
-    whole tiles that give at least one full wave of resident CTAs
-    (``n_sm * MLA_CTAS_PER_SM``); a range holds at most ``MAX_TILES``
-    tiles, and one tile at the least. More ranges than that cost more
-    than the waves they even out: on an H100, three ranges at s=64 (960
-    CTAs, a last wave 64 % full, instead of 320 and 21 %) made the bf16
-    mode 1.20x slower, each range paying a CTA's prologue and epilogue
-    and its fp32 partials (PERF.md, PR 24)."""
+                   dv: int = 256, dr: int = 32) -> SplitPlan:
+    """The MLA mode's plan: ``b * n_rb`` row blocks, each taken by one CTA
+    per ``MLA_VALUE_COLS`` value columns of ``dv`` (one at minicpm3-4b's
+    256, two at deepseek-v2's 512, each computing the block's scores),
+    times the fewest equal ranges of whole tiles that give at least one
+    full wave of resident CTAs (``n_sm`` times the geometry's
+    ``MLA_CTAS``); a range holds at most ``MAX_TILES`` tiles, and one tile
+    at the least. More ranges than that cost more than the waves they
+    even out: on an H100, three ranges at s=64 (960 CTAs, a last wave 64 %
+    full, instead of 320 and 21 %) made the bf16 mode 1.20x slower, each
+    range paying a CTA's prologue and epilogue and its fp32 partials
+    (PERF.md, PR 24)."""
     n_rb = -(-h * s // ROW_BLOCK)
-    base = b * n_rb
-    slots = n_sm * MLA_CTAS_PER_SM
+    base = b * n_rb * -(-dv // MLA_VALUE_COLS)
+    slots = n_sm * MLA_CTAS[mla_geometry(dv, dr)]
     n_tiles = max(1, -(-cap // KV_TILE))
     want = max(1, -(-n_tiles // MAX_TILES))
     per, n_split = _ranges(n_tiles, want)
@@ -143,34 +168,38 @@ def mla_split_plan(b: int, s: int, h: int, cap: int, n_sm: int,
 
 
 def mla_smem_bytes(is_bf16: bool, quant: bool, nope: bool, s: int,
-                   h: int) -> int:
+                   h: int, r: int = 256, dr: int = 32) -> int:
     """The dynamic shared memory one MLA CTA asks for (``MlaSmem`` and
     ``mla_launch`` in ``csrc/decode_attn.cu``, which refuses a launch whose
-    count differs): the Q planes (64 x 288 bf16; none in fp32), the plane
-    stages (latent 32 x 256, rope spans 32 x 32, in their bf16 terms), the
-    int8 copy stages, the tile rings and scales, the row tables."""
+    count differs) in the geometry that holds ``r`` and ``dr``: the Q
+    planes (64 x (latent + rope span) bf16; none in fp32), the plane stages
+    (latent 32 x 256 or 512, rope spans 32 x 32 or 64, in their bf16
+    terms), the int8 copy stages, the tile rings and scales, the row
+    tables."""
     f32 = not is_bf16
     nl = 3 if f32 and not quant else 1            # latent plane terms
     nr = 3 if f32 else (2 if quant else 1)        # roped rope span
     nn = 3 if f32 and not quant else 1            # unroped rope span
     stages = 1 if f32 and not quant else 3        # copy stages
     pstages = 3 if not f32 and not quant else 1   # plane stages
-    lat, rope = MLA_MAX_V, MLA_MAX_ROPE
+    lat, rope = mla_geometry(r, dr)
     q_elems = 0 if f32 else ROW_BLOCK * (lat + rope)
     stage = KV_TILE * (nl * lat + nr * rope + (nn * rope if nope else 0))
-    raw = stages * (KV_TILE * MLA_MAX_QK + 8 * KV_TILE) if quant else 0
-    ints = (4 * stages * KV_TILE + 2 * KV_TILE + MLA_MAX_ROPE // 2
+    raw = stages * (KV_TILE * (lat + rope) + 8 * KV_TILE) if quant else 0
+    ints = (4 * stages * KV_TILE + 2 * KV_TILE + rope // 2
             + 6 * ROW_BLOCK + 4 + 3 * MAX_TILES + 1)
     return (q_elems + pstages * stage) * 2 + raw + 4 * ints + 4 * (3 * s + h)
 
 
 def mla_ctas_per_sm(is_bf16: bool, quant: bool, nope: bool, s: int,
-                    h: int) -> int:
-    """The MLA kernel's resident CTAs per SM on this card, by the CUDA
-    runtime's occupancy calculator (registers and ``mla_smem_bytes``)."""
+                    h: int, r: int = 256, dr: int = 32) -> int:
+    """The MLA kernel's resident CTAs per SM on this card in the geometry
+    that holds ``r`` and ``dr``, by the CUDA runtime's occupancy
+    calculator (registers and ``mla_smem_bytes``)."""
+    mla_geometry(r, dr)
     n = ctypes.c_int(0)
     rc = load("decode_attn", _ARGTYPES).decode_attn_mla_ctas_per_sm(
-        int(is_bf16), int(quant), int(nope), s, h, ctypes.byref(n))
+        int(is_bf16), int(quant), int(nope), s, h, r, dr, ctypes.byref(n))
     if rc != 0:
         raise RuntimeError(f"occupancy query failed: cudaError {rc}")
     return n.value
@@ -408,12 +437,7 @@ def _check_mla(q, ckv, kpe, kpe_rope, quant, use_nope, ckv_scale,
     dr = d - r
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"unsupported dtype {q.dtype}")
-    if not (0 < r <= MLA_MAX_V and 0 < dr <= MLA_MAX_ROPE and dr % 2 == 0):
-        raise ValueError(
-            f"head dims {d}/{r} exceed the MLA mode's {MLA_MAX_QK}/"
-            f"{MLA_MAX_V} (a latent of up to {MLA_MAX_V} values and an even "
-            f"rope span of up to {MLA_MAX_ROPE}; deepseek-v2's 576/512 is "
-            "not ported: ROADMAP queue B)")
+    mla_geometry(r, dr)
     kv_dtype = torch.int8 if quant else q.dtype
     spans = ([kpe] if quant or use_nope else []) + (
         [] if quant else [kpe_rope])
@@ -475,13 +499,15 @@ def decode_attention_mla(q, ckv, kpe, pos_q, pos_k, *, window: int,
     alibi_f = (alibi.float().contiguous() if use_nope
                else torch.zeros(h, dtype=torch.float32, device=q.device))
     ints = _ints(pos_q, pos_k, is_sum_q, use_nope, seg_q, seg_k, use_seg)
-    plan = mla_split_plan(b, s, h, cap, sm_count(q.device), r)
+    dr = d - r
+    plan = mla_split_plan(b, s, h, cap, sm_count(q.device), r, dr)
     ws = split_workspace(plan, q.device)
     is_bf16 = q.dtype == torch.bfloat16
-    tail = (b, s, h, cap, r, d - r, int(window), int(use_nope), int(use_seg),
+    key = MLA_KEYS[mla_geometry(r, dr)]
+    tail = (b, s, h, cap, r, dr, int(window), int(use_nope), int(use_seg),
             int(is_bf16), plan.n_rb, plan.n_split, plan.span,
-            mla_smem_bytes(is_bf16, quant, use_nope, s, h), float(scale),
-            torch.cuda.current_stream(q.device).cuda_stream)
+            mla_smem_bytes(is_bf16, quant, use_nope, s, h, r, dr),
+            float(scale), torch.cuda.current_stream(q.device).cuda_stream)
     lib = load("decode_attn", _ARGTYPES)
     qn = ptr(q_nope if use_nope else None)
     kpe_p = ptr(kpe if quant or use_nope else None)
@@ -489,7 +515,7 @@ def decode_attention_mla(q, ckv, kpe, pos_q, pos_k, *, window: int,
         rc = lib.decode_attn_mla_fwd(
             ptr(q), qn, ptr(ckv), ptr(kpe_rope), kpe_p, ptr(alibi_f),
             *map(ptr, ints), ptr(o), ptr(ws), *tail)
-        check_launch("decode_attn_mla", rc)
+        check_launch(key, rc)
         return o
     cs = ckv_scale.float().contiguous()
     ps = kpe_scale.float().contiguous()
@@ -497,11 +523,11 @@ def decode_attention_mla(q, ckv, kpe, pos_q, pos_k, *, window: int,
     rc = lib.decode_attn_mla_q8_fwd(
         ptr(q), qn, ptr(ckv), kpe_p, ptr(cs), ptr(ps), ptr(rinv),
         ptr(alibi_f), *map(ptr, ints), ptr(o), ptr(ws), *tail)
-    check_launch("decode_attn_mla_q8", rc)
+    check_launch(key + "_q8", rc)
     return o
 
 
 __all__ = ["SplitPlan", "decode_attention", "decode_attention_mla",
            "decode_attention_mla_plain", "decode_attention_plain",
-           "decode_split_plan", "mla_ctas_per_sm", "mla_smem_bytes",
-           "mla_split_plan", "split_workspace"]
+           "decode_split_plan", "mla_ctas_per_sm", "mla_geometry",
+           "mla_smem_bytes", "mla_split_plan", "split_workspace"]

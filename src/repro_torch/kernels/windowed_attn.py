@@ -18,6 +18,10 @@ dti-llama's prefill shape (B=8, S=2048, H=32, Hk=8, D=128, window 1024).
 ``windowed_tile_plan`` holds the host side of its design: the tile sizes,
 the grid, the stages and the shared memory it launches with, and the kv
 band each q tile walks. The C entry point refuses a plan it would not make.
+It takes q/k head dims up to ``MAX_QK_DIM`` (192) in two classes, up to
+128 (launch key ``"windowed_attn"``) and up to 192 (deepseek-v2's 128 +
+64; ``"windowed_attn_192"``, q and K planes 200 values wide), and value
+head dims up to ``MAX_HEAD_DIM`` (128).
 
 Schedule contract (as the reference's): the band of kv tiles a q tile
 visits is physical (rows within ``window`` of the tile), the mask is
@@ -41,6 +45,9 @@ transposed band (``q_band``), for each query head of its group, in two
 phases: dK and dV over the whole band, then dK_nope and dV0 over the q
 tiles that hold a [SUM] row (``sum_tiles``). The wrapper computes
 delta = <do, o> (``_delta``), as the reference does outside its kernels.
+The backward takes head dims up to ``MAX_HEAD_DIM`` only: a call on the
+card with autograd recording and a q/k head dim past it raises before any
+launch (kernels 2 and 3 at Dqk 192 are ROADMAP queue B item 2).
 """
 from __future__ import annotations
 
@@ -57,9 +64,11 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {"windowed_attn_fwd": [_P] * 16 + [_I] * 14 + [_F] * 4 + [_P]}
 _BWD_ARGTYPES = {fn: [_P] * 21 + [_I] * 14 + [_F] * 4 + [_P]
                  for fn in ("windowed_attn_dq", "windowed_attn_dkv")}
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 128   # value head dims; q/k head dims of kernels 2-3
+MAX_QK_DIM = 192     # q/k head dims of kernel 1 (DWIDE in the source)
 # csrc/windowed_attn.cu's tiles: warps per CTA, keys per kv tile, the
-# bf16 plane row stride, int words per staged slot
+# bf16 plane row stride (of V, and of q and K up to 128), int words per
+# staged slot
 WARPS, BLOCK_K = 4, 32
 PLANE_LD = MAX_HEAD_DIM + 8
 META_WORDS = 4
@@ -85,27 +94,40 @@ class TilePlan(NamedTuple):
     grid: Tuple[int, int, int]
 
 
+def qk_plane_ld(d: int) -> int:
+    """The row stride of the q and K planes for q/k head dim ``d``: its
+    head-dim class (128 or ``MAX_QK_DIM``) + 8."""
+    if not 0 < d <= MAX_QK_DIM:
+        raise ValueError(f"q/k head dim {d} exceeds {MAX_QK_DIM}")
+    return (MAX_HEAD_DIM if d <= MAX_HEAD_DIM else MAX_QK_DIM) + 8
+
+
 def windowed_tile_plan(b: int, s: int, h: int, *, bf16: bool,
-                       use_nope: bool, use_reset: bool) -> TilePlan:
-    """The plan ``csrc/windowed_attn.cu`` launches with (its ``Cfg``).
-    bf16: one term for q and K, two for P, one for V; 32 rows a warp (two
-    m-tiles share each K/V fragment), 16 with the reset stream (whose
-    registers would spill); three stages of K and V, two when K_nope or V0
-    is live too, so that two CTAs fit an SM. fp32: 16 rows a warp, three
-    terms each, converted from memory into one stage. Planes are padded to
-    ``MAX_HEAD_DIM`` whatever the head dims."""
+                       use_nope: bool, use_reset: bool,
+                       d: int = MAX_HEAD_DIM) -> TilePlan:
+    """The plan ``csrc/windowed_attn.cu`` launches with (its ``Cfg``) for
+    q/k head dim ``d``. bf16: one term for q and K, two for P, one for V;
+    32 rows a warp (two m-tiles share each K/V fragment), 16 with the
+    reset stream (whose registers would spill); three stages of K and V,
+    two when K_nope or V0 is live too, so that two CTAs fit an SM at head
+    dims up to 128. fp32: 16 rows a warp, three terms each, converted from
+    memory into one stage. V planes are padded to ``MAX_HEAD_DIM``, the q
+    and K planes to their head-dim class (``qk_plane_ld``), whatever the
+    head dims."""
     mt = 2 if bf16 and not use_reset else 1
     block_q = WARPS * 16 * mt
     nq, nk, np_, nv = (1, 1, 2, 1) if bf16 else (3, 3, 3, 3)
-    planes = nk * (1 + use_nope) + nv * (1 + use_reset)
+    kplanes = nk * (1 + use_nope)
+    planes = kplanes + nv * (1 + use_reset)
     stages = (3 if planes <= 2 else 2) if bf16 else 1
     ring = max(stages, 2)
-    plane = BLOCK_K * PLANE_LD * 2
-    smem = (nq * block_q * PLANE_LD * 2 + stages * planes * plane
+    ldq = qk_plane_ld(d)
+    stage = BLOCK_K * 2 * (kplanes * ldq + (planes - kplanes) * PLANE_LD)
+    smem = (nq * block_q * ldq * 2 + stages * stage
             + (ring * META_WORDS * BLOCK_K + 3 * block_q + block_q // 8
                + ring) * 4)
     return TilePlan(block_q, BLOCK_K, WARPS, (nq, nk, np_, nv), stages,
-                    planes * plane, smem, (h, -(-s // block_q), b))
+                    stage, smem, (h, -(-s // block_q), b))
 
 
 def tile_of_block(plan: TilePlan, x: int, y: int, z: int):
@@ -253,6 +275,14 @@ def windowed_attention(q, k, v, *, pos_q, pos_k, window: int,
         return (o, lse) if return_lse else o
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
+    grads = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad
+        for t in (q, k, v, q_nope, k_nope, v0))
+    if grads and q.shape[-1] > MAX_HEAD_DIM:
+        raise NotImplementedError(
+            f"q/k head dim {q.shape[-1]} trains only up to {MAX_HEAD_DIM}: "
+            "kernels 2 and 3 at Dqk 192 are ROADMAP queue B item 2 (run the "
+            "forward under torch.no_grad)")
     o, lse = _launch(q, k, v, **kw)
     return (o, lse) if return_lse else o
 
@@ -306,8 +336,9 @@ def _prepare(q, k, v, *, pos_q, pos_k, window, is_sum_q, is_sum_k, valid_k,
         raise ValueError(f"shapes q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)} do not fit (self-attention, "
                          "H a multiple of Hk)")
-    if d > MAX_HEAD_DIM or dv > MAX_HEAD_DIM:
-        raise ValueError(f"head dims {d}/{dv} exceed {MAX_HEAD_DIM}")
+    if d > MAX_QK_DIM or dv > MAX_HEAD_DIM:
+        raise ValueError(f"head dims {d}/{dv} exceed {MAX_QK_DIM}/"
+                         f"{MAX_HEAD_DIM}")
     live = (q_nope if use_nope else None, k_nope if use_nope else None,
             v0 if use_reset else None)
     for t in (q, k, v) + live:
@@ -346,13 +377,15 @@ def _fwd(st, q, k, v, live, alibi_f, ints):
                       device=q.device)
     bf16 = q.dtype == torch.bfloat16
     plan = windowed_tile_plan(st.b, st.s, st.h, bf16=bf16,
-                              use_nope=st.use_nope, use_reset=st.use_reset)
+                              use_nope=st.use_nope, use_reset=st.use_reset,
+                              d=st.d)
     lib = load("windowed_attn", _ARGTYPES)
     rc = lib.windowed_attn_fwd(
         ptr(q), ptr(qn), ptr(k), ptr(kn), ptr(v), ptr(v0), ptr(alibi_f),
         *map(ptr, ints), ptr(o), ptr(lse), *st.ints(bf16), plan.grid[1],
         plan.smem_bytes, *st.floats(), _stream(q))
-    check_launch("windowed_attn", rc)
+    check_launch("windowed_attn" if st.d <= MAX_HEAD_DIM
+                 else "windowed_attn_192", rc)
     return o, lse
 
 
@@ -455,5 +488,6 @@ def windowed_attention_bwd_plain(q, k, v, do, dlse=None, **kw):
 
 __all__ = ["windowed_attention", "windowed_attention_plain",
            "windowed_attention_bwd_plain", "windowed_tile_plan", "TilePlan",
+           "qk_plane_ld",
            "tile_of_block", "kv_band", "windowed_bwd_plan", "BwdPlan",
            "dq_block", "dkv_block", "q_band", "sum_tiles"]

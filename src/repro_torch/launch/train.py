@@ -16,7 +16,8 @@ versions). ``--trainable lora`` trains only the LoRA leaves, as the paper
 does; the reference's CLI trains every leaf, which stays the default.
 
 ``--arch`` picks any LM arch the port has (``dti-llama``, ``minicpm-2b``,
-``qwen2-1.5b``, ``minicpm3-4b``, ``qwen2-moe-a2.7b``) at ``--size smoke``
+``qwen2-1.5b``, ``minicpm3-4b``, ``qwen2-moe-a2.7b``, ``deepseek-v2-236b``;
+the last trains on the CPU only, ``refuse_card_training``) at ``--size smoke``
 (its SMOKE config) or ``full`` (its FULL config), as the reference's
 ``run_lm`` does; ``--arch din|mind|sasrec|xdeepfm`` trains that recsys
 model's SMOKE config on synthetic batches, and ``--arch gin-tu`` the
@@ -43,7 +44,7 @@ from repro_torch.core.losses import ctr_loss
 from repro_torch.core.metrics import ctr_metrics
 from repro_torch.data.synthetic import make_ctr_dataset, split_users
 from repro_torch.device import resolve_device
-from repro_torch.launch.smoke import train_smoke
+from repro_torch.launch.smoke import refuse_card_training, train_smoke
 from repro_torch.models.transformer import ModelConfig, forward, init_params
 from repro_torch.obs.clock import monotonic
 from repro_torch.serve.engine import make_prefill_fn
@@ -124,6 +125,7 @@ def run_lm(args) -> Dict:
     if args.attn_impl:
         cfg = dataclasses.replace(cfg, attn_impl=args.attn_impl)
     device = resolve_device(args.device)
+    refuse_card_training(cfg, device)
 
     ds = make_ctr_dataset(n_users=args.users, n_items=args.items,
                           seq_len=args.seq, vocab_size=cfg.vocab_size,

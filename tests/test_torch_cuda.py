@@ -373,6 +373,12 @@ MLA_CASES = {
                 (40, 100), 0, 256, 32),
     "mla_partial_chunk": (3, 12, 8, 200, (150, 190, 0), None, 30, 136, 24),
     "mla_dv_below_dqk": (2, 16, 8, 203, (150, 190), None, 0, 80, 16),
+    # deepseek-v2's geometry (r 512, dr 64, 128 heads): two CTAs of 256
+    # value columns a row block; and a latent of 300 (its second chunk 44
+    # columns wide) with a rope span of 40
+    "mla576_s1": (4, 1, 128, 300, (200, 230, 260, 290), None, 0, 512, 64),
+    "mla576_s16": (2, 16, 128, 300, (200, 290), (40, 100), 128, 512, 64),
+    "mla576_odd": (3, 12, 8, 200, (150, 190, 0), None, 30, 300, 40),
 }
 
 
@@ -406,8 +412,10 @@ def test_decode_kernel_mla_mode_matches_plain(gen, case, nope, seg, quant,
     rope codes, ``decode_attn_mla_q8``) on the latent cache's tensors
     against its plain version in fp32 on the same inputs, as the GQA mode
     is held above; the GQA mode's counts do not move."""
-    from repro_torch.kernels.decode_attn import (decode_attention_mla,
-                                                 decode_attention_mla_plain)
+    from repro_torch.kernels.decode_attn import (MLA_KEYS,
+                                                 decode_attention_mla,
+                                                 decode_attention_mla_plain,
+                                                 mla_geometry)
     B, s, H, cap, fills, hole, window, r, dr = MLA_CASES[case]
     o, lat_kw = mla_operands(gen, B=B, s=s, H=H, cap=cap, fills=fills,
                              hole=hole, r=r, dr=dr, n_seg=3 if seg else 0,
@@ -422,7 +430,8 @@ def test_decode_kernel_mla_mode_matches_plain(gen, case, nope, seg, quant,
         kw.update(is_sum_q=o["is_sum"], q_nope=qn, alibi=o["alibi"])
     if seg:
         kw.update(seg_q=o["seg_q"], seg_k=o["seg_k"])
-    name = "decode_attn_mla_q8" if quant else "decode_attn_mla"
+    key = MLA_KEYS[mla_geometry(r, dr)]
+    name = key + "_q8" if quant else key
     before = dict(kernels.LAUNCHES)
     got = decode_attention_mla(q, ckv, kpe, o["pos_q"], o["pos_k"], **kw)
     again = decode_attention_mla(q, ckv, kpe, o["pos_q"], o["pos_k"], **kw)
@@ -443,17 +452,17 @@ def test_decode_kernel_mla_mode_matches_plain(gen, case, nope, seg, quant,
     assert torch.all(got[0, 0] == 0)
 
 
-@pytest.mark.parametrize("d,dv", [(289, 256), (288, 264), (576, 512)])
+@pytest.mark.parametrize("d,dv", [(1088, 1024), (577, 512), (584, 520)])
 def test_decode_kernel_refuses_head_dims_past_the_mla_mode(gen, d, dv):
-    """The MLA mode stops at a latent of 256 and a rope span of 32 (288 /
-    256; deepseek-v2's 576 / 512 is not ported): a wider call raises,
-    naming the limit, and launches nothing."""
+    """The MLA mode stops at a latent of 512 and a rope span of 64
+    (deepseek-v2's 576 / 512, its wider geometry): a wider call raises,
+    naming both geometries, and launches nothing."""
     from repro_torch.kernels.decode_attn import decode_attention_mla
     z = lambda *sh: torch.zeros(sh, device="cuda")
     pos_q = torch.full((1, 2), 40, dtype=torch.int32, device="cuda")
     pos_k = torch.arange(32, dtype=torch.int32, device="cuda")[None]
     before = dict(kernels.LAUNCHES)
-    with pytest.raises(ValueError, match="288/256"):
+    with pytest.raises(ValueError, match="288/256, 576/512"):
         decode_attention_mla(z(1, 2, 4, d), z(1, 32, dv), z(1, 32, d - dv),
                              pos_q, pos_k, window=0,
                              kpe_rope=z(1, 32, d - dv))
@@ -485,6 +494,19 @@ def test_decode_kernel_mla_mode_fits_two_ctas_per_sm(gen, bf16, quant):
                                                  mla_ctas_per_sm)
     for nope in (False, True):
         assert mla_ctas_per_sm(bf16, quant, nope, 64, 40) == MLA_CTAS_PER_SM
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_decode_kernel_mla_mode_wide_geometry_fits_its_ctas(gen, quant):
+    """At deepseek-v2's geometry (128 heads, r 512, dr 64, s=64) the
+    occupancy calculator gives the wide instance ``MLA_CTAS[(512, 64)]``
+    (one) resident CTA per SM for bf16 queries, with and without the NoPE
+    stream, and its fp32 instance (the gates') launches too."""
+    from repro_torch.kernels.decode_attn import MLA_CTAS, mla_ctas_per_sm
+    for nope in (False, True):
+        assert mla_ctas_per_sm(True, quant, nope, 64, 128, 512, 64) == \
+            MLA_CTAS[(512, 64)]
+        assert mla_ctas_per_sm(False, quant, nope, 64, 128, 512, 64) >= 1
 
 
 def test_embedding_bag_kernel_propagates_nonfinite_rows(gen):
@@ -532,14 +554,23 @@ WINDOWED_CASES = {
     "d128_dv64_plain": (257, 128, 64, 8, 64, False, False, False, True, False),
     "d96_dv128_nope_empty_row": (129, 96, 128, 1, 33, True, False, False, False, True),
 }
+# the same flags at kernel 1's wide head-dim class (q/k up to 192: deepseek-
+# v2's 128 + 64), forward only: D 192 and D 136 (off the 16-value k-step)
+WINDOWED_192_CASES = {
+    "d192_nope_ragged": (333, 192, 128, 8, 100, True, False, False, True, False),
+    "d192_reset_packed_empty_row": (190, 192, 128, 2, 40, True, True, True, True, True),
+    "d192_dv64_window_past_s": (300, 192, 64, 1, 1024, False, False, False, True, False),
+    "d136_dv96_packed": (150, 136, 96, 2, 33, True, False, True, False, False),
+}
 
 
 def windowed_case_operands(gen, case, dtype, B=2, H=8):
-    """Operands of a WINDOWED_CASES entry: row 0 padded in its tail, the
-    last row without a valid key when ``empty``; packed rows hold three
-    prompts whose positions restart; [SUM] rows at random (~12 %)."""
+    """Operands of a WINDOWED_CASES (or WINDOWED_192_CASES) entry: row 0
+    padded in its tail, the last row without a valid key when ``empty``;
+    packed rows hold three prompts whose positions restart; [SUM] rows at
+    random (~12 %)."""
     S, D, Dv, hk, window, nope, reset, packed, sum_iso, empty = \
-        WINDOWED_CASES[case]
+        {**WINDOWED_CASES, **WINDOWED_192_CASES}[case]
     r = lambda *sh: torch.randn(sh, generator=gen, device="cuda").to(dtype)
     pos = torch.arange(S, device="cuda", dtype=torch.int32).repeat(B, 1)
     seg = torch.zeros(B, S, dtype=torch.int32, device="cuda")
@@ -589,8 +620,58 @@ def test_windowed_kernel_flags_match_plain(gen, case, dtype):
         assert torch.all(o[-1] == 0) and torch.all(lse[-1] == 1e30)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(WINDOWED_192_CASES))
+def test_windowed_kernel_at_dqk_192_matches_plain(gen, case, dtype):
+    """Kernel 1's wide head-dim class (``windowed_attn_192``: q and K
+    planes 200 values wide, V's 136) over the flag cases at Dqk 192 and
+    136, held as the narrow class is above; the narrow class's count does
+    not move, and a second call gives the same bits."""
+    q, k, v, kw = windowed_case_operands(gen, case, dtype)
+    before = dict(kernels.LAUNCHES)
+    o, lse = windowed_attention(q, k, v, return_lse=True, **kw)
+    o2, lse2 = windowed_attention(q, k, v, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    moved = {n: c - before[n] for n, c in kernels.LAUNCHES.items()
+             if c != before[n]}
+    assert moved == {"windowed_attn_192": 2}
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    f32 = lambda x: x.float() if torch.is_tensor(x) and x.is_floating_point() \
+        else x
+    want, lse_w = windowed_attention_plain(
+        f32(q), f32(k), f32(v), **{n: f32(x) for n, x in kw.items()})
+    _hold(o, want)
+    torch.testing.assert_close(lse, lse_w, rtol=0,
+                               atol=TOL if dtype == torch.float32 else 1e-3)
+    if WINDOWED_192_CASES[case][-1]:
+        assert torch.all(o[-1] == 0) and torch.all(lse[-1] == 1e30)
+
+
+def test_windowed_kernel_refuses_training_at_dqk_192(gen):
+    """With autograd recording, a q/k head dim past 128 raises before any
+    launch (kernels 2 and 3 stop at 128: ROADMAP queue B item 2); under
+    ``no_grad`` the same call runs kernel 1, and a head dim past 192
+    raises too."""
+    q, k, v, kw = windowed_case_operands(gen, "d192_nope_ragged",
+                                         torch.bfloat16)
+    before = dict(kernels.LAUNCHES)
+    with pytest.raises(NotImplementedError, match="queue B item 2"):
+        windowed_attention(q.requires_grad_(True), k, v, **kw)
+    assert kernels.LAUNCHES == before
+    with torch.no_grad():
+        windowed_attention(q, k, v, **kw)
+    assert kernels.LAUNCHES["windowed_attn_192"] == \
+        before["windowed_attn_192"] + 1
+    z = lambda *sh: torch.zeros(sh, device="cuda")
+    with pytest.raises(ValueError, match="192/128"):
+        windowed_attention(z(1, 40, 2, 200), z(1, 40, 2, 200),
+                           z(1, 40, 2, 128), pos_q=kw["pos_q"][:1, :40],
+                           pos_k=kw["pos_k"][:1, :40], window=16)
+
+
 @pytest.mark.parametrize("case", ["reset_nope_empty_row",
-                                  "d128_window_past_s"])
+                                  "d128_window_past_s",
+                                  "d192_reset_packed_empty_row"])
 def test_windowed_kernel_unaligned_rows_give_the_same_bits(gen, case):
     """bf16 operands whose base is not 16-byte aligned take the path that
     converts each tile from memory in place of cp.async; it stages the same

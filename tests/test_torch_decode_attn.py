@@ -9,8 +9,10 @@ import torch
 from repro.kernels.decode_attn.ops import decode_attention as j_decode
 from repro_torch.kernels import LAUNCHES
 from repro_torch.kernels.decode_attn import (
-    KV_TILE, MAX_HEAD_DIM, MAX_TILES, MLA_CTAS_PER_SM, MLA_MAX_QK,
-    MLA_MAX_ROPE, MLA_MAX_V, ROW_BLOCK, _check, _check_mla,
+    KV_TILE, MAX_HEAD_DIM, MAX_TILES, MLA_CTAS, MLA_CTAS_PER_SM,
+    MLA_GEOMETRIES,
+    MLA_MAX_QK, MLA_MAX_ROPE, MLA_MAX_V, ROW_BLOCK, _check, _check_mla,
+    mla_geometry,
     decode_attention, decode_attention_plain, decode_split_plan,
     mla_smem_bytes, mla_split_plan, split_workspace)
 from repro_torch.kernels.windowed_attn import SMEM_LIMIT
@@ -171,19 +173,25 @@ def test_split_plan_fills_the_card_in_the_mla_mode(s):
 
 
 def test_mla_mode_takes_the_wide_head_dims():
-    """The MLA mode takes a latent of up to 256 values and an even rope
-    span of up to 32 (288 / 256 at minicpm3-4b); wider ones, deepseek-v2's
-    576 / 512 among them, are refused naming the limit, and the GQA mode
-    refuses head dims past 128 on the card, naming the MLA entry point.
-    Shapes only: the checks run before any launch."""
-    assert (MLA_MAX_QK, MLA_MAX_V, MLA_MAX_ROPE) == (288, 256, 32)
+    """The MLA mode takes two geometries: a latent of up to 256 values and
+    an even rope span of up to 32 (288 / 256 at minicpm3-4b), and up to
+    512 and 64 (deepseek-v2's 576 / 512); wider ones (a latent of 1024, a
+    rope span past 64, an odd one) are refused naming both, and the GQA
+    mode refuses head dims past 128 on the card, naming the MLA entry
+    point. Shapes only: the checks run before any launch."""
+    assert (MLA_MAX_QK, MLA_MAX_V, MLA_MAX_ROPE) == (576, 512, 64)
+    assert MLA_GEOMETRIES == ((256, 32), (512, 64))
     z = lambda *sh: torch.zeros(sh)
-    for d, r in ((289, 256), (288, 264), (576, 512), (290, 256)):
-        with pytest.raises(ValueError, match="288/256"):
+    for d, r in ((1088, 1024), (577, 512), (584, 520), (578, 512),
+                 (321, 256)):
+        with pytest.raises(ValueError, match="288/256, 576/512"):
             _check_mla(z(1, 2, 4, d), z(1, 32, r), z(1, 32, d - r),
                        z(1, 32, d - r), False, True, None, None)
-    _check_mla(z(1, 2, 4, 288), z(1, 32, 256), z(1, 32, 32), z(1, 32, 32),
-               False, True, None, None)
+    for d, r, geo in ((288, 256, (256, 32)), (576, 512, (512, 64)),
+                      (289 + 1, 256, (512, 64)), (288, 264, (512, 64))):
+        _check_mla(z(1, 2, 4, d), z(1, 32, r), z(1, 32, d - r),
+                   z(1, 32, d - r), False, True, None, None)
+        assert mla_geometry(r, d - r) == geo
     with pytest.raises(ValueError, match="decode_attention_mla"):
         _check(z(1, 2, 4, MAX_HEAD_DIM + 8), z(1, 32, 1, MAX_HEAD_DIM + 8),
                z(1, 32, 1, 64), False, None, None, torch.float32)
@@ -203,6 +211,52 @@ def test_mla_smem_allows_the_stated_ctas_per_sm(bf16, quant, nope, s):
     assert MLA_CTAS_PER_SM * (smem + CTA_RESERVED) <= SM_SMEM
     if bf16 and nope and not quant and s == 64:
         assert smem <= 104 * 1024
+
+
+@pytest.mark.parametrize("bf16", [True, False])
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("nope", [False, True])
+@pytest.mark.parametrize("s", [1, 6, 16, 64])
+def test_mla_smem_at_deepseek_geometry_fits_one_cta(bf16, quant, nope, s):
+    """deepseek-v2's geometry (128 heads on one latent key, r 512, dr 64):
+    one MLA CTA per SM (``MLA_CTAS``), whose shared memory fits a CTA's
+    227 KB; in bf16 the Q planes (64 x 576), three plane stages of 32
+    slots (latent, roped and, with the NoPE stream, unroped rope span) and
+    the tables come to ~200 KB, so two CTAs cannot share an SM."""
+    assert MLA_CTAS[(512, 64)] == 1
+    smem = mla_smem_bytes(bf16, quant, nope, s, 128, 512, 64)
+    assert smem <= SMEM_LIMIT
+    assert smem > mla_smem_bytes(bf16, quant, nope, s, 128)
+    if bf16 and not quant:
+        q_planes = ROW_BLOCK * 576 * 2
+        stage = KV_TILE * (512 + 64 + 64 * nope) * 2
+        assert smem >= q_planes + 3 * stage
+        assert 2 * (smem + CTA_RESERVED) > SM_SMEM
+
+
+@pytest.mark.parametrize("s", [1, 6, 16, 64])
+def test_mla_split_plan_at_deepseek_geometry(s):
+    """deepseek-v2's absorbed decode on an H100 (B=8, 128 heads on one
+    latent key, cap 2048, r 512): ceil(128 s / 64) row blocks a batch row
+    (1,024 in all at s=64), each taken by two CTAs of 256 value columns,
+    times the fewest cache ranges that fill one wave of resident CTAs (132
+    at one a SM): none from s=6 on, where row blocks alone fill it; every
+    row and slot once, the workspace (Dv + 2) fp32 a row and range."""
+    b, h, cap, n_sm = 8, 128, 2048, 132
+    plan = mla_split_plan(b, s, h, cap, n_sm, 512, 64)
+    assert plan.n_rb == -(-h * s // ROW_BLOCK)
+    assert plan.grid == b * plan.n_rb * 2 * plan.n_split >= n_sm
+    assert (plan.n_split == 1) == (s >= 6)
+    if s == 64:
+        assert b * plan.n_rb == 1024 and plan.grid == 2048
+    if plan.n_split > 1:    # the next coarser cut leaves part of the wave
+        coarser = plan.n_split - 1
+        assert b * plan.n_rb * 2 * coarser < n_sm
+        assert plan.workspace == plan.n_split * b * s * h * 514
+    slots = np.zeros(cap, int)
+    for sp in range(plan.n_split):
+        slots[sp * plan.span:min(cap, (sp + 1) * plan.span)] += 1
+    assert (slots == 1).all() and plan.span % KV_TILE == 0
 
 
 @pytest.mark.parametrize("B,s,H,Hk,cap,n_sm,Dv", PLAN_SHAPES)

@@ -1,7 +1,8 @@
 """The port's LM architectures against the reference: the configs of
 minicpm-2b, qwen2-1.5b and qwen2-moe-a2.7b field for field, ``get_arch``
-refusing only the two architectures still to port, ``count_params`` for
-every ported LM arch, minicpm3-4b's (MLA) training gradients on the kernel
+taking every reference architecture (``NOT_PORTED`` empty),
+``count_params`` for every ported LM arch (deepseek-v2-236b's SMOKE
+config among them), minicpm3-4b's (MLA) training gradients on the kernel
 path, 3 AdamW steps of each arch this slice trains, and the port's own
 entry points (``train_smoke``, the ``run_lm`` CLI) on the CPU.
 
@@ -42,7 +43,8 @@ from repro_torch.train.trainer import init_train_state, make_train_step
 
 T = torch.from_numpy
 NEW = ["minicpm-2b", "qwen2-1.5b", "qwen2-moe-a2.7b"]
-TRAINED = ["minicpm-2b", "qwen2-1.5b", "minicpm3-4b", "qwen2-moe-a2.7b"]
+TRAINED = ["minicpm-2b", "qwen2-1.5b", "minicpm3-4b", "qwen2-moe-a2.7b",
+           "deepseek-v2-236b"]
 LM = ["dti-llama"] + TRAINED
 
 
@@ -101,15 +103,16 @@ def test_config_matches_reference_field_for_field(arch):
 
 
 def test_get_arch_refuses_only_the_two_left_to_port():
-    refused = set()
+    """Nothing is left to port: ``NOT_PORTED`` is empty and ``get_arch``
+    returns every reference architecture's spec, deepseek-v2-236b's
+    (the last one, MLA + MoE) among them."""
+    assert NOT_PORTED == {}
     for name in J_ALL:
-        try:
-            assert get_arch(name).name == j_get_arch(name).name
-        except NotImplementedError as e:
-            assert "ROADMAP" in str(e)
-            refused.add(name)
-    assert refused == set(NOT_PORTED) == {"deepseek-v2-236b"}
+        assert get_arch(name).name == j_get_arch(name).name
     assert get_arch("gin-tu").family == "gnn"
+    ds = get_arch("deepseek-v2-236b")
+    assert (ds.family, ds.trainable, ds.config.kv_lora_rank,
+            ds.config.qk_rope_dim) == ("lm", "lora", 512, 64)
 
 
 @pytest.mark.parametrize("lora", [0, 4])

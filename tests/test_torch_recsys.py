@@ -85,9 +85,13 @@ def test_configs_match_reference(arch):
 
 
 def test_unported_archs_raise_with_their_roadmap_item():
-    for name in NOT_PORTED:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_arch(name)
+    """No architecture is left unported (``NOT_PORTED`` is empty): the
+    last one, deepseek-v2-236b, returns its spec, and a name neither
+    package knows raises ``KeyError``."""
+    assert NOT_PORTED == {}
+    assert get_arch("deepseek-v2-236b").smoke.name == "deepseek-v2-smoke"
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_arch("deepseek-v3")
     assert get_arch("dti-llama").smoke.name == "dti-llama-repro"
 
 
