@@ -7,7 +7,9 @@ Each tree's own ``chip_smoke.py`` helpers and kernels (built from its
 sources into its own ``build/``) time, in a process of their own, kernel
 1 at dti-llama's prefill shape, kernel 4's GQA mode at its decode shape
 and its MLA mode at minicpm3-4b's (bf16 and int8 at s=64, bf16 at s=16),
-the operands made from the seeds ``chip_smoke.py`` uses. The trees run in
+and kernels 2 and 3 (each pass on its own) at dti-llama's and
+minicpm3-4b's training shapes, the operands made from the seeds
+``chip_smoke.py`` uses. The trees run in
 turns, parent, change, change, parent, so that a drift of the card shows
 on both sides. Each line is ``AB <tree> <json>``: per kernel, ms a call by
 ``cuda_ms`` (as the ``kernels`` line times it) and by ``cuda_ms_queued``
@@ -55,6 +57,13 @@ def run_tree(root: Path, label: str) -> None:
     o, kw = cs.real_mla(gen, s=16)
     both("decode_attn_mla_s16", lambda: decode_attention_mla(
         *cs.mla_args(o), **kw))
+    del o, kw
+    gen.manual_seed(4)
+    for tag, heads in (("", cs.LLAMA_HEADS), ("_mla", cs.MLA_HEADS)):
+        calls, _ = cs._bwd_launches(*cs.train_windowed(gen, heads=heads))
+        for name, fn in calls.items():
+            both(name + tag, fn)
+        del calls
     print("AB", label, json.dumps(out), flush=True)
 
 

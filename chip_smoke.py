@@ -55,7 +55,17 @@ Phases, each fatal on failure:
    (``decode_attn_mla_576``, ``_q8``) over 2g's flags at r 512 / dr 64,
    300 / 40, 264 / 48 and 392 / 56, then at deepseek-v2's decode shape
    (B=8, cap=2048, s=64, 128 heads, r 512, dr 64) in bf16 and on int8
-   codes; each real shape twice (the same bits).
+   codes; each real shape twice (the same bits). 2i: kernels 2 and 3 at
+   Dqk 192 / Dv 128 under launch keys of their own
+   (``windowed_attn_dq_192``, ``windowed_attn_dkv_192``), as 2d holds the
+   128 class: fp32 small shapes over every flag (NoPE, reset, packed
+   segments, [SUM] isolation on and off, n_rep 1 and 2, Dqk 192 and 136)
+   within 1e-4, bf16 small shapes per row and twice (the same bits), rows
+   off 16-byte boundaries bit for bit those of aligned copies; then
+   deepseek-v2's training shape (B=8, S=2048, 128 heads, NoPE + reset, a
+   [SUM] tail of 20 rows, then every 7th slot) in bf16 against the fp32
+   plain version a batch row at a time, twice; cross-segment gradients
+   exactly 0.
 11. recsys — DIN, MIND, SASRec and xDeepFM in fp32 before the dti-llama
    weights are loaded: (a) FULL widths with tables cut to 2^20 rows
    (xDeepFM: each field to min(v, 2^16)), the card against the CPU on the
@@ -109,6 +119,18 @@ Phases, each fatal on failure:
    decode step within 1e-3, on a run where no token's top-k set differs
    between the paths (the count printed; it fails if every seed of the
    serving material gives a nonzero count).
+20. qwen2-moe-a2.7b training — its ``FULL`` config (24 layers, random
+   seeded bf16 weights, LoRA rank 8, nonzero ``lora_b``) through phase 7's
+   path at the config's capacity factor 1.25, the counts set to 0 before
+   it: per step kernel 1 48 times, kernels 2 and 3 24 times each, no plain
+   version; losses finite, frozen leaves unchanged, LoRA leaves moved; the
+   share of dropped choices in one forward, the step timed and profiled,
+   peak memory; two steps from one state give the same loss, grad norm
+   and LoRA bits (the MoE backward's sums run in a fixed order). 20b: FULL
+   widths, 2 layers, fp32, the no-drop factor, the kernel path against
+   the dense path (loss within 1e-5, each LoRA gradient within 1e-4 of
+   its leaf's largest), on the first batch where no token's top-k set
+   differs between the paths (the count printed).
 15. minicpm-2b and qwen2-1.5b — each ``FULL`` with ``attn_impl="cuda"``:
    phases 3 and 4 on it (kernel 1 once per layer per prefill call, kernel
    4's GQA mode at head dim 64 with n_rep 1, and at 128 with n_rep 6, once
@@ -135,7 +157,12 @@ Phases, each fatal on failure:
    decode burst step timed and profiled, drops and peak memory printed.
    18b: the dense first layer alone in fp32, kernel path against dense
    path for prefill and every decode step within 1e-4, then the int8
-   latent cache's one-layer check as in 12b.
+   latent cache's one-layer check as in 12b. 19: on the same model, LoRA
+   B made nonzero, phase 20's training path and checks at capacity 1.25,
+   kernels 1-3 at Dqk 192 (per step ``windowed_attn_192`` 6 times,
+   ``windowed_attn_dq_192`` and ``_dkv_192`` 3 times each); 19b: the dense
+   first layer alone in fp32 on 2 rows, kernel path against dense path at
+   20b's tolerances.
 16. gin-tu — ``configs/gin_tu`` FULL per shape (``config_for_shape``: 5
    layers, d_hidden 64, sum, learnable eps, fp32, remat; random seeded
    weights) trained with the reference cell's AdamW (lr 1e-3, cosine over
@@ -232,7 +259,10 @@ Phases, each fatal on failure:
    training shape (phase 13's operands) beside their bound and SDPA
    backward on the same mask; the wide geometries of 2h at deepseek-v2's
    shapes beside their plain versions (kernel 1's summed over calls of
-   one batch row) and SDPA.
+   one batch row) and SDPA; kernels 2 and 3's Dqk-192 class at deepseek-
+   v2's training shape (2i's operands) beside their plain version (summed
+   over calls of one batch row), SDPA backward and their bound, and with
+   [SUM] rows every 7th slot.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. With no card, or run
@@ -296,7 +326,13 @@ DRIFT_SLACK = 5e-3
 P_TOL = 5e-2
 
 
+T_START = time.perf_counter()
+
+
 def log(msg: str) -> None:
+    """Print a line; a phase's header line with the run's seconds so far."""
+    if msg.startswith("phase "):
+        msg = f"{msg} [{time.perf_counter() - T_START:.0f}s]"
     print(msg, flush=True)
 
 
@@ -578,7 +614,7 @@ def check_kernels_real():
 
 
 # ---------------------------------------------------------------------------
-# phase 2d: the backward kernels against their plain version
+# phases 2d and 2i: the backward kernels against their plain version
 # ---------------------------------------------------------------------------
 
 GRADS = ("dq", "dk", "dv", "dq_nope", "dk_nope", "dv0")
@@ -667,9 +703,9 @@ def hold_train_grads(o, kw, label):
             errs[name] = max(errs.get(name, 0.0), check_rows(
                 f"{name:7s} [{label}] row {b}", g[b:b + 1], w, quiet=True,
                 floor=GRAD_FLOOR * float(w.abs().max()), worst_of=worst))
-    for name in GRADS:
-        log(f"  [{label}] {name}: max|err| over 8 rows {errs[name]:.3e}, "
-            f"worst err/tol {worst[name]:.3f}")
+    for name in errs:
+        log(f"  [{label}] {name}: max|err| over {o['q'].shape[0]} rows "
+            f"{errs[name]:.3e}, worst err/tol {worst[name]:.3f}")
     return errs
 
 
@@ -707,24 +743,62 @@ def card_leakage(lens, *, window, seed, with_sum, target_seg, D=8, Dv=8):
     return max(float(t[0, others].abs().max()) for t in g)
 
 
-def check_kernels_bwd():
-    """Phase 2d. Off the main path: the launches here are reset before
-    phase 3."""
-    from repro_torch.kernels.windowed_attn import windowed_attention_bwd_plain
+# phases 2d and 2i: window, nope, reset, packed, sum_iso, Hk, D, Dv, S,
+# empty_row over 8 query heads; 2d at kernels 2 and 3's 128 class, 2i at
+# their Dqk-192 class (D 192 and 136)
+BWD_CASES = [
+    (48, False, False, False, False, 8, 64, 64, 256, False),
+    (48, True, False, False, True, 4, 64, 64, 200, True),
+    (48, True, True, False, True, 2, 64, 48, 200, False),
+    (100, False, True, True, True, 2, 64, 48, 256, False),
+    (300, True, True, True, False, 1, 64, 64, 200, True),   # window off
+    (64, True, False, True, True, 2, 64, 64, 190, False),
+]
+WIDE_BWD_CASES = [
+    (48, False, False, False, False, 8, 192, 128, 256, False),
+    (48, True, False, False, True, 4, 192, 128, 200, True),
+    (48, True, True, False, True, 8, 192, 128, 200, False),
+    (100, False, True, True, True, 4, 192, 64, 256, False),
+    (300, True, True, True, False, 8, 192, 128, 200, True),  # window off
+    (64, True, False, True, True, 4, 136, 96, 190, False),
+]
+
+
+def _unaligned(t):
+    """A copy of ``t`` whose base is one element past a 16-byte boundary."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = flat[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def check_kernels_bwd(phase, cases, *, seed, heads=LLAMA_HEADS,
+                      leak_dims=(8, 8), unaligned=False, keep=True):
+    """Phases 2d and 2i: kernels 2 and 3 of one head-dim class through the
+    autograd Function around kernel 1. fp32 small shapes over ``cases``
+    within SMALL_TOL; with ``unaligned``, the cases past the first in bf16
+    per row, twice (the same bits), and on rows that are not 16-byte
+    aligned bit for bit those of aligned copies; the training shape at
+    ``heads`` (``train_windowed``: [SUM] rows in each row's tail, then every
+    7th slot) in bf16 against the fp32 plain version a batch row at a time,
+    twice (``hold_train_grads``); cross-segment gradients at head dims
+    ``leak_dims`` exactly 0; each launch counted under its class's key.
+    Off the main path: the launches here are reset before phase 3. Returns,
+    per pass, the largest bf16 error at the training shape, and with
+    ``keep`` its operands (tail and spread) and the plain backward's ms on
+    the tail (phase 6 reads them)."""
+    from repro_torch import kernels
+    from repro_torch.kernels.windowed_attn import (launch_key,
+                                                   windowed_attention_bwd_plain)
     gen = torch.Generator(device="cuda")
-    gen.manual_seed(4)
-    log("phase 2d: windowed_attn_dq / windowed_attn_dkv vs plain, fp32, "
-        "small shapes")
-    cases = [  # window, nope, reset, packed, sum_iso, Hk, Dv, S, empty_row
-        (48, False, False, False, False, 8, 64, 256, False),
-        (48, True, False, False, True, 4, 64, 200, True),
-        (48, True, True, False, True, 2, 48, 200, False),
-        (100, False, True, True, True, 2, 48, 256, False),
-        (300, True, True, True, False, 1, 64, 200, True),   # window off
-        (64, True, False, True, True, 2, 64, 190, False),
-    ]
-    for window, nope, reset, packed, sum_iso, hk, dv, S, empty in cases:
-        o = windowed_operands(gen, B=2, S=S, H=8, Hk=hk, D=64, Dv=dv,
+    gen.manual_seed(seed)
+    fwd, dq, dkv = (launch_key(f"windowed_attn{k}", heads["D"])
+                    for k in ("", "_dq", "_dkv"))
+    before = dict(kernels.LAUNCHES)
+    n_calls = n_fwd = 0      # calls of the autograd Function; forwards alone
+    log(f"phase {phase}: {dq} / {dkv} vs plain, fp32, small shapes")
+    for window, nope, reset, packed, sum_iso, hk, d, dv, S, empty in cases:
+        o = windowed_operands(gen, B=2, S=S, H=8, Hk=hk, D=d, Dv=dv,
                               dtype=torch.float32, packed=packed,
                               empty_row=empty)
         kw = windowed_kwargs(o, window=window, nope=nope, reset=reset,
@@ -732,40 +806,86 @@ def check_kernels_bwd():
         do = torch.randn(2, S, 8, dv, generator=gen, device="cuda")
         got = kernel_grads(o["q"], o["k"], o["v"], do, **kw)
         torch.cuda.synchronize()
+        n_calls += 1
         want = windowed_attention_bwd_plain(o["q"], o["k"], o["v"], do, **kw)
         tag = (f"w={window} nope={nope} reset={reset} seg={packed} "
-               f"iso={sum_iso} n_rep={8 // hk} Dv={dv} S={S} empty={empty}")
+               f"iso={sum_iso} n_rep={8 // hk} D={d} Dv={dv} S={S} "
+               f"empty={empty}")
         for name, g, w in zip(GRADS, got, want):
             if (g is None) != (w is None):
                 fail(f"{name} [{tag}]: stream live on one side only")
             if g is not None:
                 check_close(f"{name:7s} [{tag}]", g, w, SMALL_TOL)
 
-    log("phase 2d: training shape, bf16 kernels vs the fp32 plain version; "
-        "[SUM] rows in each row's tail, then every 7th slot")
-    o, kw = train_windowed(gen)
-    errs = hold_train_grads(o, kw, "tail")
-    spread = train_windowed(gen, spread=True)
-    for name, err in hold_train_grads(*spread, "spread").items():
-        errs[name] = max(errs[name], err)
-    t0 = time.perf_counter()
-    plain_ms = cuda_ms(lambda: windowed_attention_bwd_plain(
-        o["q"], o["k"], o["v"], o["do"], **kw), iters=1, warmup=1)
-    log(f"  plain backward at B=8 (bf16 inputs, fp32 scores): "
-        f"{plain_ms:.2f} ms ({time.perf_counter() - t0:.1f}s)")
+    if unaligned:
+        log(f"phase {phase}: bf16 inputs, small shapes, per row; twice (the "
+            "same bits); rows off 16-byte boundaries bit for bit")
+        for window, nope, reset, packed, sum_iso, hk, d, dv, S, empty in \
+                cases[1:]:
+            o = windowed_operands(gen, B=2, S=S, H=8, Hk=hk, D=d, Dv=dv,
+                                  dtype=torch.bfloat16, packed=packed,
+                                  empty_row=empty)
+            o["do"] = torch.randn(2, S, 8, dv, generator=gen,
+                                  device="cuda").to(torch.bfloat16)
+            kw = windowed_kwargs(o, window=window, nope=nope, reset=reset,
+                                 packed=packed, sum_iso=sum_iso)
+            tag = f"bf16 w={window} n_rep={8 // hk} D={d} Dv={dv}"
+            hold_train_grads(o, kw, tag)
+            names = [n for n in ("q_nope", "k_nope", "v0") if n in kw]
+            kw2 = dict(kw, **{n: _unaligned(kw[n]) for n in names})
+            a = kernel_grads(o["q"], o["k"], o["v"], o["do"], **kw)
+            b = kernel_grads(_unaligned(o["q"]), _unaligned(o["k"]),
+                             _unaligned(o["v"]), _unaligned(o["do"]), **kw2)
+            torch.cuda.synchronize()
+            n_calls, n_fwd = n_calls + 4, n_fwd + 1
+            if not all((x is None and y is None) or torch.equal(x, y)
+                       for x, y in zip(a, b)):
+                fail(f"[{tag}] unaligned rows give other gradients")
+        log("  rows off 16-byte boundaries (the conversion pass) give the "
+            "aligned copies' gradients bit for bit")
 
-    log("phase 2d: cross-segment gradients through the kernels")
+    shape = "H{H} Hk{Hk} D{D} Dv{Dv}".format(**heads)
+    log(f"phase {phase}: training shape B=8 S=2048 {shape}, bf16 kernels vs "
+        "the fp32 plain version; [SUM] rows in each row's tail, then every "
+        "7th slot")
+    o, kw = train_windowed(gen, heads=heads)
+    errs = hold_train_grads(o, kw, f"{shape} tail")
+    spread = train_windowed(gen, spread=True, heads=heads)
+    for name, err in hold_train_grads(*spread, f"{shape} spread").items():
+        errs[name] = max(errs[name], err)
+    n_calls, n_fwd = n_calls + 4, n_fwd + 2
+    res = {key: dict(err=max(errs[g] for g in grads))
+           for key, grads in zip((dq, dkv), PASS_GRADS.values())}
+    if keep:
+        t0 = time.perf_counter()
+        plain_ms = cuda_ms(lambda: windowed_attention_bwd_plain(
+            o["q"], o["k"], o["v"], o["do"], **kw), iters=1, warmup=1)
+        log(f"  plain backward at B=8 (bf16 inputs, fp32 scores): "
+            f"{plain_ms:.2f} ms ({time.perf_counter() - t0:.1f}s)")
+        for r in res.values():
+            r.update(ops=(o, kw), spread=spread, plain_ms=plain_ms)
+    del o, kw, spread
+    torch.cuda.empty_cache()
+
+    log(f"phase {phase}: cross-segment gradients through the kernels, D "
+        f"{leak_dims[0]} Dv {leak_dims[1]}")
     for lens, window, seed, with_sum, target in (([12, 9, 7], 8, 0, True, 1),
                                                  ([5, 17], 4, 1, False, 0)):
         leak = card_leakage(lens, window=window, seed=seed,
-                            with_sum=with_sum, target_seg=target)
+                            with_sum=with_sum, target_seg=target,
+                            D=leak_dims[0], Dv=leak_dims[1])
+        n_calls += 1
         log(f"  segments {lens} window {window} [SUM] {with_sum}: largest "
             f"cross-segment |grad| {leak}")
         if leak != 0.0:
             fail(f"gradient leaks across segments: {leak}")
-    return {name: dict(err=max(errs[g] for g in grads), ops=(o, kw),
-                       spread=spread, plain_ms=plain_ms)
-            for name, grads in PASS_GRADS.items()}
+    launched = {k: n - before[k] for k, n in kernels.LAUNCHES.items()
+                if n != before[k]}
+    want = {fwd: n_calls + n_fwd, dq: n_calls, dkv: n_calls}
+    if launched != want:
+        fail(f"phase {phase} launched {launched}, want {want}")
+    log(f"  phase {phase} launches {launched}")
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -852,10 +972,7 @@ class ChunkedServer:
 
 def prefill_kernel(cfg):
     """Kernel 1's launch key for ``cfg``'s q/k head dim."""
-    from repro_torch.kernels.windowed_attn import MAX_HEAD_DIM
-    d = (cfg.qk_nope_dim + cfg.qk_rope_dim if cfg.attn_type == "mla"
-         else cfg.hd)
-    return "windowed_attn" if d <= MAX_HEAD_DIM else "windowed_attn_192"
+    return train_keys(cfg)[0]
 
 
 def phase_prefill(cfg, params, prompts, kernels, per_call=None):
@@ -1174,11 +1291,22 @@ class _PlainCalls:
             setattr(m, a, fn)
 
 
+def train_keys(cfg):
+    """The launch keys of kernels 1, 2 and 3 at ``cfg``'s q/k head dim
+    (``launch_key``)."""
+    from repro_torch.kernels.windowed_attn import launch_key
+    d = (cfg.qk_nope_dim + cfg.qk_rope_dim if cfg.attn_type == "mla"
+         else cfg.hd)
+    return tuple(launch_key(f"windowed_attn{k}", d)
+                 for k in ("", "_dq", "_dkv"))
+
+
 def phase_train(cfg, params, mat, kernels, phase="7"):
     """The training path: ``make_train_step`` + ``Trainer`` with LoRA rank
     8, ``trainable="lora"``, remat, reset and ALiBi, on ``params`` (bf16).
     Per step: kernel 1 once per layer in the forward and once in the remat
-    recompute, kernels 2 and 3 once per layer, no plain attention."""
+    recompute, kernels 2 and 3 once per layer (under ``train_keys``), no
+    plain attention."""
     from repro_torch.launch.train import evaluate_lm, make_lm_loss_fn
     from repro_torch.models.transformer import named_leaves
     from repro_torch.train.optimizer import OptimizerConfig, is_trainable
@@ -1222,9 +1350,9 @@ def phase_train(cfg, params, mat, kernels, phase="7"):
     log(f"  launches per step {per_step}; plain attention calls {plain.n}; "
         f"peak memory {peak / 2**30:.2f} GiB")
     want = {k: 0 for k in kernels.KERNELS}
-    want.update(windowed_attn=2 * cfg.n_layers,
-                windowed_attn_dq=cfg.n_layers,
-                windowed_attn_dkv=cfg.n_layers)
+    fwd, dq, dkv = train_keys(cfg)
+    want.update({fwd: 2 * cfg.n_layers, dq: cfg.n_layers,
+                 dkv: cfg.n_layers})
     if any(d != want for d in per_step) or len(per_step) != TRAIN_STEPS:
         fail(f"launches per step {per_step}, want {want} x {TRAIN_STEPS}")
     if plain.n:
@@ -1279,24 +1407,33 @@ def _lora_grads(cfg, params, batch, window):
     return float(loss.detach()), {p: g for (p, _), g in zip(leaves, grads)}
 
 
-def phase_fp32_train_check(cfg, params, mat, phase="8"):
-    """Off the main path. Two layers at FULL widths in fp32 (so the dense
-    path's score tensors fit), on half of batch 1: the kernel path and the
-    dense path must give the same loss and LoRA gradients."""
-    log(f"phase {phase}: {cfg.name} fp32 at 2 layers, kernel path vs dense "
-        "path: loss and every LoRA gradient")
-    cfg2 = dataclasses.replace(cfg, n_layers=2, param_dtype="float32",
+def phase_fp32_train_check(cfg, params, mat, phase="8", n_layers=2,
+                           rows=TRAIN_ROWS // 2):
+    """Off the main path. ``n_layers`` layers at FULL widths in fp32 (so
+    the dense path's score tensors fit), on the first ``rows`` rows of
+    batch 1: the kernel path and the dense path must give the same loss
+    and LoRA gradients."""
+    log(f"phase {phase}: {cfg.name} fp32 at {n_layers} layer(s), {rows} "
+        "rows, kernel path vs dense path: loss and every LoRA gradient")
+    cfg2 = dataclasses.replace(cfg, n_layers=n_layers, param_dtype="float32",
                                compute_dtype="float32")
-    p32 = {k: _map_tensors(v, lambda t: t.float()) for k, v in params.items()
-           if k != "layers"}
-    p32["layers"] = [_map_tensors(lp, lambda t: t.float())
-                     for lp in params["layers"][:2]]
+    p32 = _layers(params, n_layers, torch.float32)
     dev = params["embed"].device
-    batch = {k: torch.from_numpy(v[:TRAIN_ROWS // 2]).to(dev)
+    batch = {k: torch.from_numpy(v[:rows]).to(dev)
              for k, v in mat["batches"][0].items()}
     got = {impl: _lora_grads(dataclasses.replace(cfg2, attn_impl=impl), p32,
                              batch, mat["window"])
            for impl in ("cuda", "dense")}
+    out = hold_lora_grads(got)
+    del p32, got
+    torch.cuda.empty_cache()
+    return out
+
+
+def hold_lora_grads(got):
+    """``got`` maps "cuda" and "dense" to ``_lora_grads``'s (loss,
+    gradients): the losses within LOSS32_TOL, each LoRA leaf's gradient
+    within GRAD32_TOL of its largest |gradient|."""
     (lc, gc), (ld, gd) = got["cuda"], got["dense"]
     worst, worst_rel = 0.0, 0.0
     for p in gd:
@@ -1313,8 +1450,6 @@ def phase_fp32_train_check(cfg, params, mat, phase="8"):
         f"{GRAD32_TOL})")
     if not abs(lc - ld) <= LOSS32_TOL:
         fail(f"fp32 loss: kernel path {lc} vs dense {ld}")
-    del p32, got
-    torch.cuda.empty_cache()
     return dict(loss_diff=abs(lc - ld), grad_rel=worst_rel)
 
 
@@ -3188,9 +3323,11 @@ def phase_deepseek(kernels):
     del run, server, burst, decode
     torch.cuda.empty_cache()
     checks = phase_deepseek32(cfg, params, users, prompts, kernels)
+    train = phase_deepseek_train(cfg, params, kernels)
     del params
     torch.cuda.empty_cache()
-    return dict(launches=launches, times=times, errs=errs, checks=checks)
+    return dict(launches=launches, times=times, errs=errs, checks=checks,
+                train=train)
 
 
 def phase_deepseek32(cfg, params, users, prompts, kernels):
@@ -3220,6 +3357,172 @@ def phase_deepseek32(cfg, params, users, prompts, kernels):
             fail(f"phase 18b {name}: kernel path differs from dense by {err}")
     out["int8 1 layer"] = int8_one_layer_check(cfg, params, kernels, "18b")
     return out
+
+
+# ---------------------------------------------------------------------------
+# phases 19, 19b, 20 and 20b: MoE LoRA training at full width
+# ---------------------------------------------------------------------------
+
+DS_TRAIN_ROWS32 = 2    # 19b's rows: the dense path's fp32 score planes at 128 heads
+
+
+def moe_drops(cfg, params, mat):
+    """(dropped, all) (token, expert) choices of one forward of batch 1 at
+    ``cfg``'s capacity factor, under no_grad (``_MoeRouting`` would sync
+    the host in every MoE call of a timed step)."""
+    from repro_torch.launch.train import make_lm_loss_fn
+    batch = {k: torch.from_numpy(v).to("cuda")
+             for k, v in mat["batches"][0].items()}
+    routing = _MoeRouting()
+    try:
+        with torch.no_grad():
+            make_lm_loss_fn(cfg, mat["window"])(params, batch)
+    finally:
+        routing.close()
+    return routing.dropped()
+
+
+def repeat_step_bits(train, mat):
+    """Two steps from the state ``phase_train`` ended in, on batch 1: the
+    same loss and grad norm, and every LoRA leaf (its bf16 param and its
+    fp32 master) bit for bit equal. Returns the LoRA leaves compared."""
+    from repro_torch.models.transformer import named_leaves
+    state, b = train["state"], mat["batches"][0]
+    (s1, m1), (s2, m2) = (train["step_fn"](state, b),
+                          train["step_fn"](state, b))
+    pairs = [(p, a, c) for (p, a), (_, c) in
+             zip(list(named_leaves(s1.params))
+                 + list(named_leaves(s1.opt.master)),
+                 list(named_leaves(s2.params))
+                 + list(named_leaves(s2.opt.master)))
+             if "lora" in str(p)]
+    differ = [p for p, a, c in pairs if not torch.equal(a, c)]
+    if not (torch.equal(m1["loss"], m2["loss"])
+            and torch.equal(m1["grad_norm"], m2["grad_norm"])) or differ:
+        fail(f"two steps from one state differ: loss {float(m1['loss'])} / "
+             f"{float(m2['loss'])}, LoRA leaves {differ[:3]}")
+    return len(pairs)
+
+
+def moe_train_tail(cfg, params, mat, train, phase):
+    """What phases 19 and 20 measure after ``phase_train``: the share of
+    dropped choices, the step's time and peak memory (``time_train``), a
+    profiled step, and two steps from one state bit for bit."""
+    drops = moe_drops(cfg, params, mat)
+    times = time_train(cfg, params, mat, train)
+    times["drops"] = drops
+    state = {"s": train["state"]}
+
+    def one_step():   # two more LoRA steps; every check ran before
+        state["s"] = train["step_fn"](state["s"], mat["batches"][0])[0]
+    times["busy_ms"] = profile_call(
+        one_step, f"{cfg.name} train step B={TRAIN_ROWS} S={TRAIN_LEN} "
+        f"{cfg.n_layers} layers")
+    del state
+    n = repeat_step_bits(train, mat)
+    log(f"  phase {phase}: dropped (token, expert) choices at capacity "
+        f"factor {cfg.capacity_factor} in one forward of batch 1: "
+        f"{drops[0]} of {drops[1]} ({drops[0] / max(drops[1], 1):.3f}); "
+        f"two steps from one state: equal loss, grad norm and {n} LoRA "
+        f"leaves (params and fp32 masters) bit for bit ({card_line()})")
+    return times
+
+
+def phase_deepseek_train(cfg, params, kernels):
+    """Phases 19 and 19b on phase 18's model (deepseek-v2-236b at FULL
+    widths over its dense first layer and two MoE layers, bf16, LoRA rank
+    8, ``lora_b`` made nonzero): phase 7's path (remat, reset and ALiBi,
+    ``trainable="lora"``) at the config's capacity factor 1.25, on kernel
+    1's and kernels 2 and 3's Dqk-192 classes (each once per layer a step,
+    kernel 1 once more in the remat recompute; no plain call); then
+    ``moe_train_tail``; then 19b, the dense first layer alone in fp32 on
+    DS_TRAIN_ROWS32 rows, kernel path against dense path."""
+    log(f"phase 19: deepseek-v2-236b LoRA training, FULL widths, "
+        f"{cfg.n_layers} layers, bf16, attn_impl cuda, capacity factor "
+        f"{cfg.capacity_factor}")
+    nonzero_lora(params, seed=4)
+    mat = training_material(cfg)
+    train = phase_train(cfg, params, mat, kernels, phase="19")
+    times = moe_train_tail(cfg, params, mat, train, "19")
+    launches = train["launches"]
+    del train
+    torch.cuda.empty_cache()
+    check = phase_fp32_train_check(cfg, params, mat, phase="19b", n_layers=1,
+                                   rows=DS_TRAIN_ROWS32)
+    return dict(launches=launches, times=times, check=check)
+
+
+def phase_moe_train(kernels):
+    """Phases 20 and 20b: qwen2-moe-a2.7b ``FULL`` (24 layers, 16/16 heads
+    of 128, 60 experts top-4 + 4 shared; random seeded bf16 weights with
+    LoRA rank 8, nonzero ``lora_b``) through phase 7's path at the config's
+    capacity factor 1.25, kernels 1-3 at head dim 128; then
+    ``moe_train_tail`` (two steps from one state bit for bit: the MoE
+    backward's sums run in a fixed order); then 20b. Returns the launches,
+    times and 20b's diffs; frees its weights."""
+    from repro_torch.configs.qwen2_moe_a2_7b import FULL
+    from repro_torch.models.transformer import count_params, init_params
+    log("phase 20: qwen2-moe-a2.7b LoRA training, FULL, bf16, attn_impl cuda")
+    cfg = dataclasses.replace(FULL, attn_impl="cuda", lora_rank=8)
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0)
+    nonzero_lora(params, seed=4)
+    torch.cuda.synchronize()
+    log(f"  {cfg.name} FULL with LoRA rank {cfg.lora_rank}: "
+        f"{count_params(params) / 1e9:.3f}B parameters, "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on card, "
+        f"{time.perf_counter() - t0:.1f}s")
+    mat = training_material(cfg)
+    train = phase_train(cfg, params, mat, kernels, phase="20")
+    times = moe_train_tail(cfg, params, mat, train, "20")
+    launches = train["launches"]
+    del train
+    torch.cuda.empty_cache()
+    check = phase_moe_train32(cfg, params, mat)
+    del params
+    torch.cuda.empty_cache()
+    return dict(launches=launches, times=times, check=check)
+
+
+def phase_moe_train32(cfg, params, mat):
+    """20b: qwen2-moe-a2.7b at FULL widths, 2 layers, fp32, ``no_drop``
+    capacity, on half of a batch: the kernel path against the dense path,
+    the loss within LOSS32_TOL and each LoRA gradient within GRAD32_TOL
+    (``hold_lora_grads``), on the first batch where no token's top-k set
+    differs between the paths (as 14b; each batch's count printed)."""
+    log("phase 20b: qwen2-moe-a2.7b FULL widths, 2 layers, fp32, no-drop "
+        "capacity: kernel path vs dense path, loss and every LoRA gradient")
+    c32 = no_drop(dataclasses.replace(cfg, n_layers=2, param_dtype="float32",
+                                      compute_dtype="float32"))
+    p32 = _layers(params, 2, torch.float32)
+    for i, b in enumerate(mat["batches"]):
+        batch = {k: torch.from_numpy(v[:TRAIN_ROWS // 2]).to("cuda")
+                 for k, v in b.items()}
+        got, calls = {}, {}
+        for impl in ("cuda", "dense"):
+            routing = _MoeRouting()
+            try:
+                got[impl] = _lora_grads(dataclasses.replace(
+                    c32, attn_impl=impl), p32, batch, mat["window"])
+            finally:
+                routing.close()
+            calls[impl] = routing.calls
+        pairs = list(zip(calls["cuda"], calls["dense"]))
+        if len(calls["cuda"]) != len(calls["dense"]) or any(
+                a[2].shape != c[2].shape for a, c in pairs):
+            fail("phase 20b: the two paths made different MoE calls")
+        flips = sum(int((a[2] != c[2]).any(-1).sum()) for a, c in pairs)
+        tokens = sum(a[2].shape[0] * a[2].shape[1] for a, _ in pairs)
+        log(f"  batch {i + 1}: tokens whose top-k set differs between the "
+            f"paths {flips} of {tokens} routed (forward and remat "
+            f"recompute){'' if flips == 0 else '; not held: a route differs'}")
+        if flips == 0:
+            out = hold_lora_grads(got)
+            del p32, got
+            torch.cuda.empty_cache()
+            return dict(out, batch=i + 1, flips=flips)
+    fail("phase 20b: a token's top-k set differs between the paths in every "
+         "batch")
 
 
 # ---------------------------------------------------------------------------
@@ -4077,16 +4380,20 @@ def time_bwd_at(o, kw, plain_ms, label):
     """Kernels 2 and 3 at one training shape, each on its own, beside the
     backward of ``scaled_dot_product_attention`` (the library yardstick:
     the same boolean mask, repeated kv heads, no NoPE or reset stream).
-    The bound counts the attended pairs of these inputs: 2 (2D + Dv) FLOPs
-    per pair and head for dq, 2 (2D + 2Dv) for dk/dv; bytes: q, k, v,
-    q_nope, k_nope, v0, o, do, lse and the pass's gradients, once each."""
+    The bound counts what these inputs need: 2 (2D + Dv) FLOPs per attended
+    pair and head for dq, 2 (2D + 2Dv) for dk/dv; bytes read once each as
+    the passes read them: each query row's q or q_nope (a [SUM] row stages
+    q_nope in q's place), do, lse and delta (``_delta`` runs before the
+    passes, so o is not theirs), the attended keys as ``_attended_bytes``
+    counts them, V0 for the keys a [SUM] row attends, the index operands;
+    and the pass's gradient buffers written once."""
     import torch.nn.functional as F
     from repro_torch.core.windowed import dti_mask
     from repro_torch.kernels import windowed_attn as wa
     q, k, v, do = o["q"], o["k"], o["v"], o["do"]
     B, S, H, D = q.shape
     Hk, Dv = k.shape[2], v.shape[3]
-    calls, (st, live, alibi_f, ints, out, lse, bufs) = _bwd_launches(o, kw)
+    calls, (st, live, alibi_f, ints, _, _, bufs) = _bwd_launches(o, kw)
     fwd_ms = cuda_ms(lambda: wa._fwd(st, q, k, v, live, alibi_f, ints),
                      iters=10, warmup=2)
     log(f"  [{label}] windowed_attn at the training shape (NoPE + reset, "
@@ -4094,8 +4401,13 @@ def time_bwd_at(o, kw, plain_ms, label):
     mask = dti_mask(o["pos"], o["pos"], window=1024, is_sum_k=o["is_sum"],
                     valid_k=o["valid"])
     pairs = int(mask.sum())
-    ins = _bytes(q, k, v, kw["q_nope"], kw["k_nope"], kw["v0"], out, do,
-                 lse)
+    e = q.element_size()
+    kv_bytes, keys = _attended_bytes(mask, o["is_sum"], hk=Hk, d=D, dv=Dv,
+                                     esize=e)
+    v0_bytes = keys[1] * Hk * Dv * e if kw.get("v0") is not None else 0
+    ins = (B * S * H * (D + Dv) * e + 2 * B * H * S * 4 + kv_bytes + v0_bytes
+           + _bytes(o["pos"], o["pos"], o["is_sum"], o["is_sum"], o["valid"],
+                    kw.get("alibi")))
     flops = {"windowed_attn_dq": pairs * H * 2 * (2 * D + Dv),
              "windowed_attn_dkv": pairs * H * 2 * (2 * D + 2 * Dv)}
     res = {}
@@ -4124,6 +4436,32 @@ def time_bwd_at(o, kw, plain_ms, label):
             f"{r['flops'] / 1e12:.4f} TFLOP, {r['bytes'] / 1e6:.1f} MB), "
             f"plain backward {plain_ms:.2f} ms")
     return res
+
+
+def time_bwd_wide():
+    """Phase 6's rows for kernels 2 and 3's Dqk-192 class at deepseek-v2's
+    training shape (phase 2i's, made again from a seed; ``time_bwd_at``),
+    the plain backward summed over calls of one batch row (its fp32 score
+    planes at 128 heads), and with [SUM] rows every 7th slot."""
+    from repro_torch.kernels.windowed_attn import windowed_attention_bwd_plain
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(29)
+    o, kw = train_windowed(gen, heads=DS_HEADS)
+    plain = sum(cuda_ms(lambda a=a, k=k: windowed_attention_bwd_plain(*a, **k),
+                        iters=1, warmup=1)
+                for a, k in row_slices((o["q"], o["k"], o["v"], o["do"]), kw,
+                                       1, f32=False))
+    res = time_bwd_at(o, kw, plain, "deepseek-v2 B=8 S=2048 H=Hk=128 Dqk192 "
+                      "Dv128")
+    del o, kw
+    spread, _ = _bwd_launches(*train_windowed(gen, spread=True,
+                                              heads=DS_HEADS))
+    log("  Dqk 192, [SUM] rows every 7th slot: "
+        + ", ".join(f"{name}_192 {cuda_ms(fn, iters=5, warmup=1):.4f} ms"
+                    for name, fn in spread.items()))
+    del spread
+    torch.cuda.empty_cache()
+    return {f"{name}_192": r for name, r in res.items()}
 
 
 def time_bwd_kernels(bwd):
@@ -4425,16 +4763,20 @@ def run_phases(kernels, graphs, t_start) -> int:
 
     check_kernels_small()
     real = check_kernels_real()
-    bwd = check_kernels_bwd()
+    bwd = check_kernels_bwd("2d", BWD_CASES, seed=4)
     q8res = check_kernels_q8()
     mla_k = check_kernels_mla()
     wide = check_kernels_wide()
+    wide_bwd = check_kernels_bwd("2i", WIDE_BWD_CASES, seed=28,
+                                 heads=DS_HEADS, leak_dims=(192, 128),
+                                 unaligned=True, keep=False)
     bag = check_kernels_bag(kernels)
     recsys = phase_recsys(kernels)
     torch.cuda.empty_cache()
     mla = phase_mla(kernels)
     mla_train = phase_mla_train(kernels)
     moe = phase_moe(kernels)
+    moe_train = phase_moe_train(kernels)
     gqa = phase_gqa_archs(kernels)
     torch.cuda.empty_cache()
     ds = phase_deepseek(kernels)
@@ -4454,7 +4796,8 @@ def run_phases(kernels, graphs, t_start) -> int:
             "decode_attn_mla": 0, "decode_attn_mla_q8": 0,
             "embedding_bag": 0, "embedding_bag_q8": 0,
             "windowed_attn_192": 0, "decode_attn_mla_576": 0,
-            "decode_attn_mla_576_q8": 0}
+            "decode_attn_mla_576_q8": 0, "windowed_attn_dq_192": 0,
+            "windowed_attn_dkv_192": 0}
     log(f"  serving path launches {launches}: kernel 1 in "
         f"{1 + run['n_prefill_calls']} prefill calls, kernel 4 in "
         f"{run['n_steps']} decode steps")
@@ -4477,7 +4820,8 @@ def run_phases(kernels, graphs, t_start) -> int:
     sched32 = phase_sched32(cfg, params, kernels)
     torch.cuda.empty_cache()
     multi = phase_multi_target(cfg, params, kernels)
-    for res in (bag, mla, mla_train, moe, gqa, gnn, multi, ds):
+    for res in (bag, mla, mla_train, moe, moe_train, gqa, gnn, multi, ds,
+                ds["train"]):
         for name, n in res["launches"].items():
             launches[name] += n
 
@@ -4517,9 +4861,11 @@ def run_phases(kernels, graphs, t_start) -> int:
     time_mla_s16()
     time_mla_ranges(mla_k)
     times.update(time_wide())
+    times.update(time_bwd_wide())
     times.update(bag["times"])
     prof = {kv: profile_sched(cfg, params, kv) for kv in (None, "int8")}
-    errs = {name: r["err"] for name, r in {**real, **bwd}.items()}
+    errs = {name: r["err"]
+            for name, r in {**real, **bwd, **wide_bwd}.items()}
     errs["decode_attn_q8"] = q8res["err"]
     errs.update({name: r["err"] for name, r in mla_k.items()})
     errs.update(wide)
@@ -4559,7 +4905,11 @@ def run_phases(kernels, graphs, t_start) -> int:
            "decode_attn_mla_576": ("src/repro_torch/kernels/csrc/decode_attn.cu",
                                    "src/repro/kernels/decode_attn/decode_attn.py:317"),
            "decode_attn_mla_576_q8": ("src/repro_torch/kernels/csrc/decode_attn.cu",
-                                      "src/repro/kernels/decode_attn/decode_attn.py:139")}
+                                      "src/repro/kernels/decode_attn/decode_attn.py:139"),
+           "windowed_attn_dq_192": ("src/repro_torch/kernels/csrc/windowed_attn_bwd.cu",
+                                    f"{bwd_src}:112"),
+           "windowed_attn_dkv_192": ("src/repro_torch/kernels/csrc/windowed_attn_bwd.cu",
+                                     f"{bwd_src}:145")}
     rows = []
     for name in kernels.KERNELS:
         t = times[name]
@@ -4638,6 +4988,15 @@ def run_phases(kernels, graphs, t_start) -> int:
         f"{dt['sched'][1]:.1f} candidates/s, peak {dt['peak_gib']:.2f} GiB, "
         f"drops at 1.25 {dt['drops']}; bf16 diffs {ds['errs']}; 18b "
         f"{ds['checks']} ({card})")
+    for label, res in (("deepseek-v2-236b (19)", ds["train"]),
+                       ("qwen2-moe-a2.7b (20)", moe_train)):
+        t = res["times"]
+        log(f"  {label} LoRA training: train step {t['step_ms']:.2f} ms, "
+            f"{t['targets_per_s']:.2f} targets/s, {t['tokens_per_s']:.1f} "
+            f"non-pad tokens/s, peak {t['peak_gib']:.2f} GiB, device busy "
+            f"{t['busy_ms']:.2f} ms a profiled step, dropped choices "
+            f"{t['drops'][0]} of {t['drops'][1]}; fp32 check {res['check']} "
+            f"({card})")
     log("  GQA archs: " + "; ".join(
         f"{name} prefill {t['prefill_ms']:.2f} ms, decode burst step "
         f"{t['decode_ms']:.2f} ms, fp32 diffs {gqa['checks'][name]}"

@@ -11,10 +11,10 @@ reference. ``FULL`` prefills on the blocked path at its defaults
 dense path; with ``attn_impl="cuda"`` it prefills on the windowed
 kernel's wide head-dim class (Dqk 192, Dv 128, 128 heads) and decodes on
 the decode kernel's absorbed-MLA mode at its wide geometry (Dqk 576, Dv
-512, a rope span of 64). Its ~236B parameters (~470 GB in bf16) do not fit
-one 80 GB card: the card runs it at full width with the depth cut. It
-trains on the CPU at SMOKE size; kernels 2 and 3 stop at Dqk 128, so a
-training call on the card raises (ROADMAP queue B item 2).
+512, a rope span of 64), and trains (LoRA) on kernels 2 and 3's wide
+class at the same head dims. Its ~236B parameters (~470 GB in bf16) do
+not fit one 80 GB card: the card runs it at full width with the depth
+cut.
 """
 from repro_torch.configs.base import ArchSpec, lm_shapes
 from repro_torch.models.transformer import ModelConfig

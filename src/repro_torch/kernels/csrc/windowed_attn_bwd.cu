@@ -24,8 +24,10 @@
 // (B=8, S=2048, H=32, Hk=8, D=128, window 1024) the attended pairs need
 // 2 (2D + Dv) FLOPs each per head for dq and 2 (2D + 2Dv) for dk/dv, 0.31
 // and 0.42 ms at 989 TFLOP/s, against ~0.5 GB of operands: far above the
-// ~295 FLOP/byte ridge. So every product goes to the tensor cores, on
-// kernel 1's design (windowed_attn.cu):
+// ~295 FLOP/byte ridge. (At deepseek-v2's, H = Hk = 128 and D = 192, the
+// 1.64 and 2.06 TFLOP meet 7-8 GB of operands and gradients near the
+// ridge.) So every product goes to the tensor cores, on kernel 1's design
+// (windowed_attn.cu):
 //
 // * Tensor cores. mma.sync m16n8k16 (bf16 in, fp32 accumulate), fragments
 //   by ldmatrix from bf16 planes whose rows are padded to 136 values; K, Q
@@ -86,12 +88,23 @@
 //   pair does (an interior tile, whose scores need no mask).
 // * Order. Every sum runs in a fixed order, with no atomics: two calls give
 //   the same bits.
-// * Occupancy. bf16: 87-105 KiB of shared memory and 160-236 registers
-//   (nvcc -Xptxas -v, no spills), 2 CTAs (8 warps) per SM. The fp32
-//   instantiation (and bf16 rows that are not 16-byte aligned) converts
-//   each tile straight from memory into its term planes; fp32 takes one
-//   stage (and its dk/dv pass 2 warps, 32 keys a CTA): 104-206 KiB, 1 CTA
-//   per SM. `windowed_bwd_plan` in windowed_attn.py computes the grids,
+// * Head-dim classes (the Cfgs' DQ). q/k head dims up to 128 (DMAX) and,
+//   for deepseek-v2's MLA training (Dqk = 128 + 64, Dv 128), up to 192
+//   (DWIDE): the q, K, q_nope and K_nope planes' rows hold DQ + 8 values
+//   (200: conflict-free for ldmatrix too), V's, V0's and dO's stay at 136.
+//   A thread keeps the 128 class's accumulators in registers (dQ; dK and
+//   dV); the wide class's dQ and dK columns past 128, another 32 fp32 a
+//   thread, live in shared memory as this thread's fragments (XsAcc), each
+//   k-step's products added there from fresh registers. So ptxas gives
+//   both classes 160-242 registers and no spill (-Xptxas -v, sm_90a). At
+//   192 a bf16 CTA takes 119-149 KiB: one CTA (4 warps) per SM. fp32's dq
+//   CTA takes 2 warps (32 query rows): 4 would need 245-270 KiB with NoPE.
+// * Occupancy (the 128 class). bf16: 87-105 KiB of shared memory and
+//   160-236 registers (nvcc -Xptxas -v, no spills), 2 CTAs (8 warps) per
+//   SM. The fp32 instantiation (and bf16 rows that are not 16-byte
+//   aligned) converts each tile straight from memory into its term
+//   planes; fp32 takes one stage (and its dk/dv pass 2 warps, 32 keys a
+//   CTA): 104-206 KiB, 1 CTA per SM. `windowed_bwd_plan` in windowed_attn.py computes the grids,
 //   stages and shared memory of the `Cfg`s below; the entry points refuse
 //   a plan that differs.
 #include <cuda_bf16.h>
@@ -105,9 +118,12 @@
 
 namespace {
 
-constexpr int DMAX = 128;           // largest head dim (qk and v)
-constexpr int LD = DMAX + 8;        // plane row stride: conflict-free fragments
-constexpr int NT_D = DMAX / 8;      // n-tiles of a head dim
+constexpr int DMAX = 128;           // the value head dim's limit, and the narrow
+                                    // class's q/k head dim's
+constexpr int DWIDE = 192;          // the wide class's q/k head dim limit
+constexpr int LDV = DMAX + 8;       // V / dO plane row stride: conflict-free fragments
+constexpr int NT_V = DMAX / 8;      // n-tiles of a value head dim, and of the
+                                    // part of a q/k gradient held in registers
 constexpr int BK = 32;              // keys per kv tile (dq pass)
 constexpr int BQT = 32;             // query rows per q tile (dk/dv pass)
 constexpr int META = 4;             // per staged key: position, valid, [SUM], segment
@@ -283,58 +299,102 @@ __device__ __forceinline__ float reset_w(const Args<T>& a, int dd) {
 }
 
 // Tiles, terms, stages and shared memory per instantiation (see the
-// header); `windowed_bwd_plan` in windowed_attn.py mirrors both Cfgs.
-template <typename T, bool NOPE, bool RESET>
+// header); `windowed_bwd_plan` in windowed_attn.py mirrors both Cfgs. DQ
+// is the head-dim class of q and K (DMAX or DWIDE): the q, K, q_nope and
+// K_nope planes' rows hold DQ + 8 values (LDQ), V's, V0's and dO's LDV.
+// XS is the floats of the wide class's gradient columns past DMAX, kept in
+// shared memory (`XsAcc`).
+template <typename T, bool NOPE, bool RESET, int DQ>
 struct DqCfg {
-  static constexpr bool F32 = sizeof(T) == 4;
-  static constexpr int WARPS = 4, THREADS = 32 * WARPS;
+  static constexpr bool F32 = sizeof(T) == 4, WIDE = DQ > DMAX;
+  static constexpr int LDQ = DQ + 8;
+  // fp32 at the wide class: 2 warps, or Q, dO and a stage of K, K_nope, V
+  // and V0 in three terms would pass 227 KB
+  static constexpr int WARPS = (F32 && WIDE) ? 2 : 4, THREADS = 32 * WARPS;
+  static constexpr int CTAS = WIDE ? 1 : 2;           // CTAs per SM (launch bounds)
   static constexpr int BQ = 16 * WARPS;               // query rows per CTA
   static constexpr int NT = F32 ? 3 : 1;              // terms of q, dO, K, V, K_nope, V0
   static constexpr int NP = F32 ? 3 : 2;              // terms of dS
+  static constexpr int KPL = NT * (1 + NOPE);         // K, K_nope planes (LDQ)
   static constexpr int PLANES = NT * (2 + NOPE + RESET);   // K, K_nope, V, V0
   static constexpr int STAGES = F32 ? 1 : (PLANES <= 2 ? 3 : 2);
   static constexpr int MS = STAGES > 1 ? STAGES : 2;  // metadata ring
-  static constexpr size_t ROW_ELEMS = (size_t)2 * NT * BQ * LD;   // Q, dO
-  static constexpr size_t STAGE_ELEMS = (size_t)PLANES * BK * LD;
+  static constexpr size_t ROW_ELEMS = (size_t)NT * BQ * (LDQ + LDV);   // Q, dO
+  static constexpr size_t STAGE_ELEMS =
+      (size_t)KPL * BK * LDQ + (size_t)(PLANES - KPL) * BK * LDV;
+  static constexpr int XS = (DQ - DMAX) / 8 * 4 * THREADS;
   static constexpr size_t BYTES = (ROW_ELEMS + STAGES * STAGE_ELEMS) * sizeof(bf16) +
-                                  (size_t)(MS * META * BK + 5 * BQ + BQ / 8 + MS) * sizeof(int);
+                                  (size_t)(MS * META * BK + 5 * BQ + BQ / 8 + MS + XS) * sizeof(int);
 };
 
-template <typename T, bool NOPE, bool RESET>
+template <typename T, bool NOPE, bool RESET, int DQ>
 struct DkvCfg {
-  static constexpr bool F32 = sizeof(T) == 4;
+  static constexpr bool F32 = sizeof(T) == 4, WIDE = DQ > DMAX;
+  static constexpr int LDQ = DQ + 8;
   static constexpr int WARPS = F32 ? 2 : 4, THREADS = 32 * WARPS;
+  static constexpr int CTAS = WIDE ? 1 : 2;           // CTAs per SM (launch bounds)
   static constexpr int BKV = 16 * WARPS;              // keys per CTA
   static constexpr int BQ = BQT;                      // query rows per q tile
   static constexpr int NT = F32 ? 3 : 1;              // terms of K, V, K_nope, V0, q, dO
   static constexpr int NP = F32 ? 3 : 2;              // terms of P, P a sigma, dS
+  static constexpr int KPK = NT * (1 + NOPE);         // K, K_nope planes (LDQ)
   static constexpr int KPL = NT * (2 + NOPE + RESET);   // K, K_nope, V, V0
-  static constexpr int QPL = 2 * NT;                  // Q (q_nope on [SUM] rows), dO
   static constexpr int STAGES = F32 ? 1 : (KPL <= 3 ? 3 : 2);
   static constexpr int MS = STAGES > 1 ? STAGES : 2;  // row-data ring
-  static constexpr size_t KEY_ELEMS = (size_t)KPL * BKV * LD;
-  static constexpr size_t STAGE_ELEMS = (size_t)QPL * BQ * LD;
+  static constexpr size_t KEY_ELEMS =
+      (size_t)KPK * BKV * LDQ + (size_t)(KPL - KPK) * BKV * LDV;
+  static constexpr size_t STAGE_ELEMS = (size_t)NT * BQ * (LDQ + LDV);   // Q, dO
+  static constexpr int XS = (DQ - DMAX) / 8 * 4 * THREADS;
   static constexpr size_t BYTES =
       (KEY_ELEMS + STAGES * STAGE_ELEMS) * sizeof(bf16) +
-      (size_t)(MS * QMETA * BQ + MS + 8 * WARPS + BAND_TABLE / 4 + BAND_TABLE / 2 + 1) *
+      (size_t)(MS * QMETA * BQ + MS + 8 * WARPS + BAND_TABLE / 4 + BAND_TABLE / 2 + 1 + XS) *
           sizeof(int);
+};
+
+// The wide class's gradient columns past DMAX (dQ in the dq pass; dK, or
+// dK_nope, in the dk/dv pass) in shared memory, so that the accumulators a
+// thread holds in registers are those of the 128 class: this thread's
+// fragment element e of n-tile NT_V + j lies at xs[(4 j + e) THREADS +
+// tid] (a warp's accesses conflict-free). Each thread reads and writes its
+// own elements only: no barrier. A k-step's products go into fresh
+// registers, added here in round-to-nearest.
+template <int THREADS>
+struct XsAcc {
+  float* xs;
+  int tid;
+  __device__ __forceinline__ float& at(int j, int e) const {
+    return xs[(4 * j + e) * THREADS + tid];
+  }
+  __device__ __forceinline__ void add(int j, const float (&c)[4]) const {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) at(j, e) += c[e];
+  }
+  template <int NJ>
+  __device__ __forceinline__ void clear() const {
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) at(j, e) = 0.f;
+  }
 };
 
 // ---------------------------------------------------------------------------
 // the dq pass
 // ---------------------------------------------------------------------------
 
-template <typename T, bool NOPE, bool RESET>
-__global__ void __launch_bounds__(DqCfg<T, NOPE, RESET>::THREADS, 2)
+template <typename T, bool NOPE, bool RESET, int DQ>
+__global__ void __launch_bounds__(DqCfg<T, NOPE, RESET, DQ>::THREADS,
+                                  DqCfg<T, NOPE, RESET, DQ>::CTAS)
 dq_kernel(const Args<T> a) {
-  using C = DqCfg<T, NOPE, RESET>;
+  using C = DqCfg<T, NOPE, RESET, DQ>;
   constexpr int BQ = C::BQ, NT = C::NT, NP = C::NP, ST = C::STAGES, MS = C::MS;
-  constexpr int THREADS = C::THREADS, WARPS = C::WARPS;
-  // planes of a stage: K terms, K_nope terms, V terms, V0 terms
+  constexpr int THREADS = C::THREADS, WARPS = C::WARPS, LDQ = C::LDQ;
+  // planes of a stage: K terms, K_nope terms (LDQ wide), V terms, V0 terms
+  // (LDV wide)
   constexpr int PK = 0, PKN = NT, PV = NT + (NOPE ? NT : 0), PV0 = PV + NT;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* q_p = reinterpret_cast<bf16*>(smem_raw);   // q (q_nope on [SUM] rows)
-  bf16* do_p = q_p + (size_t)NT * BQ * LD;          // dO
+  bf16* do_p = q_p + (size_t)NT * BQ * LDQ;         // dO
   bf16* st_p = q_p + C::ROW_ELEMS;
   int* meta = reinterpret_cast<int*>(st_p + ST * C::STAGE_ELEMS);
   int* pos_r = meta + MS * META * BK;
@@ -344,7 +404,12 @@ dq_kernel(const Args<T> a) {
   float* dl_r = lse_r + BQ;
   int* red = reinterpret_cast<int*>(dl_r + BQ);   // per warp of rows: least, greatest position, segment
   int* interior = red + BQ / 8;   // per ring slot: every pair of the tile attends
-  auto plane = [&](int st, int p) { return st_p + st * C::STAGE_ELEMS + (size_t)p * BK * LD; };
+  const XsAcc<THREADS> xs{reinterpret_cast<float*>(interior + MS), (int)threadIdx.x};
+  auto plane = [&](int st, int p) {
+    return st_p + st * C::STAGE_ELEMS +
+           (p < C::KPL ? (size_t)p * BK * LDQ
+                       : (size_t)C::KPL * BK * LDQ + (size_t)(p - C::KPL) * BK * LDV);
+  };
   auto meta_of = [&](int i) { return meta + (i % MS) * META * BK; };
 
   const int h = blockIdx.x, iq = a.n_blocks - 1 - (int)blockIdx.y, b = blockIdx.z;
@@ -407,13 +472,13 @@ dq_kernel(const Args<T> a) {
       const int r = idx / (D / 8), ch = idx - r * (D / 8);
       const bool in = r < nr;
       const T* src = (NOPE && sum_r[r]) ? a.qn : a.q;
-      cp16(q_p + r * LD + ch * 8,
+      cp16(q_p + r * LDQ + ch * 8,
            src + (((size_t)b * S + q0 + (in ? r : 0)) * a.H + h) * D + ch * 8, in);
     }
     for (int idx = tid; idx < BQ * (Dv / 8); idx += THREADS) {
       const int r = idx / (Dv / 8), ch = idx - r * (Dv / 8);
       const bool in = r < nr;
-      cp16(do_p + r * LD + ch * 8,
+      cp16(do_p + r * LDV + ch * 8,
            a.dout + (((size_t)b * S + q0 + (in ? r : 0)) * a.H + h) * Dv + ch * 8, in);
     }
   } else {
@@ -424,14 +489,14 @@ dq_kernel(const Args<T> a) {
         const T* src = (NOPE && sum_r[r]) ? a.qn : a.q;
         x = to_f(src[(((size_t)b * S + q0 + r) * a.H + h) * D + d]);
       }
-      split_store<NT>(x, q_p + r * LD + d, BQ * LD);
+      split_store<NT>(x, q_p + r * LDQ + d, BQ * LDQ);
     }
     for (int idx = tid; idx < BQ * DVP; idx += THREADS) {
       const int r = idx / DVP, d = idx - r * DVP;
       const float x = (r < nr && d < Dv)
                           ? to_f(a.dout[(((size_t)b * S + q0 + r) * a.H + h) * Dv + d])
                           : 0.f;
-      split_store<NT>(x, do_p + r * LD + d, BQ * LD);
+      split_store<NT>(x, do_p + r * LDV + d, BQ * LDV);
     }
   }
 
@@ -482,8 +547,9 @@ dq_kernel(const Args<T> a) {
     return live;
   };
   // 16-byte copies of tile i's K, V (K_nope, V0 where a row needs them)
-  // rows into stage i % ST; thread tid copies chunk tid % 16 of slots
-  // tid / 16 + 8 j; slots past S are zero-filled without a read
+  // rows into stage i % ST; thread tid copies chunks tid % 16 (and, of a
+  // K row of the wide class, tid % 16 + 16) of slots tid / 16 + 8 j;
+  // slots past S are zero-filled without a read
   auto issue = [&](int i) {
     const int st = i % ST, k0 = (kb_lo + i) * BK;
     const int ch = tid & 15, c0 = tid >> 4;
@@ -493,15 +559,19 @@ dq_kernel(const Args<T> a) {
       const int c = c0 + (THREADS / 16) * j, kj = k0 + c;
       const bool ok = kj < S;
       const size_t row = ((size_t)b * S + (ok ? kj : 0)) * a.Hk + hk;
-      if (ch < D / 8) {
-        cp16(plane(st, PK) + c * LD + ch * 8, a.k + row * D + ch * 8, ok);
-        if (NOPE && any_sum)
-          cp16(plane(st, PKN) + c * LD + ch * 8, a.kn + row * D + ch * 8, ok);
+#pragma unroll
+      for (int u = 0; u < (DQ / 8 + 15) / 16; ++u) {   // K rows past 128 values
+        const int cu = ch + 16 * u;
+        if (cu < D / 8) {
+          cp16(plane(st, PK) + c * LDQ + cu * 8, a.k + row * D + cu * 8, ok);
+          if (NOPE && any_sum)
+            cp16(plane(st, PKN) + c * LDQ + cu * 8, a.kn + row * D + cu * 8, ok);
+        }
       }
       if (ch < Dv / 8) {
-        cp16(plane(st, PV) + c * LD + ch * 8, a.v + row * Dv + ch * 8, ok);
+        cp16(plane(st, PV) + c * LDV + ch * 8, a.v + row * Dv + ch * 8, ok);
         if (RESET && any_sum)
-          cp16(plane(st, PV0) + c * LD + ch * 8, a.v0 + row * Dv + ch * 8, ok);
+          cp16(plane(st, PV0) + c * LDV + ch * 8, a.v0 + row * Dv + ch * 8, ok);
       }
     }
   };
@@ -515,15 +585,15 @@ dq_kernel(const Args<T> a) {
       const size_t row = ((size_t)b * S + (ok ? kj : 0)) * a.Hk + hk;
       for (int d = lane; d < DP; d += 32) {
         const bool on = ok && d < D;
-        split_store<NT>(on ? to_f(a.k[row * D + d]) : 0.f, plane(st, PK) + c * LD + d, BK * LD);
+        split_store<NT>(on ? to_f(a.k[row * D + d]) : 0.f, plane(st, PK) + c * LDQ + d, BK * LDQ);
         if (NOPE && any_sum)
-          split_store<NT>(on ? to_f(a.kn[row * D + d]) : 0.f, plane(st, PKN) + c * LD + d, BK * LD);
+          split_store<NT>(on ? to_f(a.kn[row * D + d]) : 0.f, plane(st, PKN) + c * LDQ + d, BK * LDQ);
       }
       for (int d = lane; d < DVP; d += 32) {
         const bool on = ok && d < Dv;
-        split_store<NT>(on ? to_f(a.v[row * Dv + d]) : 0.f, plane(st, PV) + c * LD + d, BK * LD);
+        split_store<NT>(on ? to_f(a.v[row * Dv + d]) : 0.f, plane(st, PV) + c * LDV + d, BK * LDV);
         if (RESET && any_sum)
-          split_store<NT>(on ? to_f(a.v0[row * Dv + d]) : 0.f, plane(st, PV0) + c * LD + d, BK * LD);
+          split_store<NT>(on ? to_f(a.v0[row * Dv + d]) : 0.f, plane(st, PV0) + c * LDV + d, BK * LDV);
       }
     }
   };
@@ -552,15 +622,20 @@ dq_kernel(const Args<T> a) {
   const float sl2 = a.scale * LOG2E;
   const float al2 = NOPE ? a.alibi[h] * LOG2E : 0.f;
   const unsigned wlim = (unsigned)a.window;
-  float acc[NT_D][4];
+  // dQ: columns below DMAX in registers, the wide class's rest in xs
+  float acc[NT_V][4];
 #pragma unroll
-  for (int j = 0; j < NT_D; ++j)
+  for (int j = 0; j < NT_V; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  xs.template clear<(DQ - DMAX) / 8>();
 
-  const int koff = ((lane & 7) + (lane >> 4) * 8) * LD + ((lane >> 3) & 1) * 8;
-  const int voff = ((lane & 7) + ((lane >> 3) & 1) * 8) * LD + (lane >> 4) * 8;
-  const int arow = (wr0 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + (lane >> 4) * 8;
+  // fragment offsets in planes of LDQ (q, K, K_nope) and LDV (dO, V, V0)
+  const int koffq = ((lane & 7) + (lane >> 4) * 8) * LDQ + ((lane >> 3) & 1) * 8;
+  const int koffv = ((lane & 7) + (lane >> 4) * 8) * LDV + ((lane >> 3) & 1) * 8;
+  const int voffq = ((lane & 7) + ((lane >> 3) & 1) * 8) * LDQ + (lane >> 4) * 8;
+  const int arowq = (wr0 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDQ + (lane >> 4) * 8;
+  const int arowv = (wr0 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDV + (lane >> 4) * 8;
 
   auto compute = [&](int i) {
     const int st = i % ST;
@@ -573,15 +648,15 @@ dq_kernel(const Args<T> a) {
     // S = Q.K^T; with [SUM] rows in the warp, Qn.Kn^T on their rows
     for (int kd = 0; kd < DP / 16; ++kd) {
       uint32_t fq[NT][4], fk[2][NT][4];
-      ldsm_terms<NT>(fq, q_p + arow + kd * 16, BQ * LD);
+      ldsm_terms<NT>(fq, q_p + arowq + kd * 16, BQ * LDQ);
 #pragma unroll
       for (int jp = 0; jp < 2; ++jp)
-        ldsm_terms<NT>(fk[jp], plane(st, PK) + jp * 16 * LD + koff + kd * 16, BK * LD);
+        ldsm_terms<NT>(fk[jp], plane(st, PK) + jp * 16 * LDQ + koffq + kd * 16, BK * LDQ);
       if (w_n) {
         uint32_t fn[2][NT][4], fo[NT][4], fs[NT][4];
 #pragma unroll
         for (int jp = 0; jp < 2; ++jp)
-          ldsm_terms<NT>(fn[jp], plane(st, PKN) + jp * 16 * LD + koff + kd * 16, BK * LD);
+          ldsm_terms<NT>(fn[jp], plane(st, PKN) + jp * 16 * LDQ + koffq + kd * 16, BK * LDQ);
         // A fragments: registers 0 and 2 hold row g, 1 and 3 row g + 8
 #pragma unroll
         for (int t = 0; t < NT; ++t)
@@ -605,10 +680,10 @@ dq_kernel(const Args<T> a) {
     // dP = dO.V^T; with [SUM] rows in the warp and reset, dP0 = dO.V0^T
     for (int kd = 0; kd < DVP / 16; ++kd) {
       uint32_t fo[NT][4], fv[2][NT][4];
-      ldsm_terms<NT>(fo, do_p + arow + kd * 16, BQ * LD);
+      ldsm_terms<NT>(fo, do_p + arowv + kd * 16, BQ * LDV);
 #pragma unroll
       for (int jp = 0; jp < 2; ++jp)
-        ldsm_terms<NT>(fv[jp], plane(st, PV) + jp * 16 * LD + koff + kd * 16, BK * LD);
+        ldsm_terms<NT>(fv[jp], plane(st, PV) + jp * 16 * LDV + koffv + kd * 16, BK * LDV);
 #pragma unroll
       for (int jp = 0; jp < 2; ++jp)
         mma2<NT, NT>(dp[2 * jp], dp[2 * jp + 1], fo, fv[jp]);
@@ -616,7 +691,7 @@ dq_kernel(const Args<T> a) {
 #pragma unroll
         for (int jp = 0; jp < 2; ++jp) {
           uint32_t f0[NT][4];
-          ldsm_terms<NT>(f0, plane(st, PV0) + jp * 16 * LD + koff + kd * 16, BK * LD);
+          ldsm_terms<NT>(f0, plane(st, PV0) + jp * 16 * LDV + koffv + kd * 16, BK * LDV);
           mma2<NT, NT>(d0[2 * jp], d0[2 * jp + 1], fo, f0);
         }
       }
@@ -681,20 +756,43 @@ dq_kernel(const Args<T> a) {
       }
     }
 #pragma unroll
-    for (int c16 = 0; c16 < NT_D / 2; ++c16) {
+    for (int c16 = 0; c16 < NT_V / 2; ++c16) {
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk) {
         if (c16 * 16 < DP) {
           uint32_t bk[NT][4];
-          ldsm_terms_t<NT>(bk, plane(st, PK) + kk * 16 * LD + voff + c16 * 16, BK * LD);
+          ldsm_terms_t<NT>(bk, plane(st, PK) + kk * 16 * LDQ + voffq + c16 * 16, BK * LDQ);
           if (w_n) {
             uint32_t bn[NT][4];
-            ldsm_terms_t<NT>(bn, plane(st, PKN) + kk * 16 * LD + voff + c16 * 16, BK * LD);
+            ldsm_terms_t<NT>(bn, plane(st, PKN) + kk * 16 * LDQ + voffq + c16 * 16, BK * LDQ);
             mma2_acc<C::F32, NP, NT>(acc[2 * c16], acc[2 * c16 + 1], po[kk], bk);
             mma2_acc<C::F32, NP, NT>(acc[2 * c16], acc[2 * c16 + 1], ps[kk], bn);
           } else {
             mma2_acc<C::F32, NP, NT>(acc[2 * c16], acc[2 * c16 + 1], pa[kk], bk);
           }
+        }
+      }
+    }
+    // the wide class's columns past DMAX: each k-step into fresh
+    // registers, added to xs
+#pragma unroll
+    for (int c16 = NT_V / 2; c16 < DQ / 16; ++c16) {
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        if (c16 * 16 < DP) {
+          float t0[4] = {0.f, 0.f, 0.f, 0.f}, t1[4] = {0.f, 0.f, 0.f, 0.f};
+          uint32_t bk[NT][4];
+          ldsm_terms_t<NT>(bk, plane(st, PK) + kk * 16 * LDQ + voffq + c16 * 16, BK * LDQ);
+          if (w_n) {
+            uint32_t bn[NT][4];
+            ldsm_terms_t<NT>(bn, plane(st, PKN) + kk * 16 * LDQ + voffq + c16 * 16, BK * LDQ);
+            mma2<NP, NT>(t0, t1, po[kk], bk);   // row-masked: each element
+            mma2<NP, NT>(t0, t1, ps[kk], bn);   // takes one of the two
+          } else {
+            mma2<NP, NT>(t0, t1, pa[kk], bk);
+          }
+          xs.add(2 * c16 - NT_V, t0);
+          xs.add(2 * c16 + 1 - NT_V, t1);
         }
       }
     }
@@ -740,12 +838,13 @@ dq_kernel(const Args<T> a) {
     const size_t ob = (((size_t)b * S + qi) * a.H + h) * D;
     const bool to_n = NOPE && rsum[hh];
 #pragma unroll
-    for (int j = 0; j < NT_D; ++j)
+    for (int j = 0; j < DQ / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int col = j * 8 + 2 * cq + e;
         if (col < D) {
-          const float x = acc[j][2 * hh + e];
+          const float x = j < NT_V ? acc[j < NT_V ? j : 0][2 * hh + e]
+                                   : xs.at(j - NT_V, 2 * hh + e);
           store(a.g0 + ob + col, to_n ? 0.f : x);
           if (NOPE) store(a.g1 + ob + col, to_n ? x : 0.f);
         }
@@ -757,14 +856,16 @@ dq_kernel(const Args<T> a) {
 // the dk/dv pass
 // ---------------------------------------------------------------------------
 
-template <typename T, bool NOPE, bool RESET>
-__global__ void __launch_bounds__(DkvCfg<T, NOPE, RESET>::THREADS, 2)
+template <typename T, bool NOPE, bool RESET, int DQ>
+__global__ void __launch_bounds__(DkvCfg<T, NOPE, RESET, DQ>::THREADS,
+                                  DkvCfg<T, NOPE, RESET, DQ>::CTAS)
 dkv_kernel(const Args<T> a) {
-  using C = DkvCfg<T, NOPE, RESET>;
+  using C = DkvCfg<T, NOPE, RESET, DQ>;
   constexpr int WARPS = C::WARPS, THREADS = C::THREADS, BKV = C::BKV, BQ = C::BQ;
-  constexpr int NT = C::NT, NP = C::NP, ST = C::STAGES, MS = C::MS;
+  constexpr int NT = C::NT, NP = C::NP, ST = C::STAGES, MS = C::MS, LDQ = C::LDQ;
   constexpr bool SUMC = NOPE || RESET;    // [SUM] columns' dS goes to phase B
-  // key planes: K, K_nope, V, V0 terms; stage planes: Q, dO terms
+  // key planes: K, K_nope terms (LDQ wide), V, V0 terms (LDV wide); stage
+  // planes: Q terms (LDQ), dO terms (LDV)
   constexpr int PK = 0, PKN = NT, PV = NT + (NOPE ? NT : 0), PV0 = PV + NT;
   constexpr int PQ = 0, PDO = NT;
   constexpr int RPT = BQ * 16 / THREADS;    // q-tile rows a thread copies
@@ -777,8 +878,15 @@ dkv_kernel(const Args<T> a) {
   unsigned char* bflag = reinterpret_cast<unsigned char*>(red + 8 * WARPS);
   short* btile = reinterpret_cast<short*>(bflag + BAND_TABLE);
   int* nbv = reinterpret_cast<int*>(btile + BAND_TABLE);
-  auto kplane = [&](int p) { return k_p + (size_t)p * BKV * LD; };
-  auto splane = [&](int st, int p) { return st_p + st * C::STAGE_ELEMS + (size_t)p * BQ * LD; };
+  const XsAcc<THREADS> xs{reinterpret_cast<float*>(nbv + 1), (int)threadIdx.x};
+  auto kplane = [&](int p) {
+    return k_p + (p < C::KPK ? (size_t)p * BKV * LDQ
+                             : (size_t)C::KPK * BKV * LDQ + (size_t)(p - C::KPK) * BKV * LDV);
+  };
+  auto splane = [&](int st, int p) {
+    return st_p + st * C::STAGE_ELEMS +
+           (p < NT ? (size_t)p * BQ * LDQ : (size_t)NT * BQ * LDQ + (size_t)(p - NT) * BQ * LDV);
+  };
   // q tile item i's rows in ring slot i % MS: positions, [SUM] flags,
   // segments, lse, delta (fp32 bits)
   auto meta_of = [&](int i) { return qmeta + (i % MS) * QMETA * BQ; };
@@ -905,13 +1013,17 @@ dkv_kernel(const Args<T> a) {
       const int kj = k0 + c;
       const bool ok = kj < S;
       const size_t row = ((size_t)b * S + (ok ? kj : 0)) * a.Hk + hk;
-      if (ch < D / 8) {
-        cp16(kplane(PK) + c * LD + ch * 8, a.k + row * D + ch * 8, ok);
-        if (NOPE && kx) cp16(kplane(PKN) + c * LD + ch * 8, a.kn + row * D + ch * 8, ok);
+#pragma unroll
+      for (int u = 0; u < (DQ / 8 + 15) / 16; ++u) {   // K rows past 128 values
+        const int cu = ch + 16 * u;
+        if (cu < D / 8) {
+          cp16(kplane(PK) + c * LDQ + cu * 8, a.k + row * D + cu * 8, ok);
+          if (NOPE && kx) cp16(kplane(PKN) + c * LDQ + cu * 8, a.kn + row * D + cu * 8, ok);
+        }
       }
       if (ch < Dv / 8) {
-        cp16(kplane(PV) + c * LD + ch * 8, a.v + row * Dv + ch * 8, ok);
-        if (RESET && kx) cp16(kplane(PV0) + c * LD + ch * 8, a.v0 + row * Dv + ch * 8, ok);
+        cp16(kplane(PV) + c * LDV + ch * 8, a.v + row * Dv + ch * 8, ok);
+        if (RESET && kx) cp16(kplane(PV0) + c * LDV + ch * 8, a.v0 + row * Dv + ch * 8, ok);
       }
     }
   } else {
@@ -921,15 +1033,15 @@ dkv_kernel(const Args<T> a) {
       const size_t row = ((size_t)b * S + (ok ? kj : 0)) * a.Hk + hk;
       for (int d = lane; d < DP; d += 32) {
         const bool on = ok && d < D;
-        split_store<NT>(on ? to_f(a.k[row * D + d]) : 0.f, kplane(PK) + c * LD + d, BKV * LD);
+        split_store<NT>(on ? to_f(a.k[row * D + d]) : 0.f, kplane(PK) + c * LDQ + d, BKV * LDQ);
         if (NOPE && kx)
-          split_store<NT>(on ? to_f(a.kn[row * D + d]) : 0.f, kplane(PKN) + c * LD + d, BKV * LD);
+          split_store<NT>(on ? to_f(a.kn[row * D + d]) : 0.f, kplane(PKN) + c * LDQ + d, BKV * LDQ);
       }
       for (int d = lane; d < DVP; d += 32) {
         const bool on = ok && d < Dv;
-        split_store<NT>(on ? to_f(a.v[row * Dv + d]) : 0.f, kplane(PV) + c * LD + d, BKV * LD);
+        split_store<NT>(on ? to_f(a.v[row * Dv + d]) : 0.f, kplane(PV) + c * LDV + d, BKV * LDV);
         if (RESET && kx)
-          split_store<NT>(on ? to_f(a.v0[row * Dv + d]) : 0.f, kplane(PV0) + c * LD + d, BKV * LD);
+          split_store<NT>(on ? to_f(a.v0[row * Dv + d]) : 0.f, kplane(PV0) + c * LDV + d, BKV * LDV);
       }
     }
   }
@@ -970,10 +1082,15 @@ dkv_kernel(const Args<T> a) {
       const int r = (tid >> 4) + (THREADS / 16) * j, row = q0 + r;
       const bool ok = row < S;
       const size_t qr = ((size_t)b * S + (ok ? row : 0)) * a.H + h;
-      if (ch < D / 8)
-        cp16(splane(st, PQ) + r * LD + ch * 8, ((NOPE && fl[j]) ? a.qn : a.q) + qr * D + ch * 8, ok);
+#pragma unroll
+      for (int u = 0; u < (DQ / 8 + 15) / 16; ++u) {   // q rows past 128 values
+        const int cu = ch + 16 * u;
+        if (cu < D / 8)
+          cp16(splane(st, PQ) + r * LDQ + cu * 8, ((NOPE && fl[j]) ? a.qn : a.q) + qr * D + cu * 8,
+               ok);
+      }
       if (ch < Dv / 8)
-        cp16(splane(st, PDO) + r * LD + ch * 8, a.dout + qr * Dv + ch * 8, ok);
+        cp16(splane(st, PDO) + r * LDV + ch * 8, a.dout + qr * Dv + ch * 8, ok);
     }
   };
   // the fp32 (and unaligned bf16) path: item i's row data, then its rows
@@ -1004,11 +1121,11 @@ dkv_kernel(const Args<T> a) {
       const T* src = (NOPE && ok && a.sum_q[(size_t)b * S + row] != 0) ? a.qn : a.q;
       for (int d = lane; d < DP; d += 32) {
         const bool on = ok && d < D;
-        split_store<NT>(on ? to_f(src[qr * D + d]) : 0.f, splane(st, PQ) + r * LD + d, BQ * LD);
+        split_store<NT>(on ? to_f(src[qr * D + d]) : 0.f, splane(st, PQ) + r * LDQ + d, BQ * LDQ);
       }
       for (int d = lane; d < DVP; d += 32) {
         const bool on = ok && d < Dv;
-        split_store<NT>(on ? to_f(a.dout[qr * Dv + d]) : 0.f, splane(st, PDO) + r * LD + d, BQ * LD);
+        split_store<NT>(on ? to_f(a.dout[qr * Dv + d]) : 0.f, splane(st, PDO) + r * LDV + d, BQ * LDV);
       }
     }
   };
@@ -1043,35 +1160,43 @@ dkv_kernel(const Args<T> a) {
   const float sl2 = a.scale * LOG2E;
   const unsigned wlim = (unsigned)a.window;
   // phase A: X = dK, Y = dV; phase B: X = dK_nope (dK without NoPE),
-  // Y = dV0
-  float X[NT_D][4], Y[NT_D][4];
+  // Y = dV0. X's columns past DMAX (the wide class) lie in xs.
+  float X[NT_V][4], Y[NT_V][4];
 #pragma unroll
-  for (int j = 0; j < NT_D; ++j)
+  for (int j = 0; j < NT_V; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) X[j][e] = Y[j][e] = 0.f;
+  xs.template clear<(DQ - DMAX) / 8>();
 
-  const int koff = ((lane & 7) + (lane >> 4) * 8) * LD + ((lane >> 3) & 1) * 8;
-  const int voff = ((lane & 7) + ((lane >> 3) & 1) * 8) * LD + (lane >> 4) * 8;
-  const int arow = (wk0 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + (lane >> 4) * 8;
+  // fragment offsets in planes of LDQ (K, K_nope, q) and LDV (V, V0, dO)
+  const int koffq = ((lane & 7) + (lane >> 4) * 8) * LDQ + ((lane >> 3) & 1) * 8;
+  const int koffv = ((lane & 7) + (lane >> 4) * 8) * LDV + ((lane >> 3) & 1) * 8;
+  const int voffq = ((lane & 7) + ((lane >> 3) & 1) * 8) * LDQ + (lane >> 4) * 8;
+  const int voffv = ((lane & 7) + ((lane >> 3) & 1) * 8) * LDV + (lane >> 4) * 8;
+  const int arowq = (wk0 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDQ + (lane >> 4) * 8;
+  const int arowv = (wk0 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDV + (lane >> 4) * 8;
 
-  auto write = [&](const float (&acc)[NT_D][4], T* out, int dim) {
+  // columns past DMAX (only X's reach them) are read from xs
+  auto write = [&](const float (&acc)[NT_V][4], T* out, int dim) {
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       const int kj = k0 + wk0 + g + 8 * hh;
       if (kj >= S) continue;
       const size_t ob = (((size_t)b * S + kj) * a.Hk + hk) * dim;
 #pragma unroll
-      for (int j = 0; j < NT_D; ++j)
+      for (int j = 0; j < DQ / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int col = j * 8 + 2 * cq + e;
-          if (col < dim) store(out + ob + col, acc[j][2 * hh + e]);
+          if (col < dim)
+            store(out + ob + col, j < NT_V ? acc[j < NT_V ? j : 0][2 * hh + e]
+                                           : xs.at(j - NT_V, 2 * hh + e));
         }
     }
   };
-  auto clear = [&](float (&acc)[NT_D][4]) {
+  auto clear = [&](float (&acc)[NT_V][4]) {
 #pragma unroll
-    for (int j = 0; j < NT_D; ++j)
+    for (int j = 0; j < NT_V; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
   };
@@ -1082,6 +1207,7 @@ dkv_kernel(const Args<T> a) {
     if (NOPE) {
       write(X, a.g0, D);
       clear(X);
+      xs.template clear<(DQ - DMAX) / 8>();
     }
   };
 
@@ -1106,12 +1232,12 @@ dkv_kernel(const Args<T> a) {
       for (int j = 0; j < 4; ++j) bsum |= (m[BQ + j * 8 + g] != 0) << j;
       for (int kd = 0; kd < DP / 16; ++kd) {
         uint32_t fk[NT][4], fn[NT][4];
-        ldsm_terms<NT>(fk, kplane(PK) + arow + kd * 16, BKV * LD);
-        ldsm_terms<NT>(fn, kplane(PKN) + arow + kd * 16, BKV * LD);
+        ldsm_terms<NT>(fk, kplane(PK) + arowq + kd * 16, BKV * LDQ);
+        ldsm_terms<NT>(fn, kplane(PKN) + arowq + kd * 16, BKV * LDQ);
 #pragma unroll
         for (int jp = 0; jp < 2; ++jp) {
           uint32_t fq[NT][4], bo[NT][4], bs[NT][4];
-          ldsm_terms<NT>(fq, qp + jp * 16 * LD + koff + kd * 16, BQ * LD);
+          ldsm_terms<NT>(fq, qp + jp * 16 * LDQ + koffq + kd * 16, BQ * LDQ);
 #pragma unroll
           for (int t = 0; t < NT; ++t)
 #pragma unroll
@@ -1127,22 +1253,22 @@ dkv_kernel(const Args<T> a) {
     } else {
       for (int kd = 0; kd < DP / 16; ++kd) {
         uint32_t fk[NT][4];
-        ldsm_terms<NT>(fk, kplane(PK) + arow + kd * 16, BKV * LD);
+        ldsm_terms<NT>(fk, kplane(PK) + arowq + kd * 16, BKV * LDQ);
 #pragma unroll
         for (int jp = 0; jp < 2; ++jp) {
           uint32_t fq[NT][4];
-          ldsm_terms<NT>(fq, qp + jp * 16 * LD + koff + kd * 16, BQ * LD);
+          ldsm_terms<NT>(fq, qp + jp * 16 * LDQ + koffq + kd * 16, BQ * LDQ);
           mma2<NT, NT>(sc[2 * jp], sc[2 * jp + 1], fk, fq);
         }
       }
     }
     for (int kd = 0; kd < DVP / 16; ++kd) {
       uint32_t fv[NT][4];
-      ldsm_terms<NT>(fv, kplane(PV) + arow + kd * 16, BKV * LD);
+      ldsm_terms<NT>(fv, kplane(PV) + arowv + kd * 16, BKV * LDV);
 #pragma unroll
       for (int jp = 0; jp < 2; ++jp) {
         uint32_t fo[NT][4];
-        ldsm_terms<NT>(fo, dop + jp * 16 * LD + koff + kd * 16, BQ * LD);
+        ldsm_terms<NT>(fo, dop + jp * 16 * LDV + koffv + kd * 16, BQ * LDV);
         mma2<NT, NT>(dp[2 * jp], dp[2 * jp + 1], fv, fo);
       }
     }
@@ -1192,18 +1318,34 @@ dkv_kernel(const Args<T> a) {
       a_frags<NP>(dp, kk, da[kk]);
     }
 #pragma unroll
-    for (int c16 = 0; c16 < NT_D / 2; ++c16) {
+    for (int c16 = 0; c16 < NT_V / 2; ++c16) {
 #pragma unroll
       for (int kk = 0; kk < BQ / 16; ++kk) {
         if (c16 * 16 < DVP) {
           uint32_t bo[NT][4];
-          ldsm_terms_t<NT>(bo, dop + kk * 16 * LD + voff + c16 * 16, BQ * LD);
+          ldsm_terms_t<NT>(bo, dop + kk * 16 * LDV + voffv + c16 * 16, BQ * LDV);
           mma2_acc<C::F32, NP, NT>(Y[2 * c16], Y[2 * c16 + 1], pa[kk], bo);
         }
         if (c16 * 16 < DP) {
           uint32_t bq[NT][4];
-          ldsm_terms_t<NT>(bq, qp + kk * 16 * LD + voff + c16 * 16, BQ * LD);
+          ldsm_terms_t<NT>(bq, qp + kk * 16 * LDQ + voffq + c16 * 16, BQ * LDQ);
           mma2_acc<C::F32, NP, NT>(X[2 * c16], X[2 * c16 + 1], da[kk], bq);
+        }
+      }
+    }
+    // the wide class's dK columns past DMAX: each k-step into fresh
+    // registers, added to xs
+#pragma unroll
+    for (int c16 = NT_V / 2; c16 < DQ / 16; ++c16) {
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk) {
+        if (c16 * 16 < DP) {
+          float t0[4] = {0.f, 0.f, 0.f, 0.f}, t1[4] = {0.f, 0.f, 0.f, 0.f};
+          uint32_t bq[NT][4];
+          ldsm_terms_t<NT>(bq, qp + kk * 16 * LDQ + voffq + c16 * 16, BQ * LDQ);
+          mma2<NP, NT>(t0, t1, da[kk], bq);
+          xs.add(2 * c16 - NT_V, t0);
+          xs.add(2 * c16 + 1 - NT_V, t1);
         }
       }
     }
@@ -1229,17 +1371,17 @@ dkv_kernel(const Args<T> a) {
         for (int e = 0; e < 4; ++e) sc[j][e] = dp[j][e] = d0[j][e] = 0.f;
       for (int kd = 0; kd < DP / 16; ++kd) {
         uint32_t fk[NT][4], fq[NT][4];
-        ldsm_terms<NT>(fk, kplane(PS) + arow + kd * 16, BKV * LD);
-        ldsm_terms<NT>(fq, qp + half * 16 * LD + koff + kd * 16, BQ * LD);
+        ldsm_terms<NT>(fk, kplane(PS) + arowq + kd * 16, BKV * LDQ);
+        ldsm_terms<NT>(fq, qp + half * 16 * LDQ + koffq + kd * 16, BQ * LDQ);
         mma2<NT, NT>(sc[0], sc[1], fk, fq);
       }
       for (int kd = 0; kd < DVP / 16; ++kd) {
         uint32_t fv[NT][4], fo[NT][4];
-        ldsm_terms<NT>(fv, kplane(PV) + arow + kd * 16, BKV * LD);
-        ldsm_terms<NT>(fo, dop + half * 16 * LD + koff + kd * 16, BQ * LD);
+        ldsm_terms<NT>(fv, kplane(PV) + arowv + kd * 16, BKV * LDV);
+        ldsm_terms<NT>(fo, dop + half * 16 * LDV + koffv + kd * 16, BQ * LDV);
         mma2<NT, NT>(dp[0], dp[1], fv, fo);
         if (RESET) {
-          ldsm_terms<NT>(fv, kplane(PV0) + arow + kd * 16, BKV * LD);
+          ldsm_terms<NT>(fv, kplane(PV0) + arowv + kd * 16, BKV * LDV);
           mma2<NT, NT>(d0[0], d0[1], fv, fo);
         }
       }
@@ -1283,16 +1425,27 @@ dkv_kernel(const Args<T> a) {
       a_frags<NP>(dp, 0, da);
       if (RESET) a_frags<NP>(sc, 0, pa);
 #pragma unroll
-      for (int c16 = 0; c16 < NT_D / 2; ++c16) {
+      for (int c16 = 0; c16 < NT_V / 2; ++c16) {
         if (c16 * 16 < DP) {
           uint32_t bq[NT][4];
-          ldsm_terms_t<NT>(bq, qp + half * 16 * LD + voff + c16 * 16, BQ * LD);
+          ldsm_terms_t<NT>(bq, qp + half * 16 * LDQ + voffq + c16 * 16, BQ * LDQ);
           mma2_acc<C::F32, NP, NT>(X[2 * c16], X[2 * c16 + 1], da, bq);
         }
         if (RESET && c16 * 16 < DVP) {
           uint32_t bo[NT][4];
-          ldsm_terms_t<NT>(bo, dop + half * 16 * LD + voff + c16 * 16, BQ * LD);
+          ldsm_terms_t<NT>(bo, dop + half * 16 * LDV + voffv + c16 * 16, BQ * LDV);
           mma2_acc<C::F32, NP, NT>(Y[2 * c16], Y[2 * c16 + 1], pa, bo);
+        }
+      }
+#pragma unroll
+      for (int c16 = NT_V / 2; c16 < DQ / 16; ++c16) {   // X past DMAX, in xs
+        if (c16 * 16 < DP) {
+          float t0[4] = {0.f, 0.f, 0.f, 0.f}, t1[4] = {0.f, 0.f, 0.f, 0.f};
+          uint32_t bq[NT][4];
+          ldsm_terms_t<NT>(bq, qp + half * 16 * LDQ + voffq + c16 * 16, BQ * LDQ);
+          mma2<NP, NT>(t0, t1, da, bq);
+          xs.add(2 * c16 - NT_V, t0);
+          xs.add(2 * c16 + 1 - NT_V, t1);
         }
       }
     }
@@ -1347,23 +1500,23 @@ dkv_kernel(const Args<T> a) {
   if (RESET) write(Y, a.g3, Dv);
 }
 
-template <typename T, bool NOPE, bool RESET>
+template <typename T, bool NOPE, bool RESET, int DQ>
 int launch(const Args<T>& a, bool dkv, int smem, cudaStream_t stream) {
   // the plan must be this source's (windowed_bwd_plan)
   if (dkv) {
-    using C = DkvCfg<T, NOPE, RESET>;
+    using C = DkvCfg<T, NOPE, RESET, DQ>;
     if (smem != (int)C::BYTES || a.n_blocks != (a.S + C::BKV - 1) / C::BKV)
       return (int)cudaErrorInvalidValue;
-    auto kern = dkv_kernel<T, NOPE, RESET>;
+    auto kern = dkv_kernel<T, NOPE, RESET, DQ>;
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
     kern<<<dim3(a.n_blocks, a.Hk, a.B), C::THREADS, smem, stream>>>(a);
   } else {
-    using C = DqCfg<T, NOPE, RESET>;
+    using C = DqCfg<T, NOPE, RESET, DQ>;
     if (smem != (int)C::BYTES || a.n_blocks != (a.S + C::BQ - 1) / C::BQ)
       return (int)cudaErrorInvalidValue;
-    auto kern = dq_kernel<T, NOPE, RESET>;
+    auto kern = dq_kernel<T, NOPE, RESET, DQ>;
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
@@ -1372,11 +1525,20 @@ int launch(const Args<T>& a, bool dkv, int smem, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+template <typename T, int DQ>
+int dispatch_flags(const Args<T>& a, bool nope, bool reset, bool dkv, int smem, cudaStream_t st) {
+  if (nope)
+    return reset ? launch<T, true, true, DQ>(a, dkv, smem, st)
+                 : launch<T, true, false, DQ>(a, dkv, smem, st);
+  return reset ? launch<T, false, true, DQ>(a, dkv, smem, st)
+               : launch<T, false, false, DQ>(a, dkv, smem, st);
+}
+
+// the head-dim class of q and K: DMAX up to 128, else DWIDE
 template <typename T>
 int dispatch(const Args<T>& a, bool nope, bool reset, bool dkv, int smem, cudaStream_t st) {
-  if (nope)
-    return reset ? launch<T, true, true>(a, dkv, smem, st) : launch<T, true, false>(a, dkv, smem, st);
-  return reset ? launch<T, false, true>(a, dkv, smem, st) : launch<T, false, false>(a, dkv, smem, st);
+  return a.D <= DMAX ? dispatch_flags<T, DMAX>(a, nope, reset, dkv, smem, st)
+                     : dispatch_flags<T, DWIDE>(a, nope, reset, dkv, smem, st);
 }
 
 template <typename T>
@@ -1423,7 +1585,7 @@ int entry(bool dkv, const void* q, const void* qn, const void* k, const void* kn
           float scale, float y_min, float y_max, float midpoint, void* stream) {
   const bool outs_ok = dkv ? (g0 && g1 && (!use_nope || g2) && (!use_reset || g3))
                            : (g0 && (!use_nope || g1));
-  if (D > DMAX || Dv > DMAX || D <= 0 || Dv <= 0 || Hk <= 0 || H % Hk != 0 ||
+  if (D > DWIDE || Dv > DMAX || D <= 0 || Dv <= 0 || Hk <= 0 || H % Hk != 0 ||
       window <= 0 || !outs_ok || alibi == nullptr ||
       (use_nope && (qn == nullptr || kn == nullptr || sum_q == nullptr)) ||
       (use_reset && (v0 == nullptr || sum_q == nullptr)) ||

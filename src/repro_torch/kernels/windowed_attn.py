@@ -45,9 +45,13 @@ transposed band (``q_band``), for each query head of its group, in two
 phases: dK and dV over the whole band, then dK_nope and dV0 over the q
 tiles that hold a [SUM] row (``sum_tiles``). The wrapper computes
 delta = <do, o> (``_delta``), as the reference does outside its kernels.
-The backward takes head dims up to ``MAX_HEAD_DIM`` only: a call on the
-card with autograd recording and a q/k head dim past it raises before any
-launch (kernels 2 and 3 at Dqk 192 are ROADMAP queue B item 2).
+The backward takes the forward's two head-dim classes: up to 128
+(``"windowed_attn_dq"``, ``"windowed_attn_dkv"``) and up to ``MAX_QK_DIM``
+(``"windowed_attn_dq_192"``, ``"windowed_attn_dkv_192"``: q, K, q_nope and
+K_nope planes 200 values wide, V's, V0's and dO's 136, the gradient
+columns past 128 accumulated in shared memory, one CTA per SM, and in fp32
+a dq CTA of 2 warps). A q/k head dim past ``MAX_QK_DIM`` raises before any
+launch.
 """
 from __future__ import annotations
 
@@ -64,8 +68,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {"windowed_attn_fwd": [_P] * 16 + [_I] * 14 + [_F] * 4 + [_P]}
 _BWD_ARGTYPES = {fn: [_P] * 21 + [_I] * 14 + [_F] * 4 + [_P]
                  for fn in ("windowed_attn_dq", "windowed_attn_dkv")}
-MAX_HEAD_DIM = 128   # value head dims; q/k head dims of kernels 2-3
-MAX_QK_DIM = 192     # q/k head dims of kernel 1 (DWIDE in the source)
+MAX_HEAD_DIM = 128   # value head dims; the narrow class's q/k head dims
+MAX_QK_DIM = 192     # q/k head dims of the wide class (DWIDE in the sources)
 # csrc/windowed_attn.cu's tiles: warps per CTA, keys per kv tile, the
 # bf16 plane row stride (of V, and of q and K up to 128), int words per
 # staged slot
@@ -165,39 +169,52 @@ class BwdPlan(NamedTuple):
 
 
 def windowed_bwd_plan(b: int, s: int, h: int, hk: int, *, bf16: bool,
-                      use_nope: bool, use_reset: bool
-                      ) -> Tuple[BwdPlan, BwdPlan]:
+                      use_nope: bool, use_reset: bool,
+                      d: int = MAX_HEAD_DIM) -> Tuple[BwdPlan, BwdPlan]:
     """The plans ``csrc/windowed_attn_bwd.cu`` launches its dq and dk/dv
-    passes with (its ``DqCfg`` and ``DkvCfg``). bf16: one term for every
-    operand, two for P and dS; fp32: three each, one stage, converted from
-    memory. dq: 4 warps of 16 query rows over kv tiles of ``BLOCK_K`` keys
-    (K, K_nope, V, V0 planes a stage), Q and dO staged once; three stages
-    when only K and V are live, else two. dk/dv: 16 keys a warp (4 warps;
-    2 in fp32) whose K, K_nope, V, V0 are staged once, over q tiles of
-    ``BWD_Q_TILE`` rows (Q and dO planes a stage, and each row's five words
-    of position, [SUM], segment, lse, delta); three stages when at most
-    three key planes are live. bf16 fits two CTAs (8 warps) on an SM."""
+    passes with (its ``DqCfg`` and ``DkvCfg``) for q/k head dim ``d``.
+    bf16: one term for every operand, two for P and dS; fp32: three each,
+    one stage, converted from memory. dq: 4 warps of 16 query rows over kv
+    tiles of ``BLOCK_K`` keys (K, K_nope, V, V0 planes a stage), Q and dO
+    staged once; three stages when only K and V are live, else two. dk/dv:
+    16 keys a warp (4 warps; 2 in fp32) whose K, K_nope, V, V0 are staged
+    once, over q tiles of ``BWD_Q_TILE`` rows (Q and dO planes a stage, and
+    each row's five words of position, [SUM], segment, lse, delta); three
+    stages when at most three key planes are live. The q, K, q_nope and
+    K_nope planes are padded to their head-dim class (``qk_plane_ld``), V,
+    V0 and dO to ``MAX_HEAD_DIM``. The 128 class fits two bf16 CTAs (8
+    warps) on an SM. The wide class keeps a thread's fragments of the
+    gradient columns past 128 (dQ; dK or dK_nope) in shared memory, 32
+    floats a thread, and runs one CTA per SM; its fp32 dq pass takes 2
+    warps (32 query rows), or a CTA would pass ``SMEM_LIMIT`` with NoPE."""
+    ldq = qk_plane_ld(d)
+    wide = ldq > PLANE_LD
     nt, np_ = (1, 2) if bf16 else (3, 3)
+    kpl = nt * (1 + use_nope)                   # K, K_nope: ldq wide
     planes = nt * (2 + use_nope + use_reset)
-    row = PLANE_LD * 2
-    per_sm = 2 if bf16 else 1
-    bq = 16 * WARPS
+    per_sm = 2 if bf16 and not wide else 1
+    xs = (ldq - PLANE_LD) // 8 * 4              # floats a thread, past 128
+    warps = 2 if wide and not bf16 else WARPS
+    bq = 16 * warps
     stages = (3 if planes <= 2 else 2) if bf16 else 1
     ring = max(stages, 2)
-    smem = ((2 * nt * bq + stages * planes * BLOCK_K) * row
-            + (ring * META_WORDS * BLOCK_K + 5 * bq + bq // 8 + ring) * 4)
-    dq = BwdPlan(bq, BLOCK_K, WARPS, (nt, np_), stages,
-                 planes * BLOCK_K * row, smem, per_sm, (h, -(-s // bq), b))
+    stage = BLOCK_K * 2 * (kpl * ldq + (planes - kpl) * PLANE_LD)
+    smem = (nt * bq * (ldq + PLANE_LD) * 2 + stages * stage
+            + (ring * META_WORDS * BLOCK_K + 5 * bq + bq // 8 + ring
+               + xs * 32 * warps) * 4)
+    dq = BwdPlan(bq, BLOCK_K, warps, (nt, np_), stages, stage, smem, per_sm,
+                 (h, -(-s // bq), b))
     warps = WARPS if bf16 else 2
     bkv = 16 * warps
     stages = (3 if planes <= 3 else 2) if bf16 else 1
     ring = max(stages, 2)
-    smem = ((planes * bkv + stages * 2 * nt * BWD_Q_TILE) * row
+    stage = nt * BWD_Q_TILE * (ldq + PLANE_LD) * 2
+    smem = (bkv * (kpl * ldq + (planes - kpl) * PLANE_LD) * 2
+            + stages * stage
             + (ring * Q_META_WORDS * BWD_Q_TILE + ring + 8 * warps
-               + BAND_TABLE // 4 + BAND_TABLE // 2 + 1) * 4)
-    dkv = BwdPlan(bkv, BWD_Q_TILE, warps, (nt, np_), stages,
-                  2 * nt * BWD_Q_TILE * row, smem, per_sm,
-                  (-(-s // bkv), hk, b))
+               + BAND_TABLE // 4 + BAND_TABLE // 2 + 1 + xs * 32 * warps) * 4)
+    dkv = BwdPlan(bkv, BWD_Q_TILE, warps, (nt, np_), stages, stage, smem,
+                  per_sm, (-(-s // bkv), hk, b))
     return dq, dkv
 
 
@@ -275,14 +292,6 @@ def windowed_attention(q, k, v, *, pos_q, pos_k, window: int,
         return (o, lse) if return_lse else o
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    grads = torch.is_grad_enabled() and any(
-        t is not None and t.requires_grad
-        for t in (q, k, v, q_nope, k_nope, v0))
-    if grads and q.shape[-1] > MAX_HEAD_DIM:
-        raise NotImplementedError(
-            f"q/k head dim {q.shape[-1]} trains only up to {MAX_HEAD_DIM}: "
-            "kernels 2 and 3 at Dqk 192 are ROADMAP queue B item 2 (run the "
-            "forward under torch.no_grad)")
     o, lse = _launch(q, k, v, **kw)
     return (o, lse) if return_lse else o
 
@@ -370,6 +379,12 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def launch_key(name: str, d: int) -> str:
+    """The launch key kernel ``name`` counts under at q/k head dim ``d``:
+    ``name`` in the 128 class, ``name`` + ``"_192"`` in the wide one."""
+    return name if d <= MAX_HEAD_DIM else f"{name}_192"
+
+
 def _fwd(st, q, k, v, live, alibi_f, ints):
     qn, kn, v0 = live
     o = torch.empty((st.b, st.s, st.h, st.dv), dtype=q.dtype, device=q.device)
@@ -384,20 +399,20 @@ def _fwd(st, q, k, v, live, alibi_f, ints):
         ptr(q), ptr(qn), ptr(k), ptr(kn), ptr(v), ptr(v0), ptr(alibi_f),
         *map(ptr, ints), ptr(o), ptr(lse), *st.ints(bf16), plan.grid[1],
         plan.smem_bytes, *st.floats(), _stream(q))
-    check_launch("windowed_attn" if st.d <= MAX_HEAD_DIM
-                 else "windowed_attn_192", rc)
+    check_launch(launch_key("windowed_attn", st.d), rc)
     return o, lse
 
 
 def _bwd_pass(name, st, q, k, v, live, alibi_f, ints, lse, delta, do, outs):
     """Launch ``windowed_attn_dq`` (outs: dq, dq_nope) or
-    ``windowed_attn_dkv`` (outs: dk, dv, dk_nope, dv0) into ``outs``."""
+    ``windowed_attn_dkv`` (outs: dk, dv, dk_nope, dv0) into ``outs``,
+    counted under ``launch_key(name, st.d)``."""
     qn, kn, v0 = live
     outs = (list(outs) + [None] * 4)[:4]
     bf16 = q.dtype == torch.bfloat16
     dq_plan, dkv_plan = windowed_bwd_plan(st.b, st.s, st.h, st.hk, bf16=bf16,
                                           use_nope=st.use_nope,
-                                          use_reset=st.use_reset)
+                                          use_reset=st.use_reset, d=st.d)
     plan = dkv_plan if name == "windowed_attn_dkv" else dq_plan
     n_blocks = plan.grid[0] if plan is dkv_plan else plan.grid[1]
     lib = load("windowed_attn_bwd", _BWD_ARGTYPES)
@@ -405,7 +420,7 @@ def _bwd_pass(name, st, q, k, v, live, alibi_f, ints, lse, delta, do, outs):
         ptr(q), ptr(qn), ptr(k), ptr(kn), ptr(v), ptr(v0), ptr(do), ptr(lse),
         ptr(delta), ptr(alibi_f), *map(ptr, ints), *map(ptr, outs),
         *st.ints(bf16), n_blocks, plan.smem_bytes, *st.floats(), _stream(q))
-    check_launch(name, rc)
+    check_launch(launch_key(name, st.d), rc)
 
 
 def _delta(o, do):

@@ -21,7 +21,6 @@ from repro_torch.data.recsys_gen import RecsysGenerator
 from repro_torch.data.sampler import make_community_graph
 from repro_torch.data.synthetic import make_ctr_dataset
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.kernels.windowed_attn import MAX_HEAD_DIM
 from repro_torch.models.gnn import gin_forward, init_gin, make_edge_plan
 from repro_torch.models.recsys import bce_loss, init_recsys, recsys_logits
 from repro_torch.models.transformer import forward, init_params
@@ -58,21 +57,6 @@ def _run(loss_fn, params, batches, steps, lr) -> Dict:
             "state": state}
 
 
-def refuse_card_training(cfg, device: torch.device) -> None:
-    """Raise for an LM config whose training the card cannot run yet: the
-    backward kernels (2 and 3) take q/k head dims up to 128, and MLA's
-    nope + rope head (deepseek-v2's 128 + 64) is wider. The CPU trains it
-    on the plain paths."""
-    if device.type != "cuda" or getattr(cfg, "attn_type", None) != "mla":
-        return
-    d = cfg.qk_nope_dim + cfg.qk_rope_dim
-    if d > MAX_HEAD_DIM:
-        raise NotImplementedError(
-            f"{cfg.name}: q/k head dim {d} trains on the card only up to "
-            f"{MAX_HEAD_DIM}: kernels 2 and 3 at Dqk 192 are ROADMAP queue "
-            "B item 2 (train on --device cpu)")
-
-
 def train_smoke(arch: str, *, steps: int = 20, batch: int = 8,
                 seed: int = 0, lr: float = 1e-2,
                 device: DeviceLike = None) -> Dict:
@@ -81,7 +65,6 @@ def train_smoke(arch: str, *, steps: int = 20, batch: int = 8,
     rng = np.random.default_rng(seed)
     cfg = spec.smoke
     if spec.family == "lm":
-        refuse_card_training(cfg, device)
         return {"arch": arch, "device": str(device),
                 **_train_lm(cfg, rng, steps, batch, seed, lr, device)}
     if spec.family == "gnn":
@@ -156,4 +139,4 @@ def _train_gnn(cfg, steps, seed, lr, device) -> Dict:
     return _run(loss_fn, params, batches(), steps, lr)
 
 
-__all__ = ["refuse_card_training", "train_smoke"]
+__all__ = ["train_smoke"]

@@ -16,6 +16,18 @@ rank order in fp32, then casts, so equal inputs give equal bits. In fp32
 the two agree to summation order; in bf16 the port rounds once where the
 reference rounds after each add.
 
+The dispatch gather's gradient is built the same way (``_Dispatch``):
+autograd's own for ``index_select`` is an ``index_add_`` over tokens, where
+each token meets up to k slots and token 0 every unused one, so on the
+card its atomics would add in an order that varies from run to run. Its
+backward gathers each token's k slots in rank order (a dropped choice
+reads the spare slot's zero row) and adds them in fp32. The rest of the
+backward already sums in a fixed order: the combine's per-rank
+``index_select`` repeats only the spare slot, whose gradient is dropped
+with it; the router's ``torch.gather`` takes k distinct experts a token;
+and a remat recompute of ``route`` sees the same logits, so it picks the
+same slots.
+
 The reference pins the combined output to the token sharding
 (``repro.sharding.act.constrain_tokens``); on one card that is a no-op and
 is left out.
@@ -96,6 +108,29 @@ def route(p: Params, xt: torch.Tensor, *, n_experts: int, top_k: int,
     return logits, gates, ids, pos, pos < cap, cap
 
 
+class _Dispatch(torch.autograd.Function):
+    """The experts' input rows, ``xt`` by ``token_of_slot``; the gradient
+    of token t is the sum, in rank order and in fp32, of the gradients of
+    its slots ``slot[t]`` (the spare slot ``n_slots``, where a dropped
+    choice points, adds a zero row). No scatter: equal inputs give equal
+    bits."""
+
+    @staticmethod
+    def forward(ctx, xt, token_of_slot, slot):
+        ctx.save_for_backward(slot)
+        return xt.index_select(0, token_of_slot)
+
+    @staticmethod
+    def backward(ctx, g):
+        (slot,) = ctx.saved_tensors                       # (T, k)
+        g = torch.cat([g, g.new_zeros(1, g.shape[1])])
+        acc = torch.zeros(slot.shape[0], g.shape[1], dtype=torch.float32,
+                          device=g.device)
+        for j in range(slot.shape[1]):
+            acc = acc + g.index_select(0, slot[:, j]).float()
+        return acc.to(g.dtype), None, None
+
+
 def moe_ffn(p: Params, x: torch.Tensor, *, n_experts: int, top_k: int,
             capacity_factor: float = 1.25, norm_topk: bool = True,
             aux_loss_coef: float = 0.001):
@@ -119,7 +154,8 @@ def moe_ffn(p: Params, x: torch.Tensor, *, n_experts: int, top_k: int,
     token_of_slot, used = token_of_slot[:-1], used[:-1]
 
     # ---- experts: batched products over the stacked weights
-    xe = xt.index_select(0, token_of_slot).reshape(n_experts, cap, d)
+    xe = _Dispatch.apply(xt, token_of_slot, slot.reshape(t, top_k)
+                         ).reshape(n_experts, cap, d)
     xe = xe * used.reshape(n_experts, cap, 1).to(xe.dtype)
     h_g = F.silu(torch.bmm(xe, p["w_gate"]))
     h_u = torch.bmm(xe, p["w_up"])

@@ -647,26 +647,52 @@ def test_windowed_kernel_at_dqk_192_matches_plain(gen, case, dtype):
         assert torch.all(o[-1] == 0) and torch.all(lse[-1] == 1e30)
 
 
-def test_windowed_kernel_refuses_training_at_dqk_192(gen):
-    """With autograd recording, a q/k head dim past 128 raises before any
-    launch (kernels 2 and 3 stop at 128: ROADMAP queue B item 2); under
-    ``no_grad`` the same call runs kernel 1, and a head dim past 192
-    raises too."""
+def test_windowed_kernel_trains_at_dqk_192(gen):
+    """With autograd recording at a q/k head dim of 192, the backward runs
+    kernels 2 and 3's wide class (``windowed_attn_dq_192``,
+    ``windowed_attn_dkv_192``; the 128 class's counts do not move) and
+    matches the plain version; a head dim past 192 raises before any
+    launch."""
     q, k, v, kw = windowed_case_operands(gen, "d192_nope_ragged",
                                          torch.bfloat16)
+    do = torch.randn(q.shape[:3] + (v.shape[3],), generator=gen,
+                     device="cuda").to(torch.bfloat16)
     before = dict(kernels.LAUNCHES)
-    with pytest.raises(NotImplementedError, match="queue B item 2"):
-        windowed_attention(q.requires_grad_(True), k, v, **kw)
-    assert kernels.LAUNCHES == before
+    got = _kernel_grads(q, k, v, do, kw)
+    torch.cuda.synchronize()
+    moved = {n: c - before[n] for n, c in kernels.LAUNCHES.items()
+             if c != before[n]}
+    assert moved == {"windowed_attn_192": 1, "windowed_attn_dq_192": 1,
+                     "windowed_attn_dkv_192": 1}
     with torch.no_grad():
-        windowed_attention(q, k, v, **kw)
-    assert kernels.LAUNCHES["windowed_attn_192"] == \
-        before["windowed_attn_192"] + 1
-    z = lambda *sh: torch.zeros(sh, device="cuda")
+        o_k = windowed_attention(q, k, v, **kw)
+    f32 = lambda x: x.float() if torch.is_tensor(x) and x.is_floating_point() \
+        else x
+    kw32 = {n: f32(x) for n, x in kw.items()}
+    delta = lambda o: (o.float() * do.float()).sum(-1).transpose(1, 2)
+    with torch.no_grad():
+        o_p, _ = windowed_attention_plain(f32(q), f32(k), f32(v), **kw32)
+    want = windowed_attention_bwd_plain(f32(q), f32(k), f32(v), f32(do),
+                                        dlse=delta(o_p) - delta(o_k), **kw32)
+    for g, w in zip(got, want):
+        assert (g is None) == (w is None)
+        if g is not None:
+            _hold_grad(g, w)
+    before = dict(kernels.LAUNCHES)
+    z = lambda *sh: torch.zeros(sh, device="cuda", requires_grad=True)
     with pytest.raises(ValueError, match="192/128"):
         windowed_attention(z(1, 40, 2, 200), z(1, 40, 2, 200),
                            z(1, 40, 2, 128), pos_q=kw["pos_q"][:1, :40],
                            pos_k=kw["pos_k"][:1, :40], window=16)
+    assert kernels.LAUNCHES == before
+
+
+def _shifted(t):
+    """A copy of ``t`` whose base is one element past a 16-byte boundary."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = flat[1:].view(t.shape)
+    out.copy_(t)
+    return out
 
 
 @pytest.mark.parametrize("case", ["reset_nope_empty_row",
@@ -677,19 +703,13 @@ def test_windowed_kernel_unaligned_rows_give_the_same_bits(gen, case):
     converts each tile from memory in place of cp.async; it stages the same
     bf16 values, so o and lse are bit for bit those of aligned copies."""
     q, k, v, kw = windowed_case_operands(gen, case, torch.bfloat16)
-
-    def shifted(t):
-        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
-        out = flat[1:].view(t.shape)
-        out.copy_(t)
-        return out
     names = [n for n in ("q_nope", "k_nope", "v0") if n in kw]
-    kw2 = dict(kw, **{n: shifted(kw[n]) for n in names})
+    kw2 = dict(kw, **{n: _shifted(kw[n]) for n in names})
     a = windowed_attention(q, k, v, return_lse=True, **kw)
-    b = windowed_attention(shifted(q), shifted(k), shifted(v),
+    b = windowed_attention(_shifted(q), _shifted(k), _shifted(v),
                            return_lse=True, **kw2)
     torch.cuda.synchronize()
-    assert shifted(q).data_ptr() % 16 != 0
+    assert _shifted(q).data_ptr() % 16 != 0
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
 
 
@@ -790,8 +810,49 @@ def test_windowed_backward_flags_match_plain(gen, case, dtype):
             _hold_grad(g, w)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(WINDOWED_192_CASES))
+def test_windowed_backward_at_dqk_192_flags_match_plain(gen, case, dtype):
+    """Kernels 2 and 3's wide class (q, K, q_nope, K_nope planes 200
+    values wide, the gradient columns past 128 in shared memory) over the
+    Dqk-192 and -136 flag cases, held as the 128 class is above; one
+    launch of each wide key a call, none of the 128 class's, and a second
+    call gives the same bits."""
+    q, k, v, kw = windowed_case_operands(gen, case, dtype)
+    do = torch.randn(q.shape[:3] + (v.shape[3],), generator=gen,
+                     device="cuda").to(dtype)
+    before = dict(kernels.LAUNCHES)
+    got = _kernel_grads(q, k, v, do, kw)
+    again = _kernel_grads(q, k, v, do, kw)
+    with torch.no_grad():
+        o_k = windowed_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    moved = {n: c - before[n] for n, c in kernels.LAUNCHES.items()
+             if c != before[n]}
+    assert moved == {"windowed_attn_192": 3, "windowed_attn_dq_192": 2,
+                     "windowed_attn_dkv_192": 2}
+    for g, a in zip(got, again):
+        assert (g is None) == (a is None)
+        assert g is None or torch.equal(g, a)
+    f32 = lambda x: x.float() if torch.is_tensor(x) and x.is_floating_point() \
+        else x
+    kw32 = {n: f32(x) for n, x in kw.items()}
+    delta = lambda o: (o.float() * do.float()).sum(-1).transpose(1, 2)
+    with torch.no_grad():
+        o_p, _ = windowed_attention_plain(f32(q), f32(k), f32(v), **kw32)
+    want = windowed_attention_bwd_plain(f32(q), f32(k), f32(v), f32(do),
+                                        dlse=delta(o_p) - delta(o_k), **kw32)
+    for g, w in zip(got, want):
+        assert (g is None) == (w is None)
+        if g is not None:
+            assert g.dtype == dtype
+            _hold_grad(g, w)
+
+
 @pytest.mark.parametrize("case", ["reset_nope_empty_row",
-                                  "d128_window_past_s"])
+                                  "d128_window_past_s",
+                                  "d192_reset_packed_empty_row",
+                                  "d136_dv96_packed"])
 def test_windowed_backward_unaligned_rows_give_the_same_bits(gen, case):
     """bf16 operands whose base is not 16-byte aligned take the path that
     converts each tile from memory in place of cp.async; it stages the
@@ -800,32 +861,28 @@ def test_windowed_backward_unaligned_rows_give_the_same_bits(gen, case):
     q, k, v, kw = windowed_case_operands(gen, case, torch.bfloat16)
     do = torch.randn(q.shape[:3] + (v.shape[3],), generator=gen,
                      device="cuda").to(torch.bfloat16)
-
-    def shifted(t):
-        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
-        out = flat[1:].view(t.shape)
-        out.copy_(t)
-        return out
     names = [n for n in ("q_nope", "k_nope", "v0") if n in kw]
-    kw2 = dict(kw, **{n: shifted(kw[n]) for n in names})
+    kw2 = dict(kw, **{n: _shifted(kw[n]) for n in names})
     a = _kernel_grads(q, k, v, do, kw)
-    b = _kernel_grads(shifted(q), shifted(k), shifted(v), shifted(do), kw2)
+    b = _kernel_grads(_shifted(q), _shifted(k), _shifted(v), _shifted(do),
+                      kw2)
     torch.cuda.synchronize()
-    assert shifted(q).data_ptr() % 16 != 0
+    assert _shifted(q).data_ptr() % 16 != 0
     for x, y in zip(a, b):
         assert (x is None) == (y is None)
         assert x is None or torch.equal(x, y)
 
 
+@pytest.mark.parametrize("case", ["reset_nope_empty_row",
+                                  "d192_reset_packed_empty_row"])
 @pytest.mark.parametrize("name", ["windowed_attn_dq", "windowed_attn_dkv"])
-def test_windowed_backward_refuses_a_plan_it_would_not_make(gen, name):
+def test_windowed_backward_refuses_a_plan_it_would_not_make(gen, name, case):
     """Each backward entry point checks the plan the wrapper hands it
     (tiles of the grid, shared memory) against its own and refuses,
-    without launching, one that differs."""
+    without launching, one that differs, at both head-dim classes."""
     from repro_torch.kernels import load, ptr
     from repro_torch.kernels import windowed_attn as wa
-    q, k, v, kw = windowed_case_operands(gen, "reset_nope_empty_row",
-                                         torch.bfloat16)
+    q, k, v, kw = windowed_case_operands(gen, case, torch.bfloat16)
     full = dict(is_sum_q=None, is_sum_k=None, valid_k=None, seg_q=None,
                 seg_k=None, q_nope=None, k_nope=None, alibi=None, v0=None,
                 reset=None, sum_isolated=True, scale=None)
@@ -836,7 +893,7 @@ def test_windowed_backward_refuses_a_plan_it_would_not_make(gen, name):
     delta = wa._delta(out, do)
     plans = wa.windowed_bwd_plan(st.b, st.s, st.h, st.hk, bf16=True,
                                  use_nope=st.use_nope,
-                                 use_reset=st.use_reset)
+                                 use_reset=st.use_reset, d=st.d)
     dkv = name == "windowed_attn_dkv"
     plan = plans[1] if dkv else plans[0]
     n = plan.grid[0] if dkv else plan.grid[1]
@@ -1002,6 +1059,44 @@ def test_gnn_aggregation_gives_the_same_bits(gen, aggregator):
         cpu = make_edge_plan(src.cpu(), dst.cpu(), n, valid.cpu())
         torch.testing.assert_close(
             o1.cpu(), gin_aggregate(h.cpu(), plan=cpu), atol=TOL, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cf", [1.25, 8.0])
+def test_moe_backward_gives_the_same_bits(gen, cf, dtype):
+    """Two forward and backward passes of ``moe_ffn`` (4,096 tokens, 16
+    experts top-4, a shared expert; choices dropped at 1.25) give equal
+    bits in the input's and every weight's gradient: the dispatch
+    gather's gradient gathers each token's slots in rank order, with no
+    scatter."""
+    from repro_torch.models.moe import init_moe, moe_ffn
+    g = torch.Generator(device="cuda")
+    g.manual_seed(5)
+    p = init_moe(g, 256, n_experts=16, moe_d_ff=128, top_k=4, n_shared=1,
+                 dtype=dtype, device="cuda", lora_rank=4)
+    x = torch.randn(4, 1024, 256, generator=gen, device="cuda").to(dtype)
+    w = torch.randn(4, 1024, 256, generator=gen, device="cuda").to(dtype)
+    leaves = []
+
+    def collect(t):
+        for v in t.values():
+            if isinstance(v, dict):
+                collect(v)
+            elif v.is_floating_point():
+                leaves.append(v)
+    collect(p)
+
+    def run():
+        xt = x.clone().requires_grad_(True)
+        for t in leaves:
+            t.requires_grad_(True)
+            t.grad = None
+        out, aux = moe_ffn(p, xt, n_experts=16, top_k=4, capacity_factor=cf)
+        (torch.sum(out.float() * w.float()) + aux).backward()
+        return [xt.grad] + [t.grad for t in leaves]
+    a, b = run(), run()
+    assert all(x_ is not None for x_ in a)
+    assert all(torch.equal(x_, y_) for x_, y_ in zip(a, b))
 
 
 def test_multi_target_no_cross_candidate_leakage(gen):

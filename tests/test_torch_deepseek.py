@@ -18,7 +18,8 @@ Tolerances: the forward within 1e-5 (fp32, summation order); p_click
 through prefill and every decode path within 1e-4, the bar of
 ``tests/test_torch_mla.py``; bridged trees bit for bit; the scheduler's
 counters exactly, its scores within 1e-4; a LoRA AdamW step's loss within
-1e-4 and its grad norm within a relative 1e-4. The kernels' plain
+1e-4 and its grad norm within a relative 1e-4, on the blocked path and on
+the kernel path (``attn_impl="cuda"``, the kernels' plain versions). The kernels' plain
 versions at deepseek-v2's geometries (Dqk 192 / Dv 128 windowed; the
 absorbed decode at r 512, dr 64) within 1e-4 in fp32 and int8 codes; in
 bf16 within 2e-2 (both sides round the probabilities and the output to
@@ -58,7 +59,6 @@ from repro_torch.kernels.decode_attn import decode_attention_mla
 from repro_torch.kernels.windowed_attn import (MAX_QK_DIM, _prepare,
                                                qk_plane_ld,
                                                windowed_tile_plan)
-from repro_torch.launch.smoke import refuse_card_training, train_smoke
 from repro_torch.launch.train import make_lm_loss_fn
 from repro_torch.models.transformer import forward, init_params
 from repro_torch.serve import cache as tc
@@ -446,7 +446,7 @@ def test_scheduler_matches_the_naive_oracle_without_drops(weights):
 
 
 # ---------------------------------------------------------------------------
-# training: a LoRA AdamW step on the CPU, refused on the card
+# training: LoRA AdamW steps on the blocked and the kernel path
 # ---------------------------------------------------------------------------
 
 def test_lora_train_step_matches_reference():
@@ -473,20 +473,32 @@ def test_lora_train_step_matches_reference():
                                    float(jm["grad_norm"]), rtol=1e-4)
 
 
-def test_card_training_is_refused_before_any_work():
-    """On a CUDA device the entry points refuse deepseek's FULL config
-    (its q/k head of 192 is past the backward kernels' 128: ROADMAP queue
-    B item 2); its SMOKE config (a q/k head of 16), the CPU and
-    minicpm3-4b's FULL config (96) pass; ``train_smoke`` on the CPU
-    trains the SMOKE config."""
-    cuda, spec = torch.device("cuda"), get_arch("deepseek-v2-236b")
-    with pytest.raises(NotImplementedError, match="queue B item 2"):
-        refuse_card_training(spec.config, cuda)
-    refuse_card_training(spec.config, torch.device("cpu"))
-    refuse_card_training(spec.smoke, cuda)
-    refuse_card_training(get_arch("minicpm3-4b").config, cuda)
-    res = train_smoke("deepseek-v2-236b", steps=2, device="cpu")
-    assert np.isfinite(res["losses"]).all()
+def test_lora_train_step_on_the_kernel_path_matches_reference():
+    """The same two AdamW steps with ``attn_impl="cuda"`` (its kernels'
+    plain versions on the CPU: kernel 1 forward, kernels 2 and 3 backward,
+    the path the card trains on): the loss within 1e-4 and the grad norm
+    within a relative 1e-4 of the reference's blocked path."""
+    jcfg = dataclasses.replace(JCFG, attn_block_size=32)
+    cfg = dataclasses.replace(config_from_jax(dataclasses.asdict(jcfg)),
+                              attn_impl="cuda")
+    tree = _tree(jcfg)
+    kw = dict(lr=3e-3, grad_clip=0.5, warmup_steps=2, total_steps=10,
+              trainable="lora")
+    jstep = j_make_step(j_loss_fn(jcfg, W), JOptConfig(**kw))
+    jstate = j_init_state(jax.tree_util.tree_map(jnp.asarray, tree),
+                          JOptConfig(**kw))
+    tstep = make_train_step(make_lm_loss_fn(cfg, W), OptimizerConfig(**kw))
+    tstate = init_train_state(from_jax_params(tree, cfg, "cpu"),
+                              OptimizerConfig(**kw))
+    before = dict(LAUNCHES)
+    for batch in _batches(jcfg.vocab_size, 128, 2):
+        jstate, jm = jstep(jstate, batch, jax.random.PRNGKey(0))
+        tstate, tm = tstep(tstate, batch)
+        np.testing.assert_allclose(tm["loss"].item(), float(jm["loss"]),
+                                   atol=TOL)
+        np.testing.assert_allclose(tm["grad_norm"].item(),
+                                   float(jm["grad_norm"]), rtol=1e-4)
+    assert LAUNCHES == before            # the CPU launches no kernel
 
 
 # ---------------------------------------------------------------------------

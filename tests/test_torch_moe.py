@@ -9,7 +9,9 @@ both ways. The model: qwen2-moe-a2.7b's SMOKE widths with one dense
 prefix layer (the reference's ``prefix`` group, as
 ``tests/test_serve.py:17`` builds it): hidden states and ``aux_loss``
 against the reference on the dense and kernel paths, and token-by-token
-decode equal to prefill at capacity 8.0.
+decode equal to prefill at capacity 8.0. The dispatch gather's gradient
+(``_Dispatch``, a gather in rank order in place of autograd's scatter) on
+a hand-built routing.
 
 Tolerances: fp32 throughout. ``moe_ffn`` and the forward within 1e-4 (the
 port adds each token's k slot outputs in rank order, the reference
@@ -139,6 +141,28 @@ def test_moe_ffn_two_calls_give_the_same_bits():
     b = moe_ffn(p, x, n_experts=E, top_k=K)
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
     assert a[0].dtype == torch.bfloat16 and a[1].dtype == torch.float32
+
+
+def test_dispatch_gather_backward_by_hand():
+    """``_Dispatch``'s gradient on a hand-built routing (4 tokens, top-2, 6
+    slots and the spare slot 6): token 0 keeps both choices, token 1 one
+    (its other dropped), token 2 none, token 3 one. A token's gradient is
+    the sum of its kept slots' rows in rank order; a token whose choices
+    were all dropped gets exactly 0, and the unused slots' rows (1 and 5,
+    token 0's by the scatter's zeros) reach no token."""
+    from repro_torch.models.moe import _Dispatch
+    slot = torch.tensor([[3, 0], [6, 2], [6, 6], [4, 6]])
+    token_of_slot = torch.tensor([0, 0, 1, 0, 3, 0])   # 1, 5 unused
+    xt = torch.arange(8, dtype=torch.float32).reshape(4, 2).requires_grad_()
+    out = _Dispatch.apply(xt, token_of_slot, slot)
+    assert torch.equal(out, xt.detach()[token_of_slot])
+    g = torch.tensor([[1., 2.], [10., 20.], [100., 200.], [1e3, 2e3],
+                      [1e4, 2e4], [7., 7.]])
+    out.backward(g)
+    want = torch.tensor([[1e3 + 1., 2e3 + 2.], [100., 200.], [0., 0.],
+                         [1e4, 2e4]])
+    assert torch.equal(xt.grad, want)
+    assert torch.equal(xt.grad[2], torch.zeros(2))
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,10 @@
 """The port's windowed-attention backward (its plain version, which the
 CUDA dq and dk/dv kernels are held to on the card) against ``jax.vjp`` of
 the reference's Pallas op in interpret mode, fp32, atol 1e-4 (the bar the
-reference holds its own kernels to); and exact segment isolation of the
-gradient (the deterministic layouts of ``tests/test_kernel_grads.py``)."""
+reference holds its own kernels to), at q/k head dims of 8 and 192 (the
+wide class's: deepseek-v2's 128 + 64); and exact segment isolation of
+the gradient (the deterministic layouts of
+``tests/test_kernel_grads.py``)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -90,6 +92,30 @@ def test_backward_matches_reference_vjp(hk, dv, window, nope, reset, packed,
                                         sum_iso):
     o = _operands(hk * 10 + window + nope + 2 * reset, Hk=hk, Dv=dv,
                   packed=packed)
+    want, got = _grads_both(o, window=window, nope=nope, reset=reset,
+                            packed=packed, sum_iso=sum_iso)
+    for name, w, g in zip(("dq", "dk", "dv", "dq_nope", "dk_nope", "dv0"),
+                          want, got):
+        assert (w is None) == (g is None), name
+        if w is not None:
+            np.testing.assert_allclose(g.numpy(), w, atol=TOL, err_msg=name)
+
+
+@pytest.mark.parametrize("hk,dv,window,nope,reset,packed,sum_iso", [
+    (4, 128, 8, False, False, False, True),   # n_rep 1, plain causal window
+    (2, 128, 16, True, False, False, True),   # n_rep 2, NoPE+ALiBi
+    (2, 64, 8, True, True, False, True),      # + reset, Dv 64
+    (4, 128, 8, False, True, False, False),   # reset only, no iso
+    (2, 128, 8, True, False, True, True),     # packed segments
+    (4, 96, 16, True, True, True, False),     # everything, iso off
+])
+def test_backward_matches_reference_vjp_at_dqk_192(hk, dv, window, nope,
+                                                   reset, packed, sum_iso):
+    """The same flag sets at deepseek-v2's q/k head dim (128 + 64), the
+    geometry of kernels 2 and 3's wide class: all six gradients within
+    1e-4 of the reference's Pallas backward in interpret mode."""
+    o = _operands(hk * 10 + window + nope + 2 * reset + 192, Hk=hk, D=192,
+                  Dv=dv, packed=packed)
     want, got = _grads_both(o, window=window, nope=nope, reset=reset,
                             packed=packed, sum_iso=sum_iso)
     for name, w, g in zip(("dq", "dk", "dv", "dq_nope", "dk_nope", "dv0"),

@@ -13,6 +13,7 @@ import torch
 from repro_torch.core.windowed import dti_mask
 from repro_torch.kernels.windowed_attn import (BAND_TABLE, BLOCK_K,
                                                BWD_Q_TILE, MAX_HEAD_DIM,
+                                               MAX_QK_DIM, PLANE_LD,
                                                SMEM_LIMIT, WARPS, dkv_block,
                                                dq_block, kv_band, q_band,
                                                sum_tiles, windowed_bwd_plan)
@@ -55,8 +56,24 @@ def _rows(S, packed, sums):
 @pytest.mark.parametrize("S", [150, 190, 2048])
 def test_every_attendable_pair_is_visited_once(S, window, packed, bf16,
                                                sums):
+    _visit_once(S, window, packed, bf16, sums, d=MAX_HEAD_DIM)
+
+
+@pytest.mark.parametrize("sums", ["tail", "spread"])
+@pytest.mark.parametrize("bf16", [True, False])
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("window", [100, 1024])
+@pytest.mark.parametrize("S", [190, 2048])
+def test_every_attendable_pair_is_visited_once_at_dqk_192(S, window, packed,
+                                                          bf16, sums):
+    """The wide class's plans (fp32 dq CTAs of 32 query rows) visit every
+    attendable pair once too."""
+    _visit_once(S, window, packed, bf16, sums, d=MAX_QK_DIM)
+
+
+def _visit_once(S, window, packed, bf16, sums, d):
     dq, dkv = windowed_bwd_plan(1, S, 1, 1, bf16=bf16, use_nope=True,
-                                use_reset=True)
+                                use_reset=True, d=d)
     pos, seg, valid, is_sum = _rows(S, packed, sums)
     t = torch.from_numpy
     mask = dti_mask(t(pos), t(pos), window=window, is_sum_k=t(is_sum),
@@ -98,8 +115,19 @@ def test_every_attendable_pair_is_visited_once(S, window, packed, bf16,
                                       (1, 2048, 4, 1), (2, 1, 3, 3),
                                       (1, 129, 2, 1), (2, 65, 8, 2)])
 def test_grids_cover_every_query_and_key_once(B, S, H, Hk, bf16):
+    _cover_once(B, S, H, Hk, bf16, d=MAX_HEAD_DIM)
+
+
+@pytest.mark.parametrize("bf16", [True, False])
+@pytest.mark.parametrize("B,S,H,Hk", [(2, 150, 4, 2), (1, 2048, 4, 4),
+                                      (2, 1, 3, 3), (2, 65, 8, 2)])
+def test_grids_cover_every_query_and_key_once_at_dqk_192(B, S, H, Hk, bf16):
+    _cover_once(B, S, H, Hk, bf16, d=MAX_QK_DIM)
+
+
+def _cover_once(B, S, H, Hk, bf16, d):
     dq, dkv = windowed_bwd_plan(B, S, H, Hk, bf16=bf16, use_nope=False,
-                                use_reset=False)
+                                use_reset=False, d=d)
     assert dq.grid[0] == H and dq.grid[2] == B
     assert dkv.grid[1] == Hk and dkv.grid[2] == B
     hits = np.zeros((B, H, S), np.int64)
@@ -141,6 +169,71 @@ def test_shared_memory_and_registers_fit_the_card(use_nope, use_reset,
         else:
             assert plan.ctas_per_sm == 1 and plan.stages == 1
             assert plan.terms == (3, 3)
+
+
+@pytest.mark.parametrize("bf16", [True, False])
+@pytest.mark.parametrize("use_nope,use_reset", FLAGS)
+def test_wide_plans_fit_the_card(use_nope, use_reset, bf16):
+    """The Dqk-192 class (``DQ = 192`` in the source): every flag fits one
+    CTA's 227 KB and runs one CTA per SM, whose shared memory and
+    registers (255 a thread) fit the SM. Its q, K, q_nope and K_nope
+    planes are 200 values wide, V's, V0's and dO's 136, and each thread
+    keeps 32 floats of gradient columns past 128 in shared memory. fp32's
+    dq pass takes 2 warps (32 query rows): at 4 warps Q and dO and a
+    stage of K, K_nope, V and V0 in three terms would pass 227 KB."""
+    for plan in windowed_bwd_plan(8, 2048, 128, 128, bf16=bf16,
+                                  use_nope=use_nope, use_reset=use_reset,
+                                  d=MAX_QK_DIM):
+        assert plan.block_rows == 16 * plan.warps
+        assert plan.smem_bytes <= SMEM_LIMIT
+        assert plan.stages * plan.stage_bytes < plan.smem_bytes
+        assert plan.ctas_per_sm == 1
+        assert plan.smem_bytes + CTA_RESERVED <= SM_SMEM
+        assert 32 * plan.warps * THREAD_REGS <= SM_REGS
+        assert plan.terms == ((1, 2) if bf16 else (3, 3))
+    dq, dkv = windowed_bwd_plan(8, 2048, 128, 128, bf16=bf16,
+                                use_nope=use_nope, use_reset=use_reset,
+                                d=MAX_QK_DIM)
+    nt = dq.terms[0]
+    assert (dq.warps, dq.block_rows) == ((4, 64) if bf16 else (2, 32))
+    assert dkv.warps == (4 if bf16 else 2)
+    kpl, vpl = nt * (1 + use_nope), nt * (1 + use_reset)
+    assert dq.stage_bytes == BLOCK_K * 2 * (kpl * 200 + vpl * PLANE_LD)
+    assert dkv.stage_bytes == BWD_Q_TILE * 2 * nt * (200 + PLANE_LD)
+    # the 4-warp fp32 dq CTA this plan avoids
+    if not bf16 and use_nope:
+        four = (nt * 64 * (200 + PLANE_LD) * 2 + dq.stage_bytes
+                + (2 * 4 * BLOCK_K + 5 * 64 + 8 + 2 + 32 * 128) * 4)
+        assert four > SMEM_LIMIT
+
+
+def test_wide_plans_at_deepseek_training_shape():
+    """deepseek-v2's train step (B=8, S=2048, H = Hk = 128, NoPE + reset):
+    in bf16 dq CTAs of 64 rows and dk/dv CTAs of 64 keys, 32 per (head,
+    row), two stages, ~148 KB each; fp32's dq CTA of 2 warps ~203 KB."""
+    dq, dkv = windowed_bwd_plan(8, 2048, 128, 128, bf16=True, use_nope=True,
+                                use_reset=True, d=192)
+    assert (dq.grid, dkv.grid) == ((128, 32, 8), (32, 128, 8))
+    assert dq.stages == dkv.stages == 2
+    assert (dq.smem_bytes, dkv.smem_bytes) == (147752, 147596)
+    dq32, dkv32 = windowed_bwd_plan(8, 2048, 128, 128, bf16=False,
+                                    use_nope=True, use_reset=True, d=192)
+    assert (dq32.grid, dkv32.grid) == ((128, 64, 8), (64, 128, 8))
+    assert (dq32.smem_bytes, dkv32.smem_bytes) == (203416, 203852)
+
+
+@pytest.mark.parametrize("d", [8, 64, 96, 127, 128])
+def test_narrow_plans_do_not_depend_on_the_head_dim(d):
+    """Head dims up to 128 take the 128 class's plans, as before the wide
+    class existed."""
+    for bf16 in (True, False):
+        for nope, reset in FLAGS:
+            kw = dict(bf16=bf16, use_nope=nope, use_reset=reset)
+            assert windowed_bwd_plan(8, 2048, 32, 8, d=d, **kw) == \
+                windowed_bwd_plan(8, 2048, 32, 8, **kw)
+    with pytest.raises(ValueError, match="exceeds"):
+        windowed_bwd_plan(1, 64, 1, 1, bf16=True, use_nope=False,
+                          use_reset=False, d=MAX_QK_DIM + 8)
 
 
 def test_plans_at_the_training_shape():
