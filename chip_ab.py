@@ -7,9 +7,11 @@ Each tree's own ``chip_smoke.py`` helpers and kernels (built from its
 sources into its own ``build/``) time, in a process of their own, kernel
 1 at dti-llama's prefill shape, kernel 4's GQA mode at its decode shape
 and its MLA mode at minicpm3-4b's (bf16 and int8 at s=64, bf16 at s=16),
-and kernels 2 and 3 (each pass on its own) at dti-llama's and
-minicpm3-4b's training shapes, the operands made from the seeds
-``chip_smoke.py`` uses. The trees run in
+kernels 2 and 3 (each pass on its own) at dti-llama's and minicpm3-4b's
+training shapes, and the Dqk-192 classes at deepseek-v2's shapes (kernel
+1's ``windowed_attn_192`` at its prefill shape, ``windowed_attn_dq_192``
+and ``windowed_attn_dkv_192`` at its training shape), the operands made
+from the seeds ``chip_smoke.py`` uses. The trees run in
 turns, parent, change, change, parent, so that a drift of the card shows
 on both sides. Each line is ``AB <tree> <json>``: per kernel, ms a call by
 ``cuda_ms`` (as the ``kernels`` line times it) and by ``cuda_ms_queued``
@@ -64,6 +66,19 @@ def run_tree(root: Path, label: str) -> None:
         for name, fn in calls.items():
             both(name + tag, fn)
         del calls
+    # the Dqk-192 classes at deepseek-v2's shapes: kernel 1 at its prefill
+    # shape (phase 6's seed), kernels 2 and 3 at its training shape (phase
+    # 2i's seed)
+    gen.manual_seed(19)
+    o, kw = cs.real_windowed_192(gen)
+    both("windowed_attn_192", lambda: windowed_attention(
+        o["q"], o["k"], o["v"], return_lse=True, **kw))
+    del o, kw
+    gen.manual_seed(28)
+    calls, _ = cs._bwd_launches(*cs.train_windowed(gen, heads=cs.DS_HEADS))
+    for name, fn in calls.items():
+        both(name + "_192", fn)
+    del calls
     print("AB", label, json.dumps(out), flush=True)
 
 

@@ -47,11 +47,15 @@ tiles that hold a [SUM] row (``sum_tiles``). The wrapper computes
 delta = <do, o> (``_delta``), as the reference does outside its kernels.
 The backward takes the forward's two head-dim classes: up to 128
 (``"windowed_attn_dq"``, ``"windowed_attn_dkv"``) and up to ``MAX_QK_DIM``
-(``"windowed_attn_dq_192"``, ``"windowed_attn_dkv_192"``: q, K, q_nope and
-K_nope planes 200 values wide, V's, V0's and dO's 136, the gradient
-columns past 128 accumulated in shared memory, one CTA per SM, and in fp32
-a dq CTA of 2 warps). A q/k head dim past ``MAX_QK_DIM`` raises before any
-launch.
+(``"windowed_attn_dq_192"``, ``"windowed_attn_dkv_192"``). The wide class
+in bf16 runs on ``wgmma`` (``_wgmma_plans``): CTAs of two consumer
+warpgroups of 64 rows, the gradients in registers, and a producer
+warpgroup that stages tiles through a ring of mbarriers; its dk/dv pass
+walks the band in four phases (dV, dK, dK_nope, dV0). In fp32 it keeps the
+mma.sync design: q, K, q_nope and K_nope planes 200 values wide, V's, V0's
+and dO's 136, the gradient columns past 128 accumulated in shared memory,
+one CTA per SM and a dq CTA of 2 warps. A q/k head dim past
+``MAX_QK_DIM`` raises before any launch.
 """
 from __future__ import annotations
 
@@ -156,7 +160,10 @@ class BwdPlan(NamedTuple):
     dk/dv: keys) and walking tiles of ``block_cols`` (dq: keys; dk/dv:
     query rows) through ``stages`` shared-memory stages of
     ``stage_bytes`` each; ``smem_bytes`` in all, ``ctas_per_sm`` CTAs on
-    an SM. ``terms`` = bf16 terms of (each operand, P and dS)."""
+    an SM. ``terms`` = bf16 terms of (each operand, P and dS).
+    ``warpgroups``: the warps multiply as that many consumer warpgroups of
+    64 rows on ``wgmma``, beside ``producer_warps`` that copy the tiles
+    (the bf16 wide class), or each on its own on ``mma.sync`` (0, 0)."""
     block_rows: int
     block_cols: int
     warps: int
@@ -166,6 +173,8 @@ class BwdPlan(NamedTuple):
     smem_bytes: int
     ctas_per_sm: int
     grid: Tuple[int, int, int]
+    warpgroups: int = 0
+    producer_warps: int = 0
 
 
 def windowed_bwd_plan(b: int, s: int, h: int, hk: int, *, bf16: bool,
@@ -186,9 +195,12 @@ def windowed_bwd_plan(b: int, s: int, h: int, hk: int, *, bf16: bool,
     warps) on an SM. The wide class keeps a thread's fragments of the
     gradient columns past 128 (dQ; dK or dK_nope) in shared memory, 32
     floats a thread, and runs one CTA per SM; its fp32 dq pass takes 2
-    warps (32 query rows), or a CTA would pass ``SMEM_LIMIT`` with NoPE."""
+    warps (32 query rows), or a CTA would pass ``SMEM_LIMIT`` with NoPE.
+    The wide class in bf16 runs on ``wgmma`` (``_wgmma_plans``)."""
     ldq = qk_plane_ld(d)
     wide = ldq > PLANE_LD
+    if wide and bf16:
+        return _wgmma_plans(b, s, h, hk, use_nope, use_reset)
     nt, np_ = (1, 2) if bf16 else (3, 3)
     kpl = nt * (1 + use_nope)                   # K, K_nope: ldq wide
     planes = nt * (2 + use_nope + use_reset)
@@ -215,6 +227,53 @@ def windowed_bwd_plan(b: int, s: int, h: int, hk: int, *, bf16: bool,
                + BAND_TABLE // 4 + BAND_TABLE // 2 + 1 + xs * 32 * warps) * 4)
     dkv = BwdPlan(bkv, BWD_Q_TILE, warps, (nt, np_), stages, stage, smem,
                   per_sm, (-(-s // bkv), hk, b))
+    return dq, dkv
+
+
+WG_ROWS = 64          # rows of a consumer warpgroup's products (wgmma's M)
+WG_PASS_ROWS = 128    # rows of the wide class's bf16 CTAs: two consumers
+WG_STAGES = 3
+WG_PRODUCER_WARPS = 4   # one warpgroup
+MBAR_WORDS = 4        # int words of a stage's full and empty mbarriers
+# registers a thread: at launch (the CTA's pool: 65536 / 384 rounded down
+# to 8), then per consumer and producer thread after setmaxnreg
+WG_LAUNCH_REGS, WG_CONSUMER_REGS, WG_PRODUCER_REGS = 168, 232, 40
+
+
+def _wgmma_plans(b: int, s: int, h: int, hk: int, use_nope: bool,
+                 use_reset: bool) -> Tuple[BwdPlan, BwdPlan]:
+    """The bf16 wide class's plans (``WgDqCfg`` and ``WgDkvCfg`` in
+    ``csrc/windowed_attn_bwd.cu``): CTAs of two consumer warpgroups (8
+    warps, 128 rows) and a producer warpgroup (4 warps), one CTA per SM,
+    planes of 8 x 8 core matrices without padding (q and K rows of
+    ``MAX_QK_DIM`` values, V and dO rows of ``MAX_HEAD_DIM``), a ring of
+    three stages with a full and an empty mbarrier each. dq: 128 query
+    rows, Q and dO staged once, kv tiles of ``BLOCK_K`` keys (K, K_nope,
+    V, V0 planes a stage), each stage's ``META_WORDS`` words a key; then
+    each row's five words, five a row warp and a warpgroup. dk/dv: 128
+    keys, K, K_nope, V and V0 staged once, q tiles of ``BWD_Q_TILE`` rows
+    (Q and dO planes a stage), each stage's ``Q_META_WORDS`` words a row;
+    eight words a consumer warp, five a warpgroup, three a key, phase B's
+    table and two counts."""
+    kpl, vpl = 1 + use_nope, 1 + use_reset
+    wgs = WG_PASS_ROWS // WG_ROWS
+    warps = 4 * wgs
+    ring = WG_STAGES * MBAR_WORDS
+    rows = WG_PASS_ROWS * (MAX_QK_DIM + MAX_HEAD_DIM) * 2
+    stage = BLOCK_K * 2 * (kpl * MAX_QK_DIM + vpl * MAX_HEAD_DIM)
+    smem = (rows + WG_STAGES * stage
+            + (ring + WG_STAGES * META_WORDS * BLOCK_K + 5 * WG_PASS_ROWS
+               + 5 * (WG_PASS_ROWS // 32) + 5 * wgs) * 4)
+    dq = BwdPlan(WG_PASS_ROWS, BLOCK_K, warps, (1, 2), WG_STAGES, stage, smem,
+                 1, (h, -(-s // WG_PASS_ROWS), b), wgs, WG_PRODUCER_WARPS)
+    keys = WG_PASS_ROWS * 2 * (kpl * MAX_QK_DIM + vpl * MAX_HEAD_DIM)
+    stage = BWD_Q_TILE * (MAX_QK_DIM + MAX_HEAD_DIM) * 2
+    smem = (keys + WG_STAGES * stage
+            + (ring + WG_STAGES * Q_META_WORDS * BWD_Q_TILE + 8 * warps
+               + 5 * wgs + 3 * WG_PASS_ROWS + BAND_TABLE // 4
+               + BAND_TABLE // 2 + 2) * 4)
+    dkv = BwdPlan(WG_PASS_ROWS, BWD_Q_TILE, warps, (1, 2), WG_STAGES, stage,
+                  smem, 1, (-(-s // WG_PASS_ROWS), hk, b), wgs, WG_PRODUCER_WARPS)
     return dq, dkv
 
 

@@ -562,15 +562,30 @@ WINDOWED_192_CASES = {
     "d192_dv64_window_past_s": (300, 192, 64, 1, 1024, False, False, False, True, False),
     "d136_dv96_packed": (150, 136, 96, 2, 33, True, False, True, False, False),
 }
+# kernels 2 and 3's bf16 wide class on wgmma (CTAs of two warpgroups of 64
+# query rows or keys), backward only: a packed segment boundary between a
+# CTA's two warpgroups (S // 4 = row 64), S ragged against the CTA's 128
+# rows (200; 129, whose last CTA's second warpgroup holds no row), and a
+# dk/dv band of more q tiles than BAND_TABLE (264: phase B revisits every
+# tile; one batch row of 2 heads, for the plain version's S x S scores)
+WGMMA_SPLIT_CASES = {
+    "d192_segment_between_warpgroups": (256, 192, 128, 2, 100, True, True, True, True, False),
+    "d192_s200_reset": (200, 192, 128, 8, 64, False, True, False, True, False),
+    "d192_s129_nope_empty_row": (129, 192, 128, 4, 40, True, False, False, True, True),
+    "d192_band_past_table": (8448, 192, 128, 1, 8300, True, True, False, True, False),
+}
+CASE_BH = {"d192_band_past_table": (1, 2)}
 
 
-def windowed_case_operands(gen, case, dtype, B=2, H=8):
-    """Operands of a WINDOWED_CASES (or WINDOWED_192_CASES) entry: row 0
-    padded in its tail, the last row without a valid key when ``empty``;
-    packed rows hold three prompts whose positions restart; [SUM] rows at
-    random (~12 %)."""
+def windowed_case_operands(gen, case, dtype, B=None, H=None):
+    """Operands of a WINDOWED_CASES (WINDOWED_192_CASES, WGMMA_SPLIT_CASES)
+    entry, B=2 and H=8 unless CASE_BH says otherwise: row 0 padded in its
+    tail, the last row without a valid key when ``empty``; packed rows hold
+    three prompts whose positions restart; [SUM] rows at random (~12 %)."""
     S, D, Dv, hk, window, nope, reset, packed, sum_iso, empty = \
-        {**WINDOWED_CASES, **WINDOWED_192_CASES}[case]
+        {**WINDOWED_CASES, **WINDOWED_192_CASES, **WGMMA_SPLIT_CASES}[case]
+    B = CASE_BH.get(case, (2, 8))[0] if B is None else B
+    H = CASE_BH.get(case, (2, 8))[1] if H is None else H
     r = lambda *sh: torch.randn(sh, generator=gen, device="cuda").to(dtype)
     pos = torch.arange(S, device="cuda", dtype=torch.int32).repeat(B, 1)
     seg = torch.zeros(B, S, dtype=torch.int32, device="cuda")
@@ -811,13 +826,16 @@ def test_windowed_backward_flags_match_plain(gen, case, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", list(WINDOWED_192_CASES))
+@pytest.mark.parametrize("case", list(WINDOWED_192_CASES)
+                         + list(WGMMA_SPLIT_CASES))
 def test_windowed_backward_at_dqk_192_flags_match_plain(gen, case, dtype):
-    """Kernels 2 and 3's wide class (q, K, q_nope, K_nope planes 200
+    """Kernels 2 and 3's wide class (bf16: two warpgroups a CTA on wgmma,
+    the gradients in registers; fp32: q, K, q_nope, K_nope planes 200
     values wide, the gradient columns past 128 in shared memory) over the
-    Dqk-192 and -136 flag cases, held as the 128 class is above; one
-    launch of each wide key a call, none of the 128 class's, and a second
-    call gives the same bits."""
+    Dqk-192 and -136 flag cases and the cases of the warpgroups' tile split
+    (WGMMA_SPLIT_CASES), held as the 128 class is above; one launch of
+    each wide key a call, none of the 128 class's, and a second call gives
+    the same bits."""
     q, k, v, kw = windowed_case_operands(gen, case, dtype)
     do = torch.randn(q.shape[:3] + (v.shape[3],), generator=gen,
                      device="cuda").to(dtype)

@@ -14,7 +14,10 @@ from repro_torch.core.windowed import dti_mask
 from repro_torch.kernels.windowed_attn import (BAND_TABLE, BLOCK_K,
                                                BWD_Q_TILE, MAX_HEAD_DIM,
                                                MAX_QK_DIM, PLANE_LD,
-                                               SMEM_LIMIT, WARPS, dkv_block,
+                                               SMEM_LIMIT, WARPS,
+                                               WG_CONSUMER_REGS,
+                                               WG_LAUNCH_REGS,
+                                               WG_PRODUCER_REGS, dkv_block,
                                                dq_block, kv_band, q_band,
                                                sum_tiles, windowed_bwd_plan)
 
@@ -63,11 +66,12 @@ def test_every_attendable_pair_is_visited_once(S, window, packed, bf16,
 @pytest.mark.parametrize("bf16", [True, False])
 @pytest.mark.parametrize("packed", [False, True])
 @pytest.mark.parametrize("window", [100, 1024])
-@pytest.mark.parametrize("S", [190, 2048])
+@pytest.mark.parametrize("S", [190, 333, 2048])
 def test_every_attendable_pair_is_visited_once_at_dqk_192(S, window, packed,
                                                           bf16, sums):
-    """The wide class's plans (fp32 dq CTAs of 32 query rows) visit every
-    attendable pair once too."""
+    """The wide class's plans (bf16: CTAs of two warpgroups, 128 query
+    rows or keys, S = 190 and 333 ragged against them; fp32: dq CTAs of
+    32 query rows) visit every attendable pair once too."""
     _visit_once(S, window, packed, bf16, sums, d=MAX_QK_DIM)
 
 
@@ -120,7 +124,8 @@ def test_grids_cover_every_query_and_key_once(B, S, H, Hk, bf16):
 
 @pytest.mark.parametrize("bf16", [True, False])
 @pytest.mark.parametrize("B,S,H,Hk", [(2, 150, 4, 2), (1, 2048, 4, 4),
-                                      (2, 1, 3, 3), (2, 65, 8, 2)])
+                                      (2, 1, 3, 3), (2, 65, 8, 2),
+                                      (1, 129, 2, 1), (3, 257, 4, 2)])
 def test_grids_cover_every_query_and_key_once_at_dqk_192(B, S, H, Hk, bf16):
     _cover_once(B, S, H, Hk, bf16, d=MAX_QK_DIM)
 
@@ -171,19 +176,26 @@ def test_shared_memory_and_registers_fit_the_card(use_nope, use_reset,
             assert plan.terms == (3, 3)
 
 
+@pytest.mark.parametrize("B,S,H,Hk", [(8, 2048, 128, 128), (2, 190, 8, 2)])
 @pytest.mark.parametrize("bf16", [True, False])
 @pytest.mark.parametrize("use_nope,use_reset", FLAGS)
-def test_wide_plans_fit_the_card(use_nope, use_reset, bf16):
+def test_wide_plans_fit_the_card(use_nope, use_reset, bf16, B, S, H, Hk):
     """The Dqk-192 class (``DQ = 192`` in the source): every flag fits one
     CTA's 227 KB and runs one CTA per SM, whose shared memory and
-    registers (255 a thread) fit the SM. Its q, K, q_nope and K_nope
-    planes are 200 values wide, V's, V0's and dO's 136, and each thread
-    keeps 32 floats of gradient columns past 128 in shared memory. fp32's
-    dq pass takes 2 warps (32 query rows): at 4 warps Q and dO and a
-    stage of K, K_nope, V and V0 in three terms would pass 227 KB."""
-    for plan in windowed_bwd_plan(8, 2048, 128, 128, bf16=bf16,
-                                  use_nope=use_nope, use_reset=use_reset,
-                                  d=MAX_QK_DIM):
+    registers (255 a thread) fit the SM. bf16 runs on ``wgmma``: CTAs of
+    two consumer warpgroups (8 warps, 128 query rows or keys) and a
+    producer warpgroup (4 warps), planes of core matrices 192 (q, K,
+    q_nope, K_nope) and 128 (V, V0, dO) values wide without padding, three
+    stages, the gradients in registers; the registers setmaxnreg gives
+    the consumers and takes from the producer fit the CTA's pool at
+    launch (384 threads at 168). fp32 keeps
+    ``mma.sync``: planes 200 and 136 values wide, 32 floats a thread of
+    gradient columns past 128 in shared memory, and a dq pass of 2 warps
+    (32 query rows): at 4 warps Q and dO and a stage of K, K_nope, V and
+    V0 in three terms would pass 227 KB."""
+    dq, dkv = windowed_bwd_plan(B, S, H, Hk, bf16=bf16, use_nope=use_nope,
+                                use_reset=use_reset, d=MAX_QK_DIM)
+    for plan in (dq, dkv):
         assert plan.block_rows == 16 * plan.warps
         assert plan.smem_bytes <= SMEM_LIMIT
         assert plan.stages * plan.stage_bytes < plan.smem_bytes
@@ -191,17 +203,31 @@ def test_wide_plans_fit_the_card(use_nope, use_reset, bf16):
         assert plan.smem_bytes + CTA_RESERVED <= SM_SMEM
         assert 32 * plan.warps * THREAD_REGS <= SM_REGS
         assert plan.terms == ((1, 2) if bf16 else (3, 3))
-    dq, dkv = windowed_bwd_plan(8, 2048, 128, 128, bf16=bf16,
-                                use_nope=use_nope, use_reset=use_reset,
-                                d=MAX_QK_DIM)
+        assert plan.warpgroups == (2 if bf16 else 0)
+        assert plan.producer_warps == (4 if bf16 else 0)
+    assert dq.grid == (H, -(-S // dq.block_rows), B)
+    assert dkv.grid == (-(-S // dkv.block_rows), Hk, B)
     nt = dq.terms[0]
-    assert (dq.warps, dq.block_rows) == ((4, 64) if bf16 else (2, 32))
-    assert dkv.warps == (4 if bf16 else 2)
     kpl, vpl = nt * (1 + use_nope), nt * (1 + use_reset)
+    if bf16:
+        assert (dq.warps, dq.block_rows, dq.stages) == (8, 128, 3)
+        assert (dkv.warps, dkv.block_rows, dkv.stages) == (8, 128, 3)
+        assert dq.producer_warps == dkv.producer_warps == 4
+        assert dq.stage_bytes == BLOCK_K * 2 * (kpl * 192 + vpl * 128)
+        assert dkv.stage_bytes == BWD_Q_TILE * 2 * (192 + 128)
+        threads = 32 * (dq.warps + dq.producer_warps)
+        assert threads * WG_LAUNCH_REGS <= SM_REGS
+        assert WG_LAUNCH_REGS == SM_REGS // threads // 8 * 8
+        assert (32 * dq.warps * WG_CONSUMER_REGS
+                + 32 * dq.producer_warps * WG_PRODUCER_REGS
+                <= threads * WG_LAUNCH_REGS)
+        return
+    assert (dq.warps, dq.block_rows) == (2, 32)
+    assert dkv.warps == 2
     assert dq.stage_bytes == BLOCK_K * 2 * (kpl * 200 + vpl * PLANE_LD)
     assert dkv.stage_bytes == BWD_Q_TILE * 2 * nt * (200 + PLANE_LD)
     # the 4-warp fp32 dq CTA this plan avoids
-    if not bf16 and use_nope:
+    if use_nope:
         four = (nt * 64 * (200 + PLANE_LD) * 2 + dq.stage_bytes
                 + (2 * 4 * BLOCK_K + 5 * 64 + 8 + 2 + 32 * 128) * 4)
         assert four > SMEM_LIMIT
@@ -209,13 +235,17 @@ def test_wide_plans_fit_the_card(use_nope, use_reset, bf16):
 
 def test_wide_plans_at_deepseek_training_shape():
     """deepseek-v2's train step (B=8, S=2048, H = Hk = 128, NoPE + reset):
-    in bf16 dq CTAs of 64 rows and dk/dv CTAs of 64 keys, 32 per (head,
-    row), two stages, ~148 KB each; fp32's dq CTA of 2 warps ~203 KB."""
+    in bf16 dq CTAs of 128 query rows and dk/dv CTAs of 128 keys, 16 per
+    (head, row), three stages each: ~204 KB (Q and dO 80 KB, stages of K,
+    K_nope, V and V0 40 KB) and ~224 KB (the keys' four planes 160 KB,
+    stages of Q and dO 20 KB); fp32's dq CTA of 2 warps ~203 KB."""
     dq, dkv = windowed_bwd_plan(8, 2048, 128, 128, bf16=True, use_nope=True,
                                 use_reset=True, d=192)
-    assert (dq.grid, dkv.grid) == ((128, 32, 8), (32, 128, 8))
-    assert dq.stages == dkv.stages == 2
-    assert (dq.smem_bytes, dkv.smem_bytes) == (147752, 147596)
+    assert (dq.grid, dkv.grid) == ((128, 16, 8), (16, 128, 8))
+    assert dq.stages == dkv.stages == 3
+    assert dq.warpgroups == dkv.warpgroups == 2
+    assert dq.producer_warps == dkv.producer_warps == 4
+    assert (dq.smem_bytes, dkv.smem_bytes) == (209064, 229856)
     dq32, dkv32 = windowed_bwd_plan(8, 2048, 128, 128, bf16=False,
                                     use_nope=True, use_reset=True, d=192)
     assert (dq32.grid, dkv32.grid) == ((128, 64, 8), (64, 128, 8))
