@@ -9,7 +9,8 @@ sources into its own ``build/``) time, in a process of their own, kernel
 and its MLA mode at minicpm3-4b's (bf16 and int8 at s=64, bf16 at s=16),
 kernels 2 and 3 (each pass on its own) at dti-llama's and minicpm3-4b's
 training shapes, and the Dqk-192 classes at deepseek-v2's shapes (kernel
-1's ``windowed_attn_192`` at its prefill shape, ``windowed_attn_dq_192``
+1's ``windowed_attn_192`` at its prefill shape and, as
+``windowed_attn_192_train``, at its training shape; ``windowed_attn_dq_192``
 and ``windowed_attn_dkv_192`` at its training shape), the operands made
 from the seeds ``chip_smoke.py`` uses. The trees run in
 turns, parent, change, change, parent, so that a drift of the card shows
@@ -67,11 +68,16 @@ def run_tree(root: Path, label: str) -> None:
             both(name + tag, fn)
         del calls
     # the Dqk-192 classes at deepseek-v2's shapes: kernel 1 at its prefill
-    # shape (phase 6's seed), kernels 2 and 3 at its training shape (phase
-    # 2i's seed)
+    # shape (phase 6's seed) and at its training shape, kernels 2 and 3 at
+    # its training shape (phase 2i's seed)
     gen.manual_seed(19)
     o, kw = cs.real_windowed_192(gen)
     both("windowed_attn_192", lambda: windowed_attention(
+        o["q"], o["k"], o["v"], return_lse=True, **kw))
+    del o, kw
+    gen.manual_seed(28)
+    o, kw = cs.train_windowed(gen, heads=cs.DS_HEADS)
+    both("windowed_attn_192_train", lambda: windowed_attention(
         o["q"], o["k"], o["v"], return_lse=True, **kw))
     del o, kw
     gen.manual_seed(28)

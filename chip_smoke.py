@@ -49,8 +49,11 @@ Phases, each fatal on failure:
    deepseek-v2 brings, under launch keys of their own: kernel 1's Dqk-192
    class (``windowed_attn_192``) over 2a's flags at Dqk 192 and 136 in
    fp32 (1e-4) and bf16 (per row), then at deepseek-v2's prefill shape
-   (B=8, S=2048, 128 heads, Dqk 192, Dv 128, window 1024, NoPE) against
-   the fp32 plain version a batch row at a time; kernel 4's MLA mode at a
+   (B=8, S=2048, 128 heads, Dqk 192, Dv 128, window 1024, NoPE) and its
+   training shape (2i's: NoPE + reset, [SUM] rows in each row's tail)
+   against the fp32 plain version a batch row at a time, its
+   instantiations' registers and spills (``-Xptxas -v``) logged in phase
+   6; kernel 4's MLA mode at a
    latent of up to 512 and a rope span of up to 64
    (``decode_attn_mla_576``, ``_q8``) over 2g's flags at r 512 / dr 64,
    300 / 40, 264 / 48 and 392 / 56, then at deepseek-v2's decode shape
@@ -259,7 +262,9 @@ Phases, each fatal on failure:
    training shape (phase 13's operands) beside their bound and SDPA
    backward on the same mask; the wide geometries of 2h at deepseek-v2's
    shapes beside their plain versions (kernel 1's summed over calls of
-   one batch row) and SDPA; kernels 2 and 3's Dqk-192 class at deepseek-
+   one batch row) and SDPA, kernel 1's Dqk-192 class at its prefill shape
+   in the ``kernels`` line's row and at its training shape in that row's
+   ``train_*`` keys; kernels 2 and 3's Dqk-192 class at deepseek-
    v2's training shape (2i's operands) beside their plain version (summed
    over calls of one batch row), SDPA backward and their bound, and with
    [SUM] rows every 7th slot.
@@ -3579,8 +3584,9 @@ def check_kernels_wide():
     under its own launch key. Kernel 1's Dqk-192 class
     (``windowed_attn_192``) over phase 2a's flags at Dqk 192 and 136, in
     fp32 within SMALL_TOL and on bf16 inputs per row, then at deepseek-v2's
-    prefill shape (``real_windowed_192``) in bf16 against the fp32 plain
-    version (a batch row at a time), twice (the same bits). Kernel 4's MLA
+    prefill shape (``real_windowed_192``) and training shape
+    (``train_windowed``, 2i's seed) in bf16 against the fp32 plain version
+    (a batch row at a time), each twice (the same bits). Kernel 4's MLA
     mode at a latent of up to 512 and a rope span of up to 64
     (``decode_attn_mla_576``, ``decode_attn_mla_576_q8``) over phase 2g's
     flags at r 512 / dr 64, r 300 / dr 40 (a second value chunk of 44
@@ -3647,6 +3653,29 @@ def check_kernels_wide():
     check_close("windowed_attn_192 lse", lse, lse_w, LSE_TOL)
     del got, lse, want, lse_w
     check_same_bits("windowed_attn_192 at deepseek-v2's prefill shape",
+                    lambda: run()[0])
+    n_win += 3
+    del o, kw, run
+
+    log("phase 2h: deepseek-v2's training shape (NoPE + reset, [SUM] rows "
+        "in each row's tail), bf16 kernel vs the fp32 plain version (a "
+        "batch row at a time)")
+    gen.manual_seed(28)
+    o, kw = train_windowed(gen, heads=DS_HEADS)
+    del o["do"]
+    run = lambda: windowed_attention(o["q"], o["k"], o["v"],
+                                     return_lse=True, **kw)
+    got, lse = run()
+    torch.cuda.synchronize()
+    want, lse_w = plain_by_rows(windowed_attention_plain,
+                                (o["q"], o["k"], o["v"]), kw)
+    errs["windowed_attn_192"] = max(errs["windowed_attn_192"], check_rows(
+        "windowed_attn_192 o   B8 S2048 H128 Dqk192 Dv128 w1024 NoPE+reset",
+        got, want))
+    check_close("windowed_attn_192 lse (training shape)", lse, lse_w,
+                LSE_TOL)
+    del got, lse, want, lse_w
+    check_same_bits("windowed_attn_192 at deepseek-v2's training shape",
                     lambda: run()[0])
     n_win += 3
     del o, kw, run
@@ -4237,12 +4266,17 @@ def time_windowed(o, kw, rows=None):
 def time_wide():
     """Phase 6's rows for the wide geometries, on phase 2h's real shapes
     made again from a seed: kernel 1's Dqk-192 class at deepseek-v2's
-    prefill shape, kernel 4's MLA mode at its decode shape in both
-    modes."""
+    prefill shape and, under ``train``, at its training shape (2i's
+    seed), kernel 4's MLA mode at its decode shape in both modes."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(19)
     out = {"windowed_attn_192": time_windowed(*real_windowed_192(gen),
                                               rows=1)}
+    gen.manual_seed(28)
+    o, kw = train_windowed(gen, heads=DS_HEADS)
+    del o["do"]
+    out["windowed_attn_192"]["train"] = time_windowed(o, kw, rows=1)
+    del o, kw
     o, kw = real_mla(gen, **DS_LATENT)
     out["decode_attn_mla_576"] = time_mla(dict(ops=(o, None, kw)), False)
     del o, kw
@@ -4686,14 +4720,16 @@ def profile_call(fn, label):
     return busy
 
 
-def mla_ptxas(logs) -> str:
-    """``-Xptxas -v``'s report for the MLA mode's instantiations
-    (``mla_kernel<MlaGeo<latent, rope span>, T, NOPE, QUANT>`` in
-    ``csrc/decode_attn.cu``): registers and spill bytes of each, on one
-    line."""
-    text = logs.get("decode_attn")
+def ptxas_report(logs, source, pattern, label) -> str:
+    """``-Xptxas -v``'s report for the entry functions of ``source`` whose
+    mangled name matches ``pattern``: registers and spill bytes of each
+    (``label`` names one from the match), and whether ptxas serialized its
+    ``wgmma`` instructions (note C7515), on one line."""
+    text = logs.get(source)
     if text is None:
         return "not built in this run (the library was already built)"
+    serial = {n for line in text.splitlines() if "C7515" in line
+              for n in re.findall(r"'(\S+)'", line)}
     out, name, spill = [], None, "?"
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -4706,14 +4742,33 @@ def mla_ptxas(logs) -> str:
             spill = f"{m.group(1)}/{m.group(2)} B spill stores/loads"
             continue
         m = re.search(r"Used (\d+) registers", line)
-        t = re.search(r"mla_kernelINS_6MlaGeoILi(\d+)ELi(\d+)EEE"
-                      r"(f|13__nv_bfloat16)Lb([01])ELb([01])E", name or "")
+        t = re.search(pattern, name or "")
         if m and t:
-            out.append(f"mla_kernel<{t.group(1)}/{t.group(2)}, "
-                       f"{'fp32' if t.group(3) == 'f' else 'bf16'}"
-                       f", nope={t.group(4)}, int8={t.group(5)}>: "
-                       f"{m.group(1)} registers, {spill}")
-    return "; ".join(out) or "no MLA instantiation in the report"
+            out.append(f"{label(t)}: {m.group(1)} registers, {spill}"
+                       + (", wgmma serialized" if name in serial else ""))
+            name = None
+    return "; ".join(out) or "no such instantiation in the report"
+
+
+def mla_ptxas(logs) -> str:
+    """The MLA mode's instantiations (``mla_kernel<MlaGeo<latent, rope
+    span>, T, NOPE, QUANT>`` in ``csrc/decode_attn.cu``)."""
+    return ptxas_report(
+        logs, "decode_attn",
+        r"mla_kernelINS_6MlaGeoILi(\d+)ELi(\d+)EEE(f|13__nv_bfloat16)"
+        r"Lb([01])ELb([01])E",
+        lambda t: (f"mla_kernel<{t.group(1)}/{t.group(2)}, "
+                   f"{'fp32' if t.group(3) == 'f' else 'bf16'}, "
+                   f"nope={t.group(4)}, int8={t.group(5)}>"))
+
+
+def wide_fwd_ptxas(logs) -> str:
+    """Kernel 1's Dqk-192 class in bf16 (``fwd_wg_kernel<NOPE, RESET>`` in
+    ``csrc/windowed_attn.cu``): its registers at launch (setmaxnreg then
+    gives the consumers 232), spills, and serialized ``wgmma``."""
+    return ptxas_report(
+        logs, "windowed_attn", r"fwd_wg_kernelILb([01])ELb([01])E",
+        lambda t: f"fwd_wg_kernel<nope={t.group(1)}, reset={t.group(2)}>")
 
 
 def card_line() -> str:
@@ -4938,6 +4993,18 @@ def run_phases(kernels, graphs, t_start) -> int:
             f"ms ({row['bound_by']}: {t['bytes'] / 1e6:.1f} MB, "
             f"{t['flops'] / 1e12:.4f} TFLOP), launches {launches[name]}"
             + what)
+        tr = t.get("train")
+        if tr is not None:
+            tb = max(tr["bytes"] / HBM_BYTES_PER_S * 1e3,
+                     tr["flops"] / BF16_FLOPS * 1e3)
+            row.update(train_ms=tr["ms"], train_plain_ms=tr["plain_ms"],
+                       train_bound_ms=tb, train_library_ms=tr["library_ms"])
+            log(f"  {name} at deepseek-v2's training shape (NoPE + reset): "
+                f"{tr['ms']:.4f} ms, plain {tr['plain_ms']:.4f} ms, library "
+                f"{tr['library_ms']:.4f} ms ({tr['backend']}), bound "
+                f"{tb:.4f} ms ({tr['bytes'] / 1e6:.1f} MB, "
+                f"{tr['flops'] / 1e12:.4f} TFLOP); keys read per (row, kv "
+                f"head), summed over rows, for K/K_nope/V: {tr['keys']}")
         rows.append(row)
     log(f"  summary: train step {t_train['step_ms']:.2f} ms, peak "
         f"{t_train['peak_gib']:.2f} GiB, fp32 train check loss diff "
@@ -5015,6 +5082,8 @@ def run_phases(kernels, graphs, t_start) -> int:
            for nope in (False, True)}
     log(f"  MLA instantiations (-Xptxas -v): {mla_ptxas(logs)}; resident "
         f"CTAs per SM at s=64 (H=40 at 256/32, H=128 at 512/64): {occ}")
+    log(f"  windowed_attn_192's bf16 instantiations (-Xptxas -v): "
+        f"{wide_fwd_ptxas(logs)}")
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

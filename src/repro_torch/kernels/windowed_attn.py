@@ -20,8 +20,12 @@ the grid, the stages and the shared memory it launches with, and the kv
 band each q tile walks. The C entry point refuses a plan it would not make.
 It takes q/k head dims up to ``MAX_QK_DIM`` (192) in two classes, up to
 128 (launch key ``"windowed_attn"``) and up to 192 (deepseek-v2's 128 +
-64; ``"windowed_attn_192"``, q and K planes 200 values wide), and value
-head dims up to ``MAX_HEAD_DIM`` (128).
+64; ``"windowed_attn_192"``), and value head dims up to ``MAX_HEAD_DIM``
+(128). The wide class in bf16 runs on ``wgmma`` (``_wgmma_fwd_plan``):
+CTAs of two consumer warpgroups of 64 query rows, Q in registers, and a
+producer warpgroup that stages kv tiles of 64 keys by TMA through rings of
+mbarriers, on a grid of (q tiles, H, B); in fp32 it keeps the ``mma.sync``
+design with q and K planes 200 values wide.
 
 Schedule contract (as the reference's): the band of kv tiles a q tile
 visits is physical (rows within ``window`` of the tile), the mask is
@@ -87,11 +91,15 @@ BWD_Q_TILE, Q_META_WORDS, BAND_TABLE = 32, 5, 256
 
 
 class TilePlan(NamedTuple):
-    """How kernel 1 runs one call: ``grid`` = (H, q tiles, B) CTAs of
-    ``warps`` warps, each a q tile of ``block_q`` rows (``block_q / warps``
-    per warp) walking kv tiles of ``block_k`` keys through ``stages``
-    shared-memory stages of ``stage_bytes`` each; ``smem_bytes`` in all.
-    ``terms`` = bf16 terms of (q, K, P, V) in the products."""
+    """How kernel 1 runs one call: ``grid`` CTAs of ``warps`` warps, each
+    a q tile of ``block_q`` rows walking kv tiles of ``block_k`` keys
+    through ``stages`` shared-memory stages of ``stage_bytes`` each;
+    ``smem_bytes`` in all. ``terms`` = bf16 terms of (q, K, P, V) in the
+    products. ``warpgroups``: the warps multiply as that many consumer
+    warpgroups of 64 rows on ``wgmma`` beside ``producer_warps`` that copy
+    the tiles, on a grid of (q tiles, H, B) (the bf16 wide class), or each
+    on its own on ``mma.sync`` (0, 0), 16 or 32 rows a warp, on a grid of
+    (H, q tiles, B)."""
     block_q: int
     block_k: int
     warps: int
@@ -100,6 +108,8 @@ class TilePlan(NamedTuple):
     stage_bytes: int
     smem_bytes: int
     grid: Tuple[int, int, int]
+    warpgroups: int = 0
+    producer_warps: int = 0
 
 
 def qk_plane_ld(d: int) -> int:
@@ -121,7 +131,10 @@ def windowed_tile_plan(b: int, s: int, h: int, *, bf16: bool,
     dims up to 128. fp32: 16 rows a warp, three terms each, converted from
     memory into one stage. V planes are padded to ``MAX_HEAD_DIM``, the q
     and K planes to their head-dim class (``qk_plane_ld``), whatever the
-    head dims."""
+    head dims. The wide class in bf16 runs on ``wgmma``
+    (``_wgmma_fwd_plan``)."""
+    if bf16 and qk_plane_ld(d) > PLANE_LD:
+        return _wgmma_fwd_plan(b, s, h, use_nope, use_reset)
     mt = 2 if bf16 and not use_reset else 1
     block_q = WARPS * 16 * mt
     nq, nk, np_, nv = (1, 1, 2, 1) if bf16 else (3, 3, 3, 3)
@@ -140,7 +153,11 @@ def windowed_tile_plan(b: int, s: int, h: int, *, bf16: bool,
 
 def tile_of_block(plan: TilePlan, x: int, y: int, z: int):
     """The (batch row, head, first query row) of CTA ``(x, y, z)``: q
-    tiles run last first, the longest bands before the shortest."""
+    tiles run last first, the longest bands before the shortest; on the
+    ``wgmma`` plan's grid the q tiles are innermost (x), so that the q
+    tiles of a head run side by side and share their bands from L2."""
+    if plan.warpgroups:
+        return z, y, (plan.grid[0] - 1 - x) * plan.block_q
     return z, x, (plan.grid[1] - 1 - y) * plan.block_q
 
 
@@ -238,6 +255,41 @@ MBAR_WORDS = 4        # int words of a stage's full and empty mbarriers
 # registers a thread: at launch (the CTA's pool: 65536 / 384 rounded down
 # to 8), then per consumer and producer thread after setmaxnreg
 WG_LAUNCH_REGS, WG_CONSUMER_REGS, WG_PRODUCER_REGS = 168, 232, 40
+
+
+FWD_BLOCK_K = 64        # keys per kv tile of kernel 1's wgmma class
+FWD_MAX_STAGES = 4      # stages of its K ring and of its V ring
+
+
+def _wgmma_fwd_plan(b: int, s: int, h: int, use_nope: bool,
+                    use_reset: bool) -> TilePlan:
+    """Kernel 1's bf16 wide class (``WgCfg`` in ``csrc/windowed_attn.cu``):
+    CTAs of two consumer warpgroups (8 warps, 64 query rows each, 128 a
+    CTA) and a producer warpgroup (4 warps), one CTA per SM, on a grid of
+    (q tiles, H, B). Q (q_nope on [SUM] rows) is staged once; kv tiles of
+    ``FWD_BLOCK_K`` keys go through two rings, one of K (rows of
+    ``MAX_QK_DIM`` values) and one of V (``MAX_HEAD_DIM``), each
+    ``FWD_MAX_STAGES`` stages deep, or half as deep where a CTA's q tile
+    holds a [SUM] row and the stage holds K_nope beside K (V0 beside V);
+    each stage has a full and an empty mbarrier. ``stages`` and
+    ``stage_bytes`` are those with every live plane staged (the K ring's
+    and the V ring's stages together). Then ``2 * FWD_MAX_STAGES`` slots
+    of the keys' ``META_WORDS`` words, each row's three words, five a row
+    warp and a warpgroup, and 1,024 bytes to align the planes to the
+    128-byte swizzle's atoms."""
+    wgs = WG_PASS_ROWS // WG_ROWS
+    k_ring = FWD_MAX_STAGES * FWD_BLOCK_K * MAX_QK_DIM * 2
+    v_ring = FWD_MAX_STAGES * FWD_BLOCK_K * MAX_HEAD_DIM * 2
+    stage = FWD_BLOCK_K * 2 * ((1 + use_nope) * MAX_QK_DIM
+                               + (1 + use_reset) * MAX_HEAD_DIM)
+    stages = FWD_MAX_STAGES // (2 if use_nope or use_reset else 1)
+    smem = (1024 + WG_PASS_ROWS * MAX_QK_DIM * 2 + k_ring + v_ring
+            + 4 * FWD_MAX_STAGES * 8
+            + (2 * FWD_MAX_STAGES * META_WORDS * FWD_BLOCK_K
+               + 3 * WG_PASS_ROWS + 5 * (WG_PASS_ROWS // 32) + 5 * wgs) * 4)
+    return TilePlan(WG_PASS_ROWS, FWD_BLOCK_K, 4 * wgs, (1, 1, 2, 1),
+                    stages, stage, smem, (-(-s // WG_PASS_ROWS), h, b), wgs,
+                    WG_PRODUCER_WARPS)
 
 
 def _wgmma_plans(b: int, s: int, h: int, hk: int, use_nope: bool,
@@ -456,8 +508,8 @@ def _fwd(st, q, k, v, live, alibi_f, ints):
     lib = load("windowed_attn", _ARGTYPES)
     rc = lib.windowed_attn_fwd(
         ptr(q), ptr(qn), ptr(k), ptr(kn), ptr(v), ptr(v0), ptr(alibi_f),
-        *map(ptr, ints), ptr(o), ptr(lse), *st.ints(bf16), plan.grid[1],
-        plan.smem_bytes, *st.floats(), _stream(q))
+        *map(ptr, ints), ptr(o), ptr(lse), *st.ints(bf16),
+        -(-st.s // plan.block_q), plan.smem_bytes, *st.floats(), _stream(q))
     check_launch(launch_key("windowed_attn", st.d), rc)
     return o, lse
 

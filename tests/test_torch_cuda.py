@@ -575,15 +575,29 @@ WGMMA_SPLIT_CASES = {
     "d192_band_past_table": (8448, 192, 128, 1, 8300, True, True, False, True, False),
 }
 CASE_BH = {"d192_band_past_table": (1, 2)}
+# kernel 1's bf16 wide class on wgmma (CTAs of two warpgroups of 64 query
+# rows, kv tiles of 64 keys), forward only: S ragged against 128 with
+# [SUM] rows in one warpgroup of each CTA (CASE_SUM_ROWS: row 70 in CTA
+# 0's second, row 140 in CTA 1's first, none in CTA 2), an empty batch
+# row at S 257, and packed segments whose boundaries (rows 75, 200) fall
+# inside kv tiles and inside a CTA's second warpgroup
+WGMMA_FWD_CASES = {
+    "d192_sum_in_one_warpgroup": (300, 192, 128, 2, 100, True, True, False, True, False),
+    "d192_s257_empty_row": (257, 192, 128, 8, 64, True, False, False, True, True),
+    "d192_segments_inside_tiles": (300, 192, 96, 1, 90, True, True, True, True, False),
+}
+CASE_SUM_ROWS = {"d192_sum_in_one_warpgroup": (70, 140)}
+ALL_CASES = {**WINDOWED_CASES, **WINDOWED_192_CASES, **WGMMA_SPLIT_CASES,
+             **WGMMA_FWD_CASES}
 
 
 def windowed_case_operands(gen, case, dtype, B=None, H=None):
-    """Operands of a WINDOWED_CASES (WINDOWED_192_CASES, WGMMA_SPLIT_CASES)
-    entry, B=2 and H=8 unless CASE_BH says otherwise: row 0 padded in its
-    tail, the last row without a valid key when ``empty``; packed rows hold
-    three prompts whose positions restart; [SUM] rows at random (~12 %)."""
+    """Operands of an ALL_CASES entry, B=2 and H=8 unless CASE_BH says
+    otherwise: row 0 padded in its tail, the last row without a valid key
+    when ``empty``; packed rows hold three prompts whose positions
+    restart; [SUM] rows at random (~12 %), or at CASE_SUM_ROWS."""
     S, D, Dv, hk, window, nope, reset, packed, sum_iso, empty = \
-        {**WINDOWED_CASES, **WINDOWED_192_CASES, **WGMMA_SPLIT_CASES}[case]
+        ALL_CASES[case]
     B = CASE_BH.get(case, (2, 8))[0] if B is None else B
     H = CASE_BH.get(case, (2, 8))[1] if H is None else H
     r = lambda *sh: torch.randn(sh, generator=gen, device="cuda").to(dtype)
@@ -599,6 +613,9 @@ def windowed_case_operands(gen, case, dtype, B=None, H=None):
     if empty:
         valid[-1] = False
     is_sum = torch.rand(B, S, generator=gen, device="cuda") < 0.12
+    if case in CASE_SUM_ROWS:
+        is_sum = torch.zeros(B, S, dtype=torch.bool, device="cuda")
+        is_sum[:, list(CASE_SUM_ROWS[case])] = True
     kw = dict(pos_q=pos, pos_k=pos, window=window, valid_k=valid,
               sum_isolated=sum_iso, is_sum_q=is_sum, is_sum_k=is_sum)
     if nope:
@@ -636,12 +653,15 @@ def test_windowed_kernel_flags_match_plain(gen, case, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", list(WINDOWED_192_CASES))
+@pytest.mark.parametrize("case", list(WINDOWED_192_CASES)
+                         + list(WGMMA_SPLIT_CASES) + list(WGMMA_FWD_CASES))
 def test_windowed_kernel_at_dqk_192_matches_plain(gen, case, dtype):
-    """Kernel 1's wide head-dim class (``windowed_attn_192``: q and K
-    planes 200 values wide, V's 136) over the flag cases at Dqk 192 and
-    136, held as the narrow class is above; the narrow class's count does
-    not move, and a second call gives the same bits."""
+    """Kernel 1's wide head-dim class (``windowed_attn_192``; bf16: two
+    warpgroups a CTA on wgmma; fp32: q and K planes 200 values wide, V's
+    136) over the flag cases at Dqk 192 and 136 and the cases of the
+    warpgroups' tiles (WGMMA_SPLIT_CASES, WGMMA_FWD_CASES), held as the
+    narrow class is above; the narrow class's count does not move, and a
+    second call gives the same bits."""
     q, k, v, kw = windowed_case_operands(gen, case, dtype)
     before = dict(kernels.LAUNCHES)
     o, lse = windowed_attention(q, k, v, return_lse=True, **kw)
@@ -658,7 +678,7 @@ def test_windowed_kernel_at_dqk_192_matches_plain(gen, case, dtype):
     _hold(o, want)
     torch.testing.assert_close(lse, lse_w, rtol=0,
                                atol=TOL if dtype == torch.float32 else 1e-3)
-    if WINDOWED_192_CASES[case][-1]:
+    if ALL_CASES[case][-1]:
         assert torch.all(o[-1] == 0) and torch.all(lse[-1] == 1e30)
 
 
@@ -712,11 +732,15 @@ def _shifted(t):
 
 @pytest.mark.parametrize("case", ["reset_nope_empty_row",
                                   "d128_window_past_s",
-                                  "d192_reset_packed_empty_row"])
+                                  "d192_reset_packed_empty_row",
+                                  "d192_nope_ragged",
+                                  "d192_sum_in_one_warpgroup",
+                                  "d136_dv96_packed"])
 def test_windowed_kernel_unaligned_rows_give_the_same_bits(gen, case):
     """bf16 operands whose base is not 16-byte aligned take the path that
-    converts each tile from memory in place of cp.async; it stages the same
-    bf16 values, so o and lse are bit for bit those of aligned copies."""
+    converts each tile from memory in place of cp.async (at Dqk 192, of
+    TMA); it stages the same bf16 values, so o and lse are bit for bit
+    those of aligned copies."""
     q, k, v, kw = windowed_case_operands(gen, case, torch.bfloat16)
     names = [n for n in ("q_nope", "k_nope", "v0") if n in kw]
     kw2 = dict(kw, **{n: _shifted(kw[n]) for n in names})
@@ -728,34 +752,43 @@ def test_windowed_kernel_unaligned_rows_give_the_same_bits(gen, case):
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
 
 
-def test_windowed_kernel_refuses_a_plan_it_would_not_make(gen):
+@pytest.mark.parametrize("case", ["d128_dv64_plain",
+                                  "d192_reset_packed_empty_row"])
+def test_windowed_kernel_refuses_a_plan_it_would_not_make(gen, case):
     """The entry point checks the plan the wrapper hands it (q tiles, shared
     memory) against its own and refuses, without launching, one that
-    differs."""
+    differs: at both head-dim classes, and at Dqk 192 in bf16 the mma.sync
+    plan of the 128 class as well."""
     from repro_torch.kernels import load, ptr
     from repro_torch.kernels import windowed_attn as wa
-    q, k, v, kw = windowed_case_operands(gen, "d128_dv64_plain",
-                                         torch.bfloat16)
+    q, k, v, kw = windowed_case_operands(gen, case, torch.bfloat16)
     full = dict(is_sum_q=None, is_sum_k=None, valid_k=None, seg_q=None,
                 seg_k=None, q_nope=None, k_nope=None, alibi=None, v0=None,
                 reset=None, sum_isolated=True, scale=None)
     full.update(kw)
     st, live, alibi_f, ints = wa._prepare(q, k, v, **full)
-    plan = wa.windowed_tile_plan(st.b, st.s, st.h, bf16=True,
-                                 use_nope=st.use_nope,
-                                 use_reset=st.use_reset)
+    flags = dict(bf16=True, use_nope=st.use_nope, use_reset=st.use_reset)
+    plan = wa.windowed_tile_plan(st.b, st.s, st.h, d=st.d, **flags)
+    n_qb = -(-st.s // plan.block_q)
+    bad = [(n_qb, plan.smem_bytes + 16), (n_qb + 1, plan.smem_bytes)]
+    if st.d > wa.MAX_HEAD_DIM:
+        narrow = wa.windowed_tile_plan(st.b, st.s, st.h, **flags)
+        assert plan.warpgroups == 2 and narrow.warpgroups == 0
+        bad.append((-(-st.s // narrow.block_q), narrow.smem_bytes))
     o = torch.empty(q.shape[:3] + (v.shape[3],), dtype=q.dtype,
                     device="cuda")
     lse = torch.empty(st.b, st.h, st.s, device="cuda")
     lib = load("windowed_attn", wa._ARGTYPES)
     stream = torch.cuda.current_stream().cuda_stream
-    for n_qb, smem in ((plan.grid[1], plan.smem_bytes + 16),
-                       (plan.grid[1] + 1, plan.smem_bytes)):
+    qn, kn, v0 = live
+    before = dict(kernels.LAUNCHES)
+    for n, smem in bad:
         rc = lib.windowed_attn_fwd(
-            ptr(q), None, ptr(k), None, ptr(v), None, ptr(alibi_f),
-            *map(ptr, ints), ptr(o), ptr(lse), *st.ints(True), n_qb, smem,
+            ptr(q), ptr(qn), ptr(k), ptr(kn), ptr(v), ptr(v0), ptr(alibi_f),
+            *map(ptr, ints), ptr(o), ptr(lse), *st.ints(True), n, smem,
             *st.floats(), stream)
         assert rc != 0
+    assert kernels.LAUNCHES == before
 
 
 GRAD_FLOOR = 1e-5    # chip_smoke.py's: of the batch row's largest |gradient|

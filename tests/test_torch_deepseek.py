@@ -545,15 +545,30 @@ def test_windowed_checks_take_dqk_192_and_refuse_past_it():
 @pytest.mark.parametrize("nope", [False, True])
 @pytest.mark.parametrize("reset", [False, True])
 def test_windowed_tile_plan_at_dqk_192(bf16, nope, reset):
-    """The wide class's plan (``Cfg`` with DQ 192 in the source): the same
-    tiles, stages and grid as at 128, q and K planes 200 values wide, V's
-    136; it fits a CTA's 227 KB; deepseek's prefill (bf16, NoPE, no reset)
-    takes ~120 KB, one CTA per SM."""
-    from repro_torch.kernels.windowed_attn import (BLOCK_K, PLANE_LD,
-                                                   SMEM_LIMIT)
+    """The wide class's plan. fp32 (``Cfg`` with DQ 192 in the source):
+    the same tiles, stages and grid as at 128, q and K planes 200 values
+    wide, V's 136. bf16 runs on ``wgmma`` (``WgCfg``): CTAs of two
+    consumer warpgroups of 64 query rows and a producer warpgroup, kv
+    tiles of 64 keys, planes without padding, on a grid of (q tiles, H,
+    B). Both fit a CTA's 227 KB; deepseek's prefill (bf16, NoPE, no
+    reset) takes ~219 KB, one CTA per SM."""
+    from repro_torch.kernels.windowed_attn import (BLOCK_K, FWD_BLOCK_K,
+                                                   PLANE_LD, SMEM_LIMIT)
     kw = dict(bf16=bf16, use_nope=nope, use_reset=reset)
     narrow = windowed_tile_plan(8, 2048, 128, **kw)
     wide = windowed_tile_plan(8, 2048, 128, d=192, **kw)
+    assert wide.smem_bytes <= SMEM_LIMIT
+    if bf16:
+        assert (wide.block_q, wide.block_k) == (128, FWD_BLOCK_K)
+        assert wide.warps == 8
+        assert (wide.warpgroups, wide.producer_warps) == (2, 4)
+        assert wide.grid == (16, 128, 8)
+        assert wide.terms == narrow.terms == (1, 1, 2, 1)
+        assert wide.stage_bytes == FWD_BLOCK_K * 2 * (
+            (1 + nope) * 192 + (1 + reset) * 128)
+        if nope and not reset:
+            assert 216 * 1024 < wide.smem_bytes < 220 * 1024
+        return
     assert wide._replace(stage_bytes=0, smem_bytes=0) == \
         narrow._replace(stage_bytes=0, smem_bytes=0)
     nq, nk, _, nv = wide.terms
@@ -562,9 +577,6 @@ def test_windowed_tile_plan_at_dqk_192(bf16, nope, reset):
         kplanes * 200 + (nv * (1 + reset)) * PLANE_LD)
     assert wide.smem_bytes - narrow.smem_bytes == \
         (nq * wide.block_q + wide.stages * kplanes * BLOCK_K) * 64 * 2
-    assert wide.smem_bytes <= SMEM_LIMIT
-    if bf16 and nope and not reset:
-        assert 115 * 1024 < wide.smem_bytes < 122 * 1024
 
 
 @pytest.mark.parametrize("mode", ["fp32", "bf16", "int8"])
