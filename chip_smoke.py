@@ -1,9 +1,12 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (``src/repro_torch``) on one NVIDIA card.
 
-    python3 chip_smoke.py        # every phase, one card
+    python3 chip_smoke.py                 # every phase, one card
+    python3 chip_smoke.py --phases 1,21   # a development run: phase 1 and
+                                          # the phases named, no kernels line
 
-Phases, each fatal on failure:
+Phases, each fatal on failure. Every line printed, and the result's JSON
+lines, also go to ``chiprun_out/chip_smoke.log`` beside the script:
 
 1. build  — compile the four CUDA sources from
    ``src/repro_torch/kernels/csrc`` (one nvcc each, started together) for
@@ -240,6 +243,39 @@ Phases, each fatal on failure:
    KV at 2 layers one decode step on a paged cache whose pages lie out of
    order in the pool equal, bit for bit, to the same step on a contiguous
    cache holding the same KV.
+21. continual training — ``repro_torch.stream`` closes dti-llama FULL's
+   train -> serve loop on phase 3's weights (LoRA B nonzero), the counts
+   set to 0 before it: ``IncrementalDTI`` seeded with 24 users' warm
+   histories at phase 7's corpus geometry (n_ctx 252, k 20, max_len 2048),
+   8 events per user replayed in 2 ticks through ``StreamPipeline``
+   (batches of 8, buckets 512 / 1024 / 2048), ``OnlineTrainer`` (LoRA
+   AdamW at lr 1e-4, not phase 7's 1e-3; window 1024) for 6 steps
+   publishing every 3 through a
+   ``ParamPublisher`` on a ``LocalDirStore(keep=2)`` under ``build/``
+   (removed at the end); a ``ServeScheduler`` at phase 9's settings polls
+   a ``ParamSubscriber`` every step and serves 4 requests of the stream's
+   users before, between and after the swaps, a ``PrefixPrewarmer``
+   ticking beside it (``swapped=True`` on the ticks a swap landed). Every
+   new target supervised exactly once, losses and p_click finite,
+   ``lifetime_auc.n`` the supervised count, frozen leaves bit for bit
+   unchanged and every LoRA leaf moved, nothing skipped, the scheduler on
+   the last published version; per online step kernel 1 64 times and
+   kernels 2 and 3 32 times, per scheduler step kernel 4 once per layer,
+   no plain version; every served score in (0, 1); two requests after
+   the last swap against a fresh scheduler on the restored weights: a
+   cold one bit for bit, a prewarmed one (its shared prefix committed in
+   the prewarm's chunks) within P_TOL; a scheduler with
+   ``drain_before_swap`` takes one swap with requests in flight, each
+   scored under one version, one drain. Printed: ms per online step,
+   targets/s, pad_fraction, seconds per publish (device -> host, write)
+   and per restore, the scheduler's swap steps, time to freshness,
+   prewarms and cross-row hits, peak memory. 21b: 2 layers at FULL widths
+   in fp32 on stream rows holding re-emitted [SUM] rows (``target_mask``
+   false): the stream loss and the lora_a / lora_b gradients, kernel path
+   against dense path, at phase 8's tolerances, each ``lora_scale``
+   gradient within GRAD32_TOL of the sum of its terms' magnitudes (tapped
+   on the dense path), p_click at the supervised positions within
+   P32_TOL.
 6. times — prefill call, decode step and train step, peak memory, the
    frozen weight-gradient pass's cost, each scheduler run's ms per step,
    candidates/s, pages, KV bytes and host time per step, and each kernel
@@ -282,6 +318,7 @@ import shutil
 import subprocess
 import sys
 import time
+import traceback
 from pathlib import Path
 
 import numpy as np
@@ -332,16 +369,34 @@ P_TOL = 5e-2
 
 
 T_START = time.perf_counter()
+LOG_PATH = ROOT / "chiprun_out" / "chip_smoke.log"
+_LOG_FILES: list = []      # the log file, once ``main`` has opened it
+
+
+def _to_log_file(line: str) -> None:
+    for f in _LOG_FILES:
+        f.write(line + "\n")
+        f.flush()
 
 
 def log(msg: str) -> None:
-    """Print a line; a phase's header line with the run's seconds so far."""
+    """Print a line (and write it to LOG_PATH); a phase's header line with
+    the run's seconds so far."""
     if msg.startswith("phase "):
         msg = f"{msg} [{time.perf_counter() - T_START:.0f}s]"
     print(msg, flush=True)
+    _to_log_file(msg)
+
+
+def emit(obj) -> None:
+    """Print one JSON line of the result (and write it to LOG_PATH)."""
+    line = json.dumps(obj)
+    print(line, flush=True)
+    _to_log_file(line)
 
 
 def fail(msg: str) -> None:
+    _to_log_file(f"chip_smoke: FAILED: {msg}")
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
@@ -1223,25 +1278,34 @@ LOSS32_TOL = 1e-5
 GRAD32_TOL = 1e-4
 
 
-def training_material(cfg):
-    """DTI streaming prompts at the full vocabulary: one prompt per user
-    with TRAIN_K targets and as many context items as make
-    ``train_max_len`` 2048; TRAIN_STEPS batches of TRAIN_ROWS rows. And 16
-    sliding-window test prompts of other users for ``evaluate_lm``."""
-    from repro_torch.core.dti import (batch_prompts, build_sliding_prompts,
-                                      build_streaming_prompts, train_max_len,
-                                      window_tokens)
+def train_geometry(cfg):
+    """Phase 7's corpus geometry: (n_ctx, avg item tokens, max_len) with
+    the n_ctx that makes ``train_max_len`` TRAIN_LEN at TRAIN_K targets
+    (the corpus of seed 5; its items come first from the seed)."""
+    from repro_torch.core.dti import train_max_len
     from repro_torch.data.synthetic import make_ctr_dataset
-    n_users = TRAIN_ROWS * TRAIN_STEPS + 16
     probe = make_ctr_dataset(n_users=1, n_items=400, seq_len=2,
                              vocab_size=cfg.vocab_size, seed=5)
-    avg = probe.avg_item_tokens    # items come first from the seed
+    avg = probe.avg_item_tokens
     n_ctx = 400
     while train_max_len(n_ctx, TRAIN_K, avg) > TRAIN_LEN:
         n_ctx -= 1
     max_len = train_max_len(n_ctx, TRAIN_K, avg)
     if max_len != TRAIN_LEN:
         fail(f"no n_ctx gives train_max_len {TRAIN_LEN} (avg {avg})")
+    return n_ctx, avg, max_len
+
+
+def training_material(cfg):
+    """DTI streaming prompts at the full vocabulary: one prompt per user
+    with TRAIN_K targets and as many context items as make
+    ``train_max_len`` 2048; TRAIN_STEPS batches of TRAIN_ROWS rows. And 16
+    sliding-window test prompts of other users for ``evaluate_lm``."""
+    from repro_torch.core.dti import (batch_prompts, build_sliding_prompts,
+                                      build_streaming_prompts, window_tokens)
+    from repro_torch.data.synthetic import make_ctr_dataset
+    n_users = TRAIN_ROWS * TRAIN_STEPS + 16
+    n_ctx, avg, max_len = train_geometry(cfg)
     ds = make_ctr_dataset(n_users=n_users, n_items=400,
                           seq_len=n_ctx + TRAIN_K, vocab_size=cfg.vocab_size,
                           seed=5)
@@ -1296,6 +1360,29 @@ class _PlainCalls:
             setattr(m, a, fn)
 
 
+class _Counted:
+    """Wraps ``fn`` (a train step or a scheduler's decode step): the launch
+    counts of each call, and with ``timed`` (a device sync) its ms."""
+
+    def __init__(self, kernels, fn, timed=None, on_call=None):
+        self.kernels, self.fn, self.timed = kernels, fn, timed
+        self.on_call = on_call
+        self.per_call, self.ms, self.args = [], [], []
+
+    def __call__(self, *args, **kw):
+        if self.on_call is not None:
+            self.on_call(*args)
+        before = dict(self.kernels.LAUNCHES)
+        t0 = time.perf_counter()
+        out = self.fn(*args, **kw)
+        if self.timed is not None:
+            self.timed()                  # the device sync
+            self.ms.append((time.perf_counter() - t0) * 1e3)
+        self.per_call.append({k: self.kernels.LAUNCHES[k] - before[k]
+                              for k in self.kernels.LAUNCHES})
+        return out
+
+
 def train_keys(cfg):
     """The launch keys of kernels 1, 2 and 3 at ``cfg``'s q/k head dim
     (``launch_key``)."""
@@ -1331,15 +1418,8 @@ def phase_train(cfg, params, mat, kernels, phase="7"):
               if not is_trainable(ocfg, p)}
     lora = {p: t.clone() for p, t in named if is_trainable(ocfg, p)}
     step = make_train_step(make_lm_loss_fn(cfg, mat["window"]), ocfg)
-    per_step = []
-
-    def counted(state, batch, gen):
-        before = dict(kernels.LAUNCHES)
-        out = step(state, batch, gen)
-        per_step.append({k: kernels.LAUNCHES[k] - before[k]
-                         for k in kernels.LAUNCHES})
-        return out
-
+    counted = _Counted(kernels, step)
+    per_step = counted.per_call
     trainer = Trainer(counted, init_train_state(params, ocfg), log_every=1,
                       log_fn=lambda m: log(f"  {m}"))
     torch.cuda.synchronize()
@@ -1367,7 +1447,23 @@ def phase_train(cfg, params, mat, kernels, phase="7"):
         f"{[h['grad_norm'] for h in trainer.history]}")
     if not all(np.isfinite(losses)):
         fail(f"non-finite loss: {losses}")
-    new = dict(named_leaves(trainer.state.params))
+    hold_lora_update(frozen, lora, trainer.state)
+    m = evaluate_lm(trainer.state.params, cfg, mat["window"], mat["test"],
+                    mat["test_labels"], batch_size=8)
+    log(f"  evaluate_lm on {len(mat['test'])} sliding-window prompts: {m}")
+    if not all(np.isfinite(list(m.values()))):
+        fail(f"evaluate_lm gave {m}")
+    return dict(trainer=trainer, launches=launches, peak=peak,
+                step_fn=step, state=trainer.state)
+
+
+def hold_lora_update(frozen, lora, state):
+    """After LoRA training from params whose frozen leaves were ``frozen``
+    (path -> (tensor, ``_bits``)) and LoRA leaves ``lora`` (path -> a
+    clone): frozen leaves the same tensors with the same bits, every LoRA
+    leaf moved."""
+    from repro_torch.models.transformer import named_leaves
+    new = dict(named_leaves(state.params))
     changed = [p for p, (t, bits) in frozen.items()
                if new[p] is not t or _bits(new[p]) != bits]
     if changed:
@@ -1375,7 +1471,7 @@ def phase_train(cfg, params, mat, kernels, phase="7"):
     # Training state lives in the fp32 masters: every LoRA leaf's must
     # move. A bf16 lora_scale of 2.0 has steps of 2^-7, more than a few
     # steps of lr 1e-3 move it, so its bf16 copy is counted, not required.
-    master = dict(named_leaves(trainer.state.opt.master))
+    master = dict(named_leaves(state.opt.master))
     still = [p for p, t in lora.items() if torch.equal(master[p], t.float())]
     still += [p for p, t in lora.items()
               if p[-1] != "lora_scale" and torch.equal(new[p], t)]
@@ -1386,13 +1482,6 @@ def phase_train(cfg, params, mat, kernels, phase="7"):
     log(f"  {len(frozen)} frozen leaves bit for bit unchanged; the fp32 "
         f"masters of all {len(lora)} LoRA leaves moved, and the bf16 "
         f"lora_a/lora_b; {moved} of {len(scales)} bf16 lora_scale moved")
-    m = evaluate_lm(trainer.state.params, cfg, mat["window"], mat["test"],
-                    mat["test_labels"], batch_size=8)
-    log(f"  evaluate_lm on {len(mat['test'])} sliding-window prompts: {m}")
-    if not all(np.isfinite(list(m.values()))):
-        fail(f"evaluate_lm gave {m}")
-    return dict(trainer=trainer, launches=launches, peak=peak,
-                step_fn=step, state=trainer.state)
 
 
 def _lora_grads(cfg, params, batch, window):
@@ -1819,16 +1908,8 @@ def run_sched(cfg, params, reqs, kernels, *, kv_dtype, paged, n_pages=None,
     sched.warmup()
     sched.reset_stats()
     tracer.clear()
-    per_step = []
-    decode = sched._decode
-
-    def counted(*args, **kw):
-        before = dict(kernels.LAUNCHES)
-        out = decode(*args, **kw)
-        per_step.append({k: kernels.LAUNCHES[k] - before[k]
-                         for k in kernels.LAUNCHES})
-        return out
-    sched._decode = counted
+    sched._decode = _Counted(kernels, sched._decode)
+    per_step = sched._decode.per_call
     rids = [sched.submit(r["context"], r["candidates"]) for r in reqs]
     plain = _PlainCalls([(engine, "decode_attention_plain"),
                          (engine, "decode_attention_mla_plain")])
@@ -3104,6 +3185,480 @@ def _wall(fn, iters):
         torch.cuda.synchronize()
         ts.append(time.perf_counter() - t0)
     return float(np.median(ts))
+
+
+# ---------------------------------------------------------------------------
+# phases 21 and 21b: continual training on the card, the train -> serve loop
+# ---------------------------------------------------------------------------
+
+# The stream: phase 7's corpus geometry (n_ctx 252, k 20, max_len 2048),
+# STREAM_USERS users whose first n_ctx interactions are their warm history
+# and whose next STREAM_EVENTS arrive as events over STREAM_TICKS ticks:
+# each tick touches ~every user, so gives 17-24 rows, 3 batches of
+# STREAM_ROWS, and the online trainer publishes after each tick
+# (publish_every 3). The scheduler serves STREAM_REQ requests of the
+# stream's users a round (their first STREAM_CTX buffered interactions,
+# STREAM_CAND catalog candidates).
+STREAM_USERS, STREAM_EVENTS, STREAM_TICKS = 24, 8, 2
+STREAM_ROWS, STREAM_BUCKETS, STREAM_PUBLISH = 8, (512, 1024, 2048), 3
+STREAM_REQ, STREAM_CTX, STREAM_CAND = 4, 160, 16
+# phase 7's lr 1e-3 takes these random-weight LoRA adapters to p_click 1.0
+# on every candidate within 3 steps; 1e-4 keeps the served scores apart
+STREAM_LR = 1e-4
+STREAM_DIR = ROOT / "build" / "stream_store"
+
+
+def stream_material(cfg):
+    from repro_torch.core.dti import window_tokens
+    from repro_torch.data.requests import make_event_stream, warm_histories
+    from repro_torch.data.synthetic import make_ctr_dataset
+    n_ctx, avg, max_len = train_geometry(cfg)
+    ds = make_ctr_dataset(n_users=STREAM_USERS, n_items=400,
+                          seq_len=2 * n_ctx, vocab_size=cfg.vocab_size,
+                          seed=5)
+    end = (n_ctx + STREAM_EVENTS + 0.5) / (2 * n_ctx)
+    ticks = make_event_stream(ds, n_ticks=STREAM_TICKS, start_frac=0.5,
+                              end_frac=end, seed=0)
+    return dict(ds=ds, warm=warm_histories(ds, start_frac=0.5), ticks=ticks,
+                n_ctx=n_ctx, max_len=max_len,
+                window=window_tokens(n_ctx, avg))
+
+
+def stream_requests(ds, inc, users, seed):
+    """One request per user: its first STREAM_CTX buffered interactions
+    (a prefix of what the prewarmer commits for it) and STREAM_CAND
+    catalog items."""
+    r = np.random.default_rng(seed)
+    return [(inc._users[u].items[:STREAM_CTX],
+             [list(ds.item_tokens[i])
+              for i in r.integers(0, len(ds.item_tokens), STREAM_CAND)])
+            for u in users]
+
+
+def check_launches(label, per_call, want):
+    """Every call launched exactly ``want`` (the other kernels 0)."""
+    full = {k: 0 for k in per_call[0]} if per_call else {}
+    full.update(want)
+    bad = [d for d in per_call if d != full]
+    if bad or not per_call:
+        fail(f"{label}: launches {bad[:2]} over {len(per_call)} calls, want "
+             f"{want} each")
+
+
+def phase_stream(cfg, params, kernels, dev="cuda"):
+    """Phase 21: ``repro_torch.stream`` closes dti-llama FULL's train ->
+    serve loop on the card. ``IncrementalDTI`` over the users' warm
+    histories, the event ticks through ``StreamPipeline``, ``OnlineTrainer``
+    (LoRA AdamW, one warm-up step, lr STREAM_LR 1e-4 where phase 7 takes
+    1e-3, which saturates the served scores) on kernels 1-3 publishing
+    through a ``ParamPublisher`` on a ``LocalDirStore(keep=2)``; a
+    ``ServeScheduler`` (phase 9's settings, kernel 4) polls a
+    ``ParamSubscriber`` every step and serves the stream's users before,
+    between and after the swaps, with a ``PrefixPrewarmer`` ticking beside
+    it. Then the last version
+    against a fresh scheduler on the restored weights, and one swap under
+    ``drain_before_swap``. ``dev`` "cpu" rehearses the phase on the
+    plain versions."""
+    import repro_torch.serve.engine as engine
+    import repro_torch.train.checkpoint as ckpt
+    from repro_torch.models.transformer import named_leaves
+    from repro_torch.obs.trace import SpanTracer
+    from repro_torch.serve.scheduler import ServeScheduler
+    from repro_torch.stream import (IncrementalDTI, LocalDirStore,
+                                    OnlineTrainer, ParamPublisher,
+                                    ParamSubscriber, PrefixPrewarmer,
+                                    StreamPipeline, make_stream_loss_fn)
+    from repro_torch.train.optimizer import OptimizerConfig, is_trainable
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    mat = stream_material(cfg)
+    n_events = sum(len(t) for t in mat["ticks"])
+    log(f"phase 21: continual training, {cfg.name}: {STREAM_USERS} users "
+        f"(warm {mat['n_ctx']} interactions), {n_events} events in "
+        f"{STREAM_TICKS} ticks, batches of {STREAM_ROWS} in buckets "
+        f"{STREAM_BUCKETS}, LoRA AdamW publishing every {STREAM_PUBLISH} "
+        f"steps to a keep-2 store; ServeScheduler (phase 9's settings) on a "
+        f"ParamSubscriber, {STREAM_REQ} requests a round, a prewarmer")
+    shutil.rmtree(STREAM_DIR, ignore_errors=True)
+    inc = IncrementalDTI(n_ctx=mat["n_ctx"], k=TRAIN_K,
+                         max_len=mat["max_len"])
+    for u, (toks, labels) in enumerate(mat["warm"]):
+        inc.seed_history(u, toks, labels)
+    ocfg = OptimizerConfig(lr=STREAM_LR, warmup_steps=1, total_steps=100,
+                           trainable="lora")
+    named = list(named_leaves(params))
+    frozen = {p: (t, _bits(t)) for p, t in named
+              if not is_trainable(ocfg, p)}
+    lora = {p: t.clone() for p, t in named if is_trainable(ocfg, p)}
+
+    # publication: each publish's seconds, and those of its device -> host
+    # copies (``checkpoint._to_host``); the rest is the write
+    store = LocalDirStore(str(STREAM_DIR), keep=2)
+    publisher = ParamPublisher(store)
+    pubs, d2h = [], [0.0]
+    to_host, publish = ckpt._to_host, publisher.publish
+
+    def timed_to_host(t):
+        t0 = time.perf_counter()
+        out = to_host(t)
+        d2h[0] += time.perf_counter() - t0
+        return out
+
+    def timed_publish(version, p):
+        d2h[0] = 0.0
+        t0 = time.perf_counter()
+        publish(version, p)
+        pubs.append((version, time.perf_counter() - t0, d2h[0]))
+    publisher.publish = timed_publish
+
+    trainer = OnlineTrainer(make_stream_loss_fn(cfg, mat["window"]), params,
+                            ocfg, publisher=publisher,
+                            publish_every=STREAM_PUBLISH, window_targets=64)
+    batches = []
+    step = _Counted(kernels, trainer.step_fn, timed=sync,
+                    on_call=lambda state, batch, gen: batches.append(batch))
+    trainer.step_fn = step
+    observe, nonfinite = trainer._observe, [0]
+
+    def checked_observe(batch, p):
+        nonfinite[0] += int((~np.isfinite(p[batch["target_mask"]])).sum())
+        observe(batch, p)
+    trainer._observe = checked_observe
+
+    # serving: the subscriber polled every step; each version's first
+    # decode dispatch and each restore's seconds
+    tracer = SpanTracer()
+    sched = ServeScheduler(params, cfg, **SCHED, attn_impl="cuda",
+                           cache_dtype=cfg.cdtype, tracer=tracer,
+                           device=dev)
+    sched.warmup()
+    sub = ParamSubscriber(store, params)
+    restores, first_step = [], {}
+
+    def source():
+        t0 = time.perf_counter()
+        got = sub.poll()
+        if got is not None:
+            sync()
+            restores.append((got[0], time.perf_counter() - t0))
+        return got
+    sched.attach_param_source(source, poll_every=1)
+    decode = _Counted(kernels, sched._decode, on_call=lambda *a: first_step
+                      .setdefault(sched.params_version, time.perf_counter()))
+    sched._decode = decode
+    prewarmer = PrefixPrewarmer(inc, sched, top_k=STREAM_REQ, min_events=1.0)
+    rounds, served = [], set()
+
+    def serve(label, users, seed, warm_first=False):
+        served.update(users)
+        if warm_first:
+            warmed = prewarmer.tick()
+            sched.run()
+        v0 = sched.params_version
+        reqs = stream_requests(mat["ds"], inc, users, seed)
+        rids = [sched.submit(ctx, cands) for ctx, cands in reqs]
+        tracer.clear()
+        hits0, shared0 = sched.cross_row_hits, sched.shared_admissions
+        out = sched.run()
+        steps = [ev["dur"] / 1e3 for ev in tracer.events()
+                 if ev["name"] == "scheduler.step"]
+        landed = sched.params_version != v0
+        if not warm_first:
+            warmed = prewarmer.tick(swapped=landed)
+            if warmed:
+                sched.run()
+        p = np.asarray([out[r].scores for r in rids if r in out])
+        if p.shape != (len(rids), STREAM_CAND) or not (
+                np.isfinite(p).all() and ((p > 0) & (p < 1)).all()):
+            fail(f"phase 21 {label}: scores {p.shape}, finite "
+                 f"{np.isfinite(p).all()}, in [{p.min()}, {p.max()}], want "
+                 "all in (0, 1)")
+        versions = {tuple(out[r].params_versions) for r in rids}
+        rounds.append(dict(label=label, steps=steps, landed=landed,
+                           p_range=(float(p.min()), float(p.max())),
+                           warmed=len(warmed), versions=versions,
+                           hits=sched.cross_row_hits - hits0,
+                           shared=sched.shared_admissions - shared0))
+        return reqs, out, rids
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    plain = _PlainCalls(None)
+    plain_dec = _PlainCalls([(engine, "decode_attention_plain")])
+    ckpt._to_host = timed_to_host
+    stats, t_in = [], []
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    try:
+        serve("before the stream", range(STREAM_REQ), seed=0)
+        for t, tick in enumerate(mat["ticks"]):
+            t_in.append(time.perf_counter())
+            prewarmer.observe(tick)
+            pipe = StreamPipeline(iter([tick]), inc, batch_size=STREAM_ROWS,
+                                  buckets=STREAM_BUCKETS)
+            trainer.run(pipe.batches(), gen=gen)
+            stats.append(pipe.stats)
+            serve(f"after tick {t}", sorted({e["user"] for e in tick})
+                  [:STREAM_REQ], seed=t + 1)
+        hot = sorted(prewarmer._heat, key=lambda u: (-prewarmer._heat[u],
+                                                     u))[:STREAM_REQ]
+        reqs, out, rids = serve("after the last swap, prewarmed", hot,
+                                seed=9, warm_first=True)
+        # a user no round served: its request admits cold, as on a fresh
+        # scheduler
+        cold = stream_requests(mat["ds"], inc, [max(set(range(STREAM_USERS))
+                                                    - served)], seed=10)[0]
+        rid = sched.submit(*cold)
+        p_cold = sched.run()[rid].scores
+        sync()
+    finally:
+        ckpt._to_host = to_host
+        plain.close()
+        plain_dec.close()
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+
+    fwd, dq, dkv = train_keys(cfg)
+    check_launches("phase 21 online steps", step.per_call,
+                   {fwd: 2 * cfg.n_layers, dq: cfg.n_layers,
+                    dkv: cfg.n_layers})
+    check_launches("phase 21 scheduler steps", decode.per_call,
+                   {"decode_attn": cfg.n_layers})
+    if plain.n or plain_dec.n:
+        fail(f"phase 21: plain attention ran {plain.n} times, plain decode "
+             f"{plain_dec.n} times")
+    trainer.flush_windows()
+    supervised = sum(int(b["target_mask"].sum()) for b in batches)
+    losses = [h["loss"] for h in trainer.history]
+    published = [v for v, _, _ in pubs]
+    if supervised != n_events:
+        fail(f"phase 21: {supervised} targets supervised, {n_events} new")
+    if trainer.lifetime_auc.n != supervised:
+        fail(f"phase 21: lifetime_auc.n {trainer.lifetime_auc.n}, "
+             f"{supervised} supervised")
+    if nonfinite[0] or not np.isfinite(losses).all():
+        fail(f"phase 21: losses {losses}, {nonfinite[0]} non-finite p_click")
+    if sub.skipped or [v for v, _ in restores] != published:
+        fail(f"phase 21: skipped {sub.skipped}, restored "
+             f"{[v for v, _ in restores]}, published {published}")
+    if not (published and sched.params_version == published[-1]
+            == trainer.step):
+        fail(f"phase 21: scheduler at version {sched.params_version}, "
+             f"published {published}, {trainer.step} steps")
+    hold_lora_update(frozen, lora, trainer.state)
+
+    # the last version: requests after the last swap against a fresh
+    # scheduler on the restored weights. The cold one admits as it does
+    # there, so its bits must be equal; the prewarmed one's prefix was
+    # committed in the prewarm's chunks, so bf16 rounds it otherwise
+    fresh = ServeScheduler(sub.template, cfg, **SCHED, attn_impl="cuda",
+                           cache_dtype=cfg.cdtype, device=dev)
+    fresh._decode = fresh_dec = _Counted(kernels, fresh._decode)
+    gaps = []
+    for req, want in ((cold, p_cold), (reqs[0], out[rids[0]].scores)):
+        rid = fresh.submit(*req)
+        gaps.append(float(np.abs(np.asarray(fresh.run()[rid].scores)
+                                 - np.asarray(want)).max()))
+    del fresh
+    # drain_before_swap: one swap while requests are in flight
+    drain = ServeScheduler(params, cfg, **SCHED, attn_impl="cuda",
+                           cache_dtype=cfg.cdtype, drain_before_swap=True,
+                           device=dev)
+    drain._decode = drain_dec = _Counted(kernels, drain._decode)
+    d_rids = [drain.submit(ctx, cands) for ctx, cands in reqs]
+    for _ in range(3):
+        drain.step()
+    in_flight = sum(len(r.active) for r in drain._rows)
+    drain.update_params(sub.template, version=published[-1])
+    late = drain.submit(*reqs[1])
+    d_out = drain.run()
+    d_versions = [d_out[r].params_versions for r in d_rids]
+    d_tel = drain.telemetry()
+    del drain
+    check_launches("phase 21 fresh and drain schedulers",
+                   fresh_dec.per_call + drain_dec.per_call,
+                   {"decode_attn": cfg.n_layers})
+    if gaps[0] != 0 or not gaps[1] <= P_TOL:
+        fail(f"phase 21: the last version scores {gaps} (cold, prewarmed) "
+             f"off a fresh scheduler, want 0 and at most {P_TOL}")
+    if (not in_flight or d_versions != [[None]] * len(d_rids)
+            or d_out[late].params_versions != [published[-1]]
+            or d_tel["swap_drains"] != 1):
+        fail(f"phase 21 drain: {in_flight} in flight, versions {d_versions}, "
+             f"late {d_out[late].params_versions}, swap_drains "
+             f"{d_tel['swap_drains']}")
+
+    step_ms = float(np.median(step.ms))
+    pad = 1 - (sum(s.n_tokens for s in stats) / sum(s.n_slots for s in stats))
+    fresh_s = [first_step[v] - t_in[t] for t, v in enumerate(published)]
+    swap_ms = [r["steps"][0] for r in rounds if r["landed"]]
+    other = [ms for r in rounds for ms in r["steps"][1:]]
+    times = dict(step_ms=step_ms, targets_per_s=supervised
+                 / (sum(step.ms) / 1e3), pad=pad, publish=pubs,
+                 restore=restores, swap_ms=swap_ms,
+                 sched_ms=float(np.median(other)), fresh_s=fresh_s,
+                 peak_gib=peak / 2**30, warmed=prewarmer.warmed,
+                 fresh_gaps=gaps,
+                 hits=sum(r["hits"] for r in rounds),
+                 shared=sum(r["shared"] for r in rounds))
+    log(f"  {trainer.step} online steps, ms {[round(m, 2) for m in step.ms]}"
+        f" (median {step_ms:.2f}), {times['targets_per_s']:.2f} targets/s, "
+        f"losses {[round(x, 4) for x in losses]}, pad_fraction {pad:.4f}; "
+        f"{supervised} targets supervised once, lifetime AUC "
+        f"{trainer.lifetime_auc.value():.4f} over {trainer.lifetime_auc.n}")
+    log("  publishes (version, s, device->host s, write s) "
+        + str([(v, round(s, 2), round(h, 2), round(s - h, 2))
+               for v, s, h in pubs])
+        + "; restores onto the card (version, s) "
+        + str([(v, round(s, 2)) for v, s in restores]))
+    log(f"  scheduler: swap steps {[round(m, 1) for m in swap_ms]} ms, other "
+        f"steps median {times['sched_ms']:.2f} ms over {len(other)}; rounds "
+        + "; ".join(f"{r['label']}: {len(r['steps'])} steps, versions "
+                    f"{sorted(r['versions'])}, warmed {r['warmed']}, "
+                    f"cross-row hits {r['hits']}, shared admissions "
+                    f"{r['shared']}, p in [{r['p_range'][0]:.4f}, "
+                    f"{r['p_range'][1]:.4f}]" for r in rounds))
+    log(f"  time to freshness (tick in -> first step on its version) "
+        f"{[round(s, 2) for s in fresh_s]} s; warmed {prewarmer.warmed}, "
+        f"skipped swap ticks {prewarmer.skipped_swap_ticks}; last version "
+        f"vs a fresh scheduler max|diff|: a cold request {gaps[0]:.3e} "
+        f"(must be 0), a prewarmed one {gaps[1]:.3e} (tol {P_TOL}); drain: "
+        f"{in_flight} requests in flight, versions {d_versions}, "
+        f"swap_drains {d_tel['swap_drains']} in {d_tel['swap_drain_steps']} "
+        f"steps; peak {peak / 2**30:.2f} GiB ({card_line()})")
+    for d in fresh_dec.per_call + drain_dec.per_call:
+        for k, n in d.items():
+            launches[k] += n
+    mixed = next(b for b in batches if (b["is_sum"]
+                                        & ~b["target_mask"]).any(1).sum()
+                 >= TRAIN_ROWS // 2)
+    del trainer, sched, sub, step, decode
+    shutil.rmtree(STREAM_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return dict(launches=launches, times=times, batch=mixed,
+                window=mat["window"])
+
+
+class _ScaleTerms:
+    """While installed, each LoRA ``dense`` call of the model (the same
+    operations in the same order) taps the terms of its ``lora_scale``
+    gradient, dL/dy * ((x A) B) over every element of y, as the backward
+    reaches them: their sum and the sum of their magnitudes go to
+    ``signed`` and ``mags`` under the id of the ``lora_scale`` leaf."""
+
+    def __init__(self):
+        import repro_torch.models.attention as attn
+        import repro_torch.models.layers as layers
+        self.signed, self.mags = {}, {}
+        self._mods, self._orig = (attn, layers), layers.dense
+        for m in self._mods:
+            m.dense = self._dense
+
+    def _dense(self, p, x):
+        if "lora_a" not in p:
+            return self._orig(p, x)
+        y = x @ p["w"]
+        v = (x @ p["lora_a"]) @ p["lora_b"]
+        if v.requires_grad:
+            key, vd = id(p["lora_scale"]), v.detach()
+            s = p["lora_scale"].detach()
+
+            def tap(g):   # g = dL/dv = dL/dy * lora_scale
+                t = g * vd / s
+                for acc, part in ((self.signed, t), (self.mags, t.abs())):
+                    acc[key] = (acc.get(key, 0)
+                                + part.sum(dtype=torch.float64))
+            v.register_hook(tap)
+        y = y + v * p["lora_scale"]
+        if "b" in p:
+            y = y + p["b"]
+        return y
+
+    def close(self):
+        for m in self._mods:
+            m.dense = self._orig
+
+
+def _stream_grads(cfg, params, batch, window):
+    """The stream loss, every LoRA leaf's gradient and p_click at the
+    supervised positions."""
+    from repro_torch.models.transformer import named_leaves
+    from repro_torch.stream import make_stream_loss_fn
+    leaves = [(p, t) for p, t in named_leaves(params) if "lora" in str(p)]
+    for _, t in leaves:
+        t.requires_grad_(True)
+    try:
+        loss, aux = make_stream_loss_fn(cfg, window)(params, batch)
+        grads = torch.autograd.grad(loss, [t for _, t in leaves])
+    finally:
+        for _, t in leaves:
+            t.requires_grad_(False)
+    p = aux["p_click"][batch["target_mask"]].float().cpu().numpy()
+    return float(loss.detach()), {q: g for (q, _), g in zip(leaves, grads)}, p
+
+
+def phase_stream32(cfg, params, stream, rows=TRAIN_ROWS // 2):
+    """Phase 21b: 2 layers at FULL widths in fp32 on ``rows`` rows of a
+    stream batch holding [SUM] rows with ``target_mask`` false (re-emitted
+    context), kernel path against dense path: the stream loss and the
+    lora_a / lora_b gradients at phase 8's tolerances, p_click at the
+    supervised positions within P32_TOL. Each scalar ``lora_scale``
+    gradient is one sum over its branch's whole output, and its terms
+    cancel, so it is held at GRAD32_TOL of the sum of its terms'
+    magnitudes, tapped on the dense path (``_ScaleTerms``; the tapped
+    terms must sum to the dense gradient within the same bound)."""
+    from repro_torch.models.transformer import named_leaves
+    b = stream["batch"]
+    keep = np.flatnonzero((b["is_sum"] & ~b["target_mask"]).any(1))[:rows]
+    dev = params["embed"].device
+    batch = {k: torch.from_numpy(v[keep]).to(dev) for k, v in b.items()}
+    log(f"phase 21b: fp32 at 2 layers, {len(keep)} stream rows with "
+        f"{int((b['is_sum'] & ~b['target_mask'])[keep].sum())} re-emitted "
+        f"[SUM] rows and {int(b['target_mask'][keep].sum())} supervised, "
+        "kernel path vs dense path")
+    cfg2 = dataclasses.replace(cfg, n_layers=2, param_dtype="float32",
+                               compute_dtype="float32")
+    p32 = _layers(params, 2, torch.float32)
+    got = {"cuda": _stream_grads(dataclasses.replace(cfg2, attn_impl="cuda"),
+                                 p32, batch, stream["window"])}
+    taps = _ScaleTerms()
+    try:
+        got["dense"] = _stream_grads(dataclasses.replace(cfg2,
+                                                         attn_impl="dense"),
+                                     p32, batch, stream["window"])
+    finally:
+        taps.close()
+    mats = {k: (v[0], {p: g for p, g in v[1].items()
+                       if p[-1] != "lora_scale"}) for k, v in got.items()}
+    out = hold_lora_grads(mats)
+    gc, gd = got["cuda"][1], got["dense"][1]
+    scales = {p: id(t) for p, t in named_leaves(p32) if p[-1] == "lora_scale"}
+    if set(taps.mags) != set(scales.values()):
+        fail(f"phase 21b: tapped {len(taps.mags)} lora_scale sums, the model "
+             f"has {len(scales)}")
+    rel, cancel, tap_rel = [], [], []
+    for p, key in scales.items():
+        terms = float(taps.mags[key])
+        err = float((gc[p] - gd[p]).abs())
+        tap_err = abs(float(taps.signed[key]) - float(gd[p]))
+        rel.append(err / max(terms, 1e-30))
+        tap_rel.append(tap_err / max(terms, 1e-30))
+        cancel.append(terms / max(float(gd[p].abs()), 1e-30))
+        if not (err <= GRAD32_TOL * terms and tap_err <= GRAD32_TOL * terms):
+            fail(f"phase 21b: lora_scale gradient {p}: kernel vs dense {err}, "
+                 f"tapped terms' sum vs dense {tap_err}, sum of |terms| "
+                 f"{terms} (tol {GRAD32_TOL} of it), dense {float(gd[p])}")
+    err = float(np.abs(got["cuda"][2] - got["dense"][2]).max())
+    log(f"  p_click at the supervised positions: max|cuda - dense| "
+        f"{err:.3e} (tol {P32_TOL}); {len(scales)} lora_scale gradients: "
+        f"max|diff| / sum of |terms| {max(rel):.3e} (tol {GRAD32_TOL}), sum "
+        f"of |terms| / |grad| from {min(cancel):.3e} to {max(cancel):.3e}, "
+        f"|tapped sum - dense| / sum of |terms| {max(tap_rel):.3e}")
+    if not err <= P32_TOL:
+        fail(f"phase 21b: p_click kernel vs dense {err}")
+    del p32, got
+    torch.cuda.empty_cache()
+    return dict(out, p_err=err, scale_rel=max(rel))
 
 
 # ---------------------------------------------------------------------------
@@ -4778,10 +5333,25 @@ def card_line() -> str:
     return r.stdout.strip().splitlines()[0]
 
 
+#: phases a development run may name (``--phases 1,21``); each runs with
+#: what it needs before it (3: phases 3-5, 7: 7-8, 9: 9-10, 18: 18-19b,
+#: 21: 21-21b), and phase 1 always runs
+SELECTABLE = ("2", "3", "7", "9", "11", "12", "13", "14", "15", "16", "17",
+              "18", "20", "21")
+
+
 def main() -> int:
+    phases = None
     if len(sys.argv) > 1:
-        print(__doc__, file=sys.stderr)
-        return 2
+        if len(sys.argv) != 3 or sys.argv[1] != "--phases":
+            print(__doc__, file=sys.stderr)
+            return 2
+        phases = set(sys.argv[2].split(",")) - {"1"}
+        if not phases <= set(SELECTABLE):
+            print(f"chip_smoke: phases {sorted(phases - set(SELECTABLE))} "
+                  f"cannot be selected; choose from 1, "
+                  f"{', '.join(SELECTABLE)}", file=sys.stderr)
+            return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -4794,15 +5364,26 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
-    graphs = start_gnn_graphs()
-    try:
-        return run_phases(kernels, graphs, t_start)
-    finally:
-        graphs[0].shutdown(cancel_futures=True)
-        shutil.rmtree(GRAPH_DIR, ignore_errors=True)
+    LOG_PATH.parent.mkdir(exist_ok=True)
+    with open(LOG_PATH, "w") as f:
+        _LOG_FILES.append(f)
+        graphs = (start_gnn_graphs() if phases is None or "16" in phases
+                  else None)
+        try:
+            return run_phases(kernels, graphs, t_start, phases)
+        except BaseException:
+            f.write(traceback.format_exc())
+            raise
+        finally:
+            if graphs is not None:
+                graphs[0].shutdown(cancel_futures=True)
+                shutil.rmtree(GRAPH_DIR, ignore_errors=True)
+            _LOG_FILES.clear()
 
 
-def run_phases(kernels, graphs, t_start) -> int:
+def phase_build(kernels):
+    """Phase 1: build the kernels; returns nvcc's logs and the card's
+    name and power limit."""
     log("phase 1: build")
     t0 = time.perf_counter()
     logs = kernels.build()
@@ -4815,70 +5396,115 @@ def run_phases(kernels, graphs, t_start) -> int:
     log(card)
     log(f"  torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
+    return logs, card
 
-    check_kernels_small()
-    real = check_kernels_real()
-    bwd = check_kernels_bwd("2d", BWD_CASES, seed=4)
-    q8res = check_kernels_q8()
-    mla_k = check_kernels_mla()
-    wide = check_kernels_wide()
-    wide_bwd = check_kernels_bwd("2i", WIDE_BWD_CASES, seed=28,
-                                 heads=DS_HEADS, leak_dims=(192, 128),
-                                 unaligned=True, keep=False)
-    bag = check_kernels_bag(kernels)
-    recsys = phase_recsys(kernels)
+
+def ok_line() -> dict:
+    return {"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}
+
+
+def run_phases(kernels, graphs, t_start, phases=None) -> int:
+    """Every phase, phase 6's times and the ``kernels`` line when
+    ``phases`` is None; else a development run of phase 1 and the groups
+    named in ``phases`` (see SELECTABLE), with their checks and launch
+    counts but no phase 6 and no ``kernels`` line (its times need every
+    phase)."""
+    def want(name):
+        return phases is None or name in phases
+
+    logs, card = phase_build(kernels)
+    launches = {name: 0 for name in kernels.KERNELS}
+    ran = []        # each phase's result whose launches go into the totals
+
+    if want("2"):
+        check_kernels_small()
+        real = check_kernels_real()
+        bwd = check_kernels_bwd("2d", BWD_CASES, seed=4)
+        q8res = check_kernels_q8()
+        mla_k = check_kernels_mla()
+        wide = check_kernels_wide()
+        wide_bwd = check_kernels_bwd("2i", WIDE_BWD_CASES, seed=28,
+                                     heads=DS_HEADS, leak_dims=(192, 128),
+                                     unaligned=True, keep=False)
+        bag = check_kernels_bag(kernels)
+        ran.append(bag)
+    if want("11"):
+        recsys = phase_recsys(kernels)
+        torch.cuda.empty_cache()
+    if want("12"):
+        mla = phase_mla(kernels)
+        ran.append(mla)
+    if want("13"):
+        mla_train = phase_mla_train(kernels)
+        ran.append(mla_train)
+    if want("14"):
+        moe = phase_moe(kernels)
+        ran.append(moe)
+    if want("20"):
+        moe_train = phase_moe_train(kernels)
+        ran.append(moe_train)
+    if want("15"):
+        gqa = phase_gqa_archs(kernels)
+        ran.append(gqa)
     torch.cuda.empty_cache()
-    mla = phase_mla(kernels)
-    mla_train = phase_mla_train(kernels)
-    moe = phase_moe(kernels)
-    moe_train = phase_moe_train(kernels)
-    gqa = phase_gqa_archs(kernels)
-    torch.cuda.empty_cache()
-    ds = phase_deepseek(kernels)
-    torch.cuda.empty_cache()
-    gnn = phase_gnn(kernels, graphs)
-    torch.cuda.empty_cache()
+    if want("18"):
+        ds = phase_deepseek(kernels)
+        ran += [ds, ds["train"]]
+        torch.cuda.empty_cache()
+    if want("16"):
+        gnn = phase_gnn(kernels, graphs)
+        ran.append(gnn)
+        torch.cuda.empty_cache()
 
-    cfg, params = build_model()
-    users, prompts = serving_material(cfg)
-    kernels.reset_launches()
-    server, p_prefill = phase_prefill(cfg, params, prompts, kernels)
-    run = phase_decode(cfg, params, users, server, p_prefill, kernels)
-    launches = dict(kernels.LAUNCHES)
-    want = {"windowed_attn": cfg.n_layers * (1 + run["n_prefill_calls"]),
-            "windowed_attn_dq": 0, "windowed_attn_dkv": 0,
-            "decode_attn": cfg.n_layers * run["n_steps"], "decode_attn_q8": 0,
-            "decode_attn_mla": 0, "decode_attn_mla_q8": 0,
-            "embedding_bag": 0, "embedding_bag_q8": 0,
-            "windowed_attn_192": 0, "decode_attn_mla_576": 0,
-            "decode_attn_mla_576_q8": 0, "windowed_attn_dq_192": 0,
-            "windowed_attn_dkv_192": 0}
-    log(f"  serving path launches {launches}: kernel 1 in "
-        f"{1 + run['n_prefill_calls']} prefill calls, kernel 4 in "
-        f"{run['n_steps']} decode steps")
-    if launches != want:
-        fail(f"serving path launches {launches}, want {want}")
-
-    phase_full_width_checks(cfg, params, prompts, users, p_prefill, kernels)
-
-    mat = training_material(cfg)
-    train = phase_train(cfg, params, mat, kernels)
-    log(f"  training path launches {train['launches']}")
-    for name, n in train["launches"].items():
-        launches[name] += n
-    check32 = phase_fp32_train_check(cfg, params, mat)
-
-    sched_runs, sched_errs = phase_sched(cfg, params, kernels)
-    for res in sched_runs.values():
+    if phases is None or phases & {"3", "7", "9", "17", "21"}:
+        cfg, params = build_model()
+    if want("3"):
+        users, prompts = serving_material(cfg)
+        kernels.reset_launches()
+        server, p_prefill = phase_prefill(cfg, params, prompts, kernels)
+        run = phase_decode(cfg, params, users, server, p_prefill, kernels)
+        served = dict(kernels.LAUNCHES)
+        expect = {name: 0 for name in kernels.KERNELS}
+        expect.update({"windowed_attn": cfg.n_layers
+                       * (1 + run["n_prefill_calls"]),
+                       "decode_attn": cfg.n_layers * run["n_steps"]})
+        log(f"  serving path launches {served}: kernel 1 in "
+            f"{1 + run['n_prefill_calls']} prefill calls, kernel 4 in "
+            f"{run['n_steps']} decode steps")
+        if served != expect:
+            fail(f"serving path launches {served}, want {expect}")
+        ran.append(dict(launches=served))
+        phase_full_width_checks(cfg, params, prompts, users, p_prefill,
+                                kernels)
+    if want("7"):
+        mat = training_material(cfg)
+        train = phase_train(cfg, params, mat, kernels)
+        log(f"  training path launches {train['launches']}")
+        ran.append(train)
+        check32 = phase_fp32_train_check(cfg, params, mat)
+    if want("9"):
+        sched_runs, sched_errs = phase_sched(cfg, params, kernels)
+        ran += sched_runs.values()
+        sched32 = phase_sched32(cfg, params, kernels)
+        torch.cuda.empty_cache()
+    if want("17"):
+        multi = phase_multi_target(cfg, params, kernels)
+        ran.append(multi)
+    if want("21"):
+        stream = phase_stream(cfg, params, kernels)
+        ran.append(stream)
+        stream32 = phase_stream32(cfg, params, stream)
+    for res in ran:
         for name, n in res["launches"].items():
             launches[name] += n
-    sched32 = phase_sched32(cfg, params, kernels)
-    torch.cuda.empty_cache()
-    multi = phase_multi_target(cfg, params, kernels)
-    for res in (bag, mla, mla_train, moe, moe_train, gqa, gnn, multi, ds,
-                ds["train"]):
-        for name, n in res["launches"].items():
-            launches[name] += n
+    if phases is not None:
+        log(f"total {time.perf_counter() - t_start:.1f}s (phases 1, "
+            f"{', '.join(sorted(phases, key=int))}; launches {launches}; no "
+            "kernels line)")
+        emit(ok_line())
+        return 0
 
     log("phase 6: times (CUDA events after warm-up)")
     t_prefill = cuda_ms(lambda: server.score(prompts), iters=3, warmup=1)
@@ -5064,6 +5690,19 @@ def run_phases(kernels, graphs, t_start) -> int:
             f"{t['busy_ms']:.2f} ms a profiled step, dropped choices "
             f"{t['drops'][0]} of {t['drops'][1]}; fp32 check {res['check']} "
             f"({card})")
+    st = stream["times"]
+    log(f"  continual training (21): online step {st['step_ms']:.2f} ms, "
+        f"{st['targets_per_s']:.2f} targets/s, pad_fraction {st['pad']:.4f}, "
+        f"publish s {[round(x[1], 2) for x in st['publish']]} (device->host "
+        f"{[round(x[2], 2) for x in st['publish']]}), restore s "
+        f"{[round(x[1], 2) for x in st['restore']]}, scheduler swap steps "
+        f"{[round(x, 1) for x in st['swap_ms']]} ms vs median "
+        f"{st['sched_ms']:.2f} ms, freshness "
+        f"{[round(x, 2) for x in st['fresh_s']]} s, warmed "
+        f"{st['warmed']}, cross-row hits {st['hits']}, shared admissions "
+        f"{st['shared']}, last version vs a fresh scheduler (cold, "
+        f"prewarmed) {st['fresh_gaps']}, peak "
+        f"{st['peak_gib']:.2f} GiB; 21b {stream32} ({card})")
     log("  GQA archs: " + "; ".join(
         f"{name} prefill {t['prefill_ms']:.2f} ms, decode burst step "
         f"{t['decode_ms']:.2f} ms, fp32 diffs {gqa['checks'][name]}"
@@ -5085,10 +5724,8 @@ def run_phases(kernels, graphs, t_start) -> int:
     log(f"  windowed_attn_192's bf16 instantiations (-Xptxas -v): "
         f"{wide_fwd_ptxas(logs)}")
     log(f"total {time.perf_counter() - t_start:.1f}s")
-    print(json.dumps({"kernels": rows}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+    emit({"kernels": rows})
+    emit(ok_line())
     return 0
 
 

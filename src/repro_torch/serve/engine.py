@@ -406,6 +406,12 @@ class CTRServer:
         self._mt_prefill = make_multi_target_prefill_fn(
             self.cfg, yes_id=self.yes_id, no_id=self.no_id)
 
+    def update_params(self, params) -> None:
+        """Hot-swap serving weights (e.g. from a continual-training
+        ``ParamPublisher``); params are an argument of every call, so
+        nothing is rebuilt."""
+        self.params = params
+
     def _run(self, fn, rows, keys) -> np.ndarray:
         batch = {k: np.stack([r[k] for r in rows]) for k in keys}
         if batch["tokens"].shape[1] != self.max_len:

@@ -109,8 +109,7 @@ _NULLCTX = nullcontext()
 #: ``config`` (construction-time constant). ``reset`` is the exact
 #: post-``reset_telemetry()`` value for resettable keys
 #: ("zero_map" = dict with every value 0). The keys are the reference's;
-#: ``mesh``, ``drain_before_swap`` and the swap-drain counters report the
-#: knobs that wait for later slices (None, False, 0).
+#: ``mesh`` reports the knob that waits for the scale-out slice (None).
 TELEMETRY_SCHEMA: Dict[str, Dict[str, Any]] = {
     "steps": {"kind": "counter", "reset": 0},
     "overlap": {"kind": "config"},
@@ -334,10 +333,19 @@ class ServeScheduler:
       ``telemetry()`` — a stalled/never-draining row is a scheduler bug
       surfaced rather than a silent hang.
 
-    Knobs that wait for later slices raise ``NotImplementedError``:
-    ``mesh`` (scale-out, ROADMAP queue A item 8), ``drain_before_swap=True``
-    and ``attach_param_source`` (streaming, item 6). ``update_params``
-    works in its default mixed-version mode.
+    * ``drain_before_swap`` — make ``update_params`` *drain* in-flight
+      work first: admission is suppressed, the pipeline and every active
+      row run to completion under the old weights, and only then do the
+      new weights land. Every request is then scored under exactly one
+      weight version (``RequestResult.params_versions``) — the
+      version-purity contract a fleet-wide hot-swap needs — at the cost
+      of a drain bubble (``swap_drain_steps`` in ``telemetry()``). Default
+      False keeps the mixed-version straddle (zero dropped traffic,
+      bounded staleness).
+
+    ``attach_param_source`` polls a weight publisher (e.g.
+    ``stream.publish.ParamSubscriber.poll``) between steps. ``mesh``
+    (scale-out, ROADMAP queue A item 8) raises ``NotImplementedError``.
     """
 
     def __init__(self, params, cfg: ModelConfig, *, n_slots: int = 8,
@@ -361,10 +369,6 @@ class ServeScheduler:
             raise NotImplementedError(
                 "a serving mesh waits for the scale-out slice (ROADMAP "
                 "queue A, item 8)")
-        if drain_before_swap:
-            raise NotImplementedError(
-                "drain_before_swap waits for the streaming slice (ROADMAP "
-                "queue A, item 6); the default mixed-version swap works")
         self.device = resolve_device(device)
         if window is None:
             window = cfg.window          # match make_prefill_fn's default
@@ -386,6 +390,8 @@ class ServeScheduler:
         self.overlap = bool(overlap)
         self.watchdog_steps = int(watchdog_steps)
         self.paged = bool(paged)
+        self.drain_before_swap = bool(drain_before_swap)
+        self._in_swap = False
         # observability: a tracer (default no-op) plus the metrics
         # registry backing every counter telemetry() reports. The public
         # counter attributes (`n_steps`, `shared_admissions`, ...) are
@@ -457,6 +463,9 @@ class ServeScheduler:
         self._inflight: deque = deque()  # dispatched, un-harvested steps
         self._prefill_rr = 0             # rotates budget priority over rows
         self.params_version: Optional[int] = None
+        self._param_source = None
+        self._poll_every = 1
+        self._poll_tick = 0
         self.reset_stats()
 
     def _upload(self, a: np.ndarray) -> torch.Tensor:
@@ -590,9 +599,9 @@ class ServeScheduler:
             "kv_bytes": int(kv_cache_bytes(self.cache)),
             "kv_token_bytes": float(self._kv_token_bytes),
             "kv_bytes_committed": int(self._c_kv_committed.value),
-            # multi-device and drain-before-swap wait for later slices
+            # a serving mesh waits for the scale-out slice
             "mesh": None,
-            "drain_before_swap": False,
+            "drain_before_swap": bool(self.drain_before_swap),
             "swap_drains": int(self._c_swap_drains.value),
             "swap_drain_steps": int(self._c_swap_drain_steps.value),
         }
@@ -677,15 +686,21 @@ class ServeScheduler:
     # -- weight hot-swap -----------------------------------------------------
 
     def attach_param_source(self, source, *, poll_every: int = 8) -> None:
-        """Polling a weight publisher waits for the streaming slice
-        (ROADMAP queue A, item 6); call ``update_params`` directly."""
-        raise NotImplementedError(
-            "attach_param_source waits for the streaming slice (ROADMAP "
-            "queue A, item 6)")
+        """``source()`` -> None or (version, params) — e.g.
+        ``stream.publish.ParamSubscriber(...).poll``. Polled at the top of
+        ``step``, every ``poll_every``-th call: the source may hit a
+        filesystem or object store, so the default keeps that I/O off the
+        per-step decode hot path (weights change every ~publish_every
+        trainer steps; sub-step freshness buys nothing). Freshly published
+        weights land between decode steps through ``update_params``."""
+        if poll_every < 1:
+            raise ValueError(f"poll_every {poll_every} must be >= 1")
+        self._param_source = source
+        self._poll_every = poll_every
 
     def update_params(self, params, version: Optional[int] = None) -> None:
         """Swap serving weights in place; queued requests and busy rows are
-        untouched (the reference's default mixed-version mode).
+        untouched (the default mixed-version mode).
 
         Retained context blocks are **invalidated**: their KV encodes the
         old weights, so sharing them with post-swap requests would score
@@ -702,7 +717,28 @@ class ServeScheduler:
         row's slots are rolled back to empty (``trim_slots`` at keep=0 —
         enqueued after any in-flight chunk, in stream order) and the
         committer re-commits its full context from position 0 under the
-        new weights."""
+        new weights.
+
+        With ``drain_before_swap=True`` none of the straddle/restart
+        machinery is reachable: in-flight work is drained first (admission
+        suppressed, queued requests wait; with ``overlap`` the drain's
+        steps harvest the in-flight step too), so the swap lands on idle
+        rows and every request's KV — and every score — comes from exactly
+        one weight version."""
+        if self.drain_before_swap and not self._in_swap and (
+                self._inflight or any(r.active for r in self._rows)):
+            self._in_swap = True       # suppress admission + source polling
+            try:
+                drained = 0
+                while self._inflight or any(r.active for r in self._rows):
+                    if not self.step():
+                        break
+                    drained += 1
+                self._c_swap_drains.inc()
+                self._c_swap_drain_steps.inc(drained)
+                self.tracer.instant("swap_drain", steps=drained)
+            finally:
+                self._in_swap = False
         self.tracer.instant("hot_swap", version=version)
         self.params = params
         if version is not None:
@@ -1538,6 +1574,16 @@ class ServeScheduler:
             return self._step_impl(sp)
 
     def _step_impl(self, sp) -> bool:
+        if self._param_source is not None and not self._in_swap:
+            # dedicated counter: n_steps stalls on idle calls, which would
+            # either re-poll every call or never poll again. Polling is
+            # suppressed inside a drain-before-swap (its steps run under
+            # the old weights by construction).
+            if self._poll_tick % self._poll_every == 0:
+                update = self._param_source()
+                if update is not None:
+                    self.update_params(update[1], update[0])
+            self._poll_tick += 1
         # un-lag the pipeline when it pays: harvest an in-flight step
         # before admission if (a) it's free — the device already finished
         # it — or (b) requests are queued and the step is known (at
@@ -1549,7 +1595,7 @@ class ServeScheduler:
                 self._inflight[0][0].is_ready()
                 or (self._queue and self._inflight[0][2])):
             self._harvest_one()
-        if self._queue:
+        if self._queue and not self._in_swap:   # drains admit nothing
             with self.tracer.span("admit"):
                 while self._queue:
                     rid, ctx, cands, t0 = self._queue[0]
@@ -1573,7 +1619,8 @@ class ServeScheduler:
         commit = np.zeros((self.n_slots,), bool)
         for row, slot, u in work:
             # the version whose weights compute this unit — what
-            # RequestResult.params_versions reports
+            # RequestResult.params_versions reports (a one-element list
+            # under drain_before_swap)
             slot.versions.add(self.params_version)
             with tr.span("prefill_chunk" if u.commit else "burst",
                          row=row, rid=slot.rid,

@@ -73,7 +73,11 @@ def test_import_loads_neither_jax_nor_repro():
             "repro_torch.configs.qwen2_moe_a2_7b, repro_torch.serve, "
             "repro_torch.models.gnn, repro_torch.data.sampler, "
             "repro_torch.configs.gin_tu, repro_torch.launch.obs_report, "
-            "repro_torch.core.losses, repro_torch.obs.clock\n"
+            "repro_torch.core.losses, repro_torch.obs.clock, "
+            "repro_torch.stream, repro_torch.stream.incremental, "
+            "repro_torch.stream.pipeline, repro_torch.stream.online, "
+            "repro_torch.stream.publish, repro_torch.stream.prewarm, "
+            "repro_torch.stream.shard, repro_torch.core.metrics\n"
             "bad = [m for m in sys.modules if m == 'jax' or m == 'repro' "
             "or m.startswith(('jax.', 'repro.'))]\n"
             "assert not bad, bad\n")

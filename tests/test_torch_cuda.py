@@ -1180,3 +1180,54 @@ def test_multi_target_no_cross_candidate_leakage(gen):
     keep[2] = False
     assert torch.equal(got[keep], base[keep])
     assert got[2] != base[2]
+
+
+def test_stream_trains_on_the_kernels_and_restores_bit_equal(gen, tmp_path):
+    """Continual training on the card: a small stream trains 2 online
+    steps through the kernel path (per step kernel 1 in the forward and the
+    remat recompute, kernels 2 and 3 once per layer), publishes, and the
+    version restored onto the card equals the trainer's params bit for
+    bit."""
+    import dataclasses
+    from repro_torch.configs.dti_llama import REPRO
+    from repro_torch.data.requests import make_event_stream, warm_histories
+    from repro_torch.data.synthetic import make_ctr_dataset
+    from repro_torch.kernels.windowed_attn import launch_key
+    from repro_torch.models.transformer import init_params, named_leaves
+    from repro_torch.stream import (IncrementalDTI, OnlineTrainer,
+                                    ParamPublisher, ParamSubscriber,
+                                    StreamPipeline, make_stream_loss_fn)
+    from repro_torch.train.optimizer import OptimizerConfig
+    cfg = dataclasses.replace(REPRO, n_layers=2, attn_impl="cuda",
+                              lora_rank=4, remat=True,
+                              param_dtype="bfloat16", compute_dtype="bfloat16")
+    params = init_params(cfg, seed=0)
+    ds = make_ctr_dataset(n_users=4, n_items=50, seq_len=16,
+                          vocab_size=cfg.vocab_size, seed=0)
+    inc = IncrementalDTI(n_ctx=4, k=3, max_len=128)
+    for u, (toks, labels) in enumerate(warm_histories(ds, start_frac=0.5)):
+        inc.seed_history(u, toks, labels)
+    ticks = make_event_stream(ds, n_ticks=3, start_frac=0.5, seed=0)
+    pub = ParamPublisher(str(tmp_path))
+    trainer = OnlineTrainer(make_stream_loss_fn(cfg, window=32), params,
+                            OptimizerConfig(lr=1e-3, trainable="lora"),
+                            publisher=pub, publish_every=0)
+    keys = [launch_key(f"windowed_attn{k}", cfg.hd)
+            for k in ("", "_dq", "_dkv")]
+    before = [kernels.LAUNCHES[k] for k in keys]
+    trainer.run(StreamPipeline(iter(ticks), inc, batch_size=2).batches(),
+                n_steps=2, gen=gen)
+    torch.cuda.synchronize()
+    assert trainer.step == 2 and trainer.published_version == 2
+    got = [kernels.LAUNCHES[k] - b for k, b in zip(keys, before)]
+    assert got == [2 * 2 * cfg.n_layers, 2 * cfg.n_layers,
+                   2 * cfg.n_layers]
+    assert all(torch.isfinite(torch.tensor(h["loss"]))
+               for h in trainer.history)
+    version, restored = ParamSubscriber(str(tmp_path), params).poll()
+    assert version == 2
+    for (p, a), (_, b) in zip(named_leaves(restored),
+                              named_leaves(trainer.state.params)):
+        assert a.device.type == "cuda" and a.dtype == b.dtype, p
+        assert torch.equal(a.view(torch.uint8) if a.dim() else a,
+                           b.view(torch.uint8) if b.dim() else b), p

@@ -334,19 +334,11 @@ def test_paged_stream_against_contiguous_and_int8_against_fp32(weights):
 # what waits for later slices, and the device rule
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("what", ["mesh", "drain_before_swap",
-                                  "attach_param_source"])
+@pytest.mark.parametrize("what", ["mesh"])
 def test_later_slices_raise(weights, what):
     _, tp = weights
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if what == "mesh":
-            ServeScheduler(tp, CFG, device="cpu", mesh=object(), **SCHED)
-        elif what == "drain_before_swap":
-            ServeScheduler(tp, CFG, device="cpu", drain_before_swap=True,
-                           **SCHED)
-        else:
-            ServeScheduler(tp, CFG, device="cpu",
-                           **SCHED).attach_param_source(lambda: None)
+        ServeScheduler(tp, CFG, device="cpu", mesh=object(), **SCHED)
 
 
 def test_scheduler_needs_a_card_or_cpu(weights):
